@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain versions, on a CUDA card.
+
+Marked ``gpu``; each test skips without a card. The repo's
+``tests/conftest.py`` imports JAX, which the card's machine does not have,
+so run this file there without it:
+
+    python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from zdcsim_torch.convert import from_state_dict, tree_to_torch
+from zdcsim_torch.models.proton import Generator
+from zdcsim_torch.models.proton_fast import fast_generator_apply
+from zdcsim_torch.ops import decode_kernels as dk
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _bf16_ulp(t):
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f", [(3, 1000), (16, 92160)])
+def test_ln_leaky_rowquant_kernel_matches_plain(cuda, dtype, b, f):
+    rng = np.random.default_rng(b + f)
+    y = torch.as_tensor(rng.standard_normal((b, f), dtype=np.float32) * 3).to(cuda, dtype)
+    scale = torch.as_tensor(rng.standard_normal(f, dtype=np.float32) * 0.5 + 1).to(cuda)
+    bias = torch.as_tensor(rng.standard_normal(f, dtype=np.float32) * 0.2).to(cuda)
+    n0 = dk.ln_leaky_rowquant.launches
+    q, s = dk.ln_leaky_rowquant(y, scale, bias)
+    qp, sp = dk.ln_leaky_rowquant_plain(y, scale, bias)
+    torch.cuda.synchronize()
+    assert dk.ln_leaky_rowquant.launches == n0 + 1
+    assert q.shape == (b, f) and q.dtype == torch.int8 and s.shape == (b, 1)
+    torch.testing.assert_close(s, sp, rtol=1e-6, atol=0)
+    # bounds of tests/test_pallas_decode.py:36-44: the sums run in another order
+    diff = (q.int() - qp.int()).abs()
+    assert diff.max().item() <= 1 and (diff != 0).float().mean().item() < 0.01
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(4, 6, 4, 16, 8), (3, 18, 10, 512, 256),
+                                            (2, 5, 3, 36, 70)])
+def test_up2_conv4_int8_kernel_matches_plain(cuda, b, h, w, cin, cout):
+    rng = np.random.default_rng(cin + cout)
+    xq = torch.as_tensor(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(cuda)
+    sx = torch.as_tensor(np.abs(rng.standard_normal(b)).astype(np.float32) * 0.01 + 1e-3).to(cuda)
+    kernel = torch.as_tensor(rng.standard_normal((4, 4, cin, cout), dtype=np.float32) * 0.1).to(cuda)
+    bias = torch.as_tensor(rng.standard_normal(cout, dtype=np.float32) * 0.5).to(cuda)
+    kq, sk = dk._quant_phases(kernel)
+    n0 = dk.up2_conv4_int8.launches
+    out = dk.up2_conv4_int8(xq, sx, kq, sk, bias, out_dtype=torch.float32)
+    ref = dk.up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.float32)
+    outb = dk.up2_conv4_int8(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16)
+    refb = dk.up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert dk.up2_conv4_int8.launches == n0 + 2
+    assert out.shape == (b, 2 * h - 1, 2 * w - 1, cout)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    assert bool(((outb.float() - refb.float()).abs() <= _bf16_ulp(refb.float())).all())
+
+
+def test_up2_conv4_int8_rejects_cin_not_multiple_of_4(cuda):
+    xq = torch.zeros((1, 4, 4, 6), dtype=torch.int8, device=cuda)
+    kq = torch.zeros((25, 6, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dk.up2_conv4_int8(xq, torch.ones(1, device=cuda), kq, torch.ones((4, 8), device=cuda),
+                          torch.zeros(8, device=cuda))
+
+
+def test_fast_generator_pallas_ab_card_matches_cpu(cuda):
+    """The pallas_ab decode with the kernels on the card against the same
+    decode on the CPU (plain versions), on a narrow random generator."""
+    torch.manual_seed(0)
+    params = from_state_dict(Generator(width=1 / 16).state_dict())
+    rng = np.random.default_rng(0)
+    noise = torch.as_tensor(rng.standard_normal((8, 10), dtype=np.float32))
+    cond = torch.as_tensor(rng.standard_normal((8, 9), dtype=np.float32))
+    ref = fast_generator_apply(tree_to_torch(params), noise, cond, int8=True,
+                               int8_backend="pallas_ab").numpy()
+    out = fast_generator_apply(tree_to_torch(params, device=cuda), noise.to(cuda), cond.to(cuda),
+                               int8=True, int8_backend="pallas_ab").cpu().numpy()
+    # int8 bound of tests/test_pallas_decode.py:203 (rounding flips cascade)
+    assert np.abs(out - ref).max() < 0.05 * np.abs(ref).max() + 0.05

@@ -1,0 +1,66 @@
+"""The port runs where JAX, Flax, PyYAML, pandas, scikit-learn and
+matplotlib are absent (the GPU machine has none of them).
+
+A subprocess installs an import hook that refuses those packages and the
+JAX package ``zdcsim`` (not ``zdcsim_torch``), then imports every module of
+``zdcsim_torch`` and rehearses ``chip_smoke.py`` on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "yaml", "pandas", "sklearn", "matplotlib", "zdcsim")
+
+_GUARD = f"""
+import importlib.abc, sys
+FORBIDDEN = {FORBIDDEN!r}
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError(f"import of {{name!r}} refused: not on the GPU machine")
+        return None
+loaded = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
+assert not loaded, loaded
+sys.meta_path.insert(0, Refuse())
+"""
+
+
+def _run(code, timeout):
+    return subprocess.run(
+        [sys.executable, "-c", _GUARD + code], cwd=REPO, capture_output=True, text=True,
+        timeout=timeout,
+    )
+
+
+def test_every_port_module_imports_without_forbidden_packages():
+    code = """
+import importlib, pkgutil
+import zdcsim_torch
+names = [m.name for m in pkgutil.walk_packages(zdcsim_torch.__path__, "zdcsim_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+assert not bad, bad
+print(len(names), "modules")
+"""
+    proc = _run(code, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[0]) >= 14
+
+
+def test_chip_smoke_rehearses_on_cpu_without_forbidden_packages():
+    code = """
+import runpy
+sys.argv = ["chip_smoke.py", "--rehearse-cpu"]
+runpy.run_path("chip_smoke.py", run_name="__main__")
+"""
+    # two threads: the suite runs this beside other test workers
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        ["timeout", "120", sys.executable, "-c", _GUARD + code], cwd=REPO,
+        capture_output=True, text=True, timeout=150, env=env,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == '{"rehearsal": true}'

@@ -1,0 +1,100 @@
+"""The port's configuration: plain dataclasses, no YAML.
+
+The defaults are copied from the keys of ``zdcsim/config/default.yaml`` that
+the serving slice reads (``tests/test_torch_artifact.py`` holds them equal to
+``zdcsim.config.load_config()``). The router's hidden widths are not a key
+of that file: they are fixed in ``zdcsim/models/router.py`` and copied here.
+PyYAML is not assumed: overrides use the same ``a.b=c`` dotlist syntax as
+``zdcsim.config.apply_overrides`` with a small scalar parser, and a key that
+does not exist raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Iterable, List, Optional, Tuple
+
+
+@dataclass
+class GeneratorConfig:
+    width: float = 1.0
+
+
+@dataclass
+class RouterConfig:
+    widths: Tuple[int, ...] = (128, 64, 32)
+
+
+@dataclass
+class ModelConfig:
+    architecture: str = "proton"
+    n_experts: int = 3
+    noise_dim: int = 10
+    cond_dim: int = 9
+    generator: GeneratorConfig = field(default_factory=GeneratorConfig)
+    router: RouterConfig = field(default_factory=RouterConfig)
+
+
+@dataclass
+class DatasetConfig:
+    zdc_type: str = "proton"
+    input_image_shape: Tuple[int, int] = (56, 30)
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+
+
+def _parse_value(raw: str) -> Any:
+    """YAML-like scalar: null/None, true/false, int, float, ``[a, b]`` lists,
+    else the string itself."""
+    s = raw.strip()
+    if s in ("null", "None", "~", ""):
+        return None
+    if s.lower() in ("true", "false"):
+        return s.lower() == "true"
+    if s.startswith("[") and s.endswith("]"):
+        inner = s[1:-1].strip()
+        return [_parse_value(x) for x in inner.split(",")] if inner else []
+    for conv in (int, float):
+        try:
+            return conv(s)
+        except ValueError:
+            pass
+    return s
+
+
+def apply_overrides(cfg: Config, overrides: Optional[Iterable[str]]) -> Config:
+    for item in overrides or []:
+        if "=" not in item:
+            raise ValueError(f"Override must look like key=value, got: '{item}'")
+        key, _, raw = item.partition("=")
+        parts = key.strip().split(".")
+        node = cfg
+        for part in parts[:-1]:
+            if not dataclasses.is_dataclass(node) or not hasattr(node, part):
+                raise KeyError(f"Config path not found: '{key}'")
+            node = getattr(node, part)
+        if not hasattr(node, parts[-1]) or dataclasses.is_dataclass(getattr(node, parts[-1])):
+            raise KeyError(f"Config path not found: '{key}'")
+        value = _parse_value(raw)
+        if isinstance(value, list):
+            value = tuple(value)
+        setattr(node, parts[-1], value)
+    return cfg
+
+
+def load_config(overrides: Optional[List[str]] = None) -> Config:
+    """Defaults, then ``a.b=c`` overrides, then the checks of the JAX loader
+    that concern the keys held here."""
+    cfg = apply_overrides(Config(), overrides)
+    if cfg.model.architecture not in ("proton", "neutron"):
+        raise ValueError(f"model.architecture must be proton|neutron, got {cfg.model.architecture}")
+    if int(cfg.model.n_experts) < 1:
+        raise ValueError("model.n_experts must be >= 1")
+    if len(tuple(cfg.dataset.input_image_shape)) != 2:
+        raise ValueError("dataset.input_image_shape must be [H, W]")
+    return cfg

@@ -1,0 +1,71 @@
+"""Shared building blocks (counterpart of ``zdcsim/models/layers.py``).
+
+Functions take NHWC tensors, as the JAX package does. The modules hold their
+weights in PyTorch's layout under the Flax names (``Dense_0``,
+``LayerNorm_0``, ...) so that ``zdcsim_torch.convert`` maps one tree onto
+the other by name. LayerNorm and GroupNorm use Flax's eps of 1e-6, not
+PyTorch's 1e-5.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+NORM_EPS = 1e-6
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=slope)
+
+
+def nearest_index(n_out: int, n_in: int) -> np.ndarray:
+    """Source index of each output position, ``floor((i + 0.5) * n_in / n_out)``
+    (``jax.image.resize(method='nearest')``; PyTorch's ``nearest-exact``)."""
+    return np.floor((np.arange(n_out) + 0.5) * n_in / n_out).astype(np.int64)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of an NHWC tensor to ``size`` by gathering
+    rows and columns (exact in every dtype, int8 included)."""
+    _, h, w, _ = x.shape
+    rows = torch.from_numpy(nearest_index(size[0], h)).to(x.device)
+    cols = torch.from_numpy(nearest_index(size[1], w)).to(x.device)
+    return x.index_select(1, rows).index_select(2, cols)
+
+
+def group_norm_groups(channels: int, groups: int = 32) -> int:
+    """Largest group count <= ``groups`` dividing ``channels``."""
+    g = min(groups, channels)
+    while channels % g != 0 and g > 1:
+        g -= 1
+    return g
+
+
+class MLPBlock(nn.Module):
+    """Dense + LayerNorm + LeakyReLU(0.1)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, features)
+        self.LayerNorm_0 = nn.LayerNorm(features, eps=NORM_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(self.LayerNorm_0(self.Dense_0(x)))
+
+
+class GroupNorm2d(nn.Module):
+    """GroupNorm with the divisor-adjusted group count, on NCHW input."""
+
+    def __init__(self, channels: int, groups: int = 32):
+        super().__init__()
+        self.GroupNorm_0 = nn.GroupNorm(
+            group_norm_groups(channels, groups), channels, eps=NORM_EPS
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.GroupNorm_0(x)

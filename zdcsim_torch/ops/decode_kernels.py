@@ -1,0 +1,213 @@
+"""The int8 serving-decode kernels of the ``pallas_ab`` path, with their plain
+versions (counterpart of ``zdcsim/ops/pallas_decode.py:1-305``).
+
+- :func:`ln_leaky_rowquant` replaces Pallas kernel A: per-row LayerNorm
+  (f32 statistics, centred variance, eps 1e-6) -> scale/bias ->
+  LeakyReLU(0.1) -> per-row symmetric int8.
+- :func:`up2_conv4_int8` replaces Pallas kernel B: nearest-2x upsample +
+  4x4 pad-1 conv as 25 parity-phase int8 taps with int32 sums, per-phase and
+  per-cout dequant x per-sample scale + bias, and the 2x2 interleave.
+
+Each wrapper launches its hand-written CUDA kernel (``zdcsim_torch/csrc``)
+for a CUDA tensor, and runs the plain PyTorch version for a CPU tensor; it
+never falls back from one to the other. ``<wrapper>.launches`` counts the
+kernel's launches (plain runs and CPU calls do not count).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from zdcsim_torch.ops import _build
+
+# Phase p = 2*pr + pc covers output pixels (2i+pr, 2j+pc); its (a, b) tap
+# reads source offset (dr, dc) listed here (pallas_decode.py:122-128).
+_PHASE_OFFSETS = {
+    "ee": [(a - 1, b - 1) for a in range(3) for b in range(3)],
+    "eo": [(a - 1, b) for a in range(3) for b in range(2)],
+    "oe": [(a, b - 1) for a in range(2) for b in range(3)],
+    "oo": [(a, b) for a in range(2) for b in range(2)],
+}
+_PHASES = ("ee", "eo", "oe", "oo")
+
+
+def _phase_kernels(w: torch.Tensor) -> dict:
+    """Original ``[4, 4, cin, cout]`` kernel -> the four merged phase kernels
+    (computed in ``w``'s dtype, in the JAX package's order of additions)."""
+    k_er = torch.stack([w[0], w[1] + w[2], w[3]])
+    k_or = torch.stack([w[0] + w[1], w[2] + w[3]])
+
+    def split_cols(k):
+        ke = torch.stack([k[:, 0], k[:, 1] + k[:, 2], k[:, 3]], dim=1)
+        ko = torch.stack([k[:, 0] + k[:, 1], k[:, 2] + k[:, 3]], dim=1)
+        return ke, ko
+
+    k_ee, k_eo = split_cols(k_er)
+    k_oe, k_oo = split_cols(k_or)
+    return {"ee": k_ee, "eo": k_eo, "oe": k_oe, "oo": k_oo}
+
+
+def _quant_phases(w: torch.Tensor):
+    """Merge in float32, quantize each phase kernel per output channel, flatten
+    the taps: ``(kq [25, cin, cout] int8, sk [4, cout] f32)`` in
+    ``_PHASES`` / ``_PHASE_OFFSETS`` order."""
+    ks = _phase_kernels(w.to(torch.float32))
+    taps, scales = [], []
+    for name in _PHASES:
+        k = ks[name]
+        s = torch.clamp(k.abs().amax(dim=(0, 1, 2)) / 127.0, min=1e-12)
+        q = torch.clamp(torch.round(k / s), -127, 127).to(torch.int8)
+        taps.append(q.reshape(k.shape[0] * k.shape[1], k.shape[2], k.shape[3]))
+        scales.append(s)
+    return torch.cat(taps, dim=0), torch.stack(scales)
+
+
+def interleave_phases(phases: torch.Tensor) -> torch.Tensor:
+    """``[4, B, H, W, C]`` phase outputs on the source grid (``_PHASES``
+    order) -> ``[B, 2H-1, 2W-1, C]``; the odd phases' last row/column falls
+    outside the output and is trimmed."""
+    _, b, h, w, c = phases.shape
+    out = phases.reshape(2, 2, b, h, w, c).permute(2, 3, 0, 4, 1, 5)
+    return out.reshape(b, 2 * h, 2 * w, c)[:, : 2 * h - 1, : 2 * w - 1]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {t.device}")
+
+
+def _require_f32(name: str, dev: torch.device, **params: torch.Tensor) -> None:
+    """The kernels' per-channel parameters are float32 tensors on the data's
+    device; callers cast them once (``proton_fast.quantize_weights``)."""
+    for key, t in params.items():
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{name}: {key} must be float32 on {dev}, got {t.dtype} on {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# Kernel A: LayerNorm + LeakyReLU + per-row int8
+# ---------------------------------------------------------------------------
+
+def ln_leaky_rowquant_plain(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    """Plain PyTorch version of :func:`ln_leaky_rowquant`, op for op the
+    kernel's arithmetic (its sums run in another order)."""
+    y = y.to(torch.float32)
+    mu = y.mean(dim=1, keepdim=True)
+    d = y - mu
+    var = (d * d).mean(dim=1, keepdim=True)
+    rstd = 1.0 / torch.sqrt(var + 1e-6)
+    z = d * rstd
+    z = z * scale + bias
+    z = torch.where(z >= 0, z, 0.1 * z)
+    s = torch.clamp(z.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(z / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def ln_leaky_rowquant(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    """``LayerNorm(y) * scale + bias -> LeakyReLU(0.1) -> per-row int8``.
+
+    y: ``[B, F]`` bf16 or f32; scale, bias: ``[F]`` f32. Returns ``(q [B, F] int8, s [B, 1] f32)`` with row ``i``
+    ``~= q[i] * s[i]``.
+    """
+    _require_f32("ln_leaky_rowquant", y.device, scale=scale, bias=bias)
+    if y.device.type == "cpu":
+        return ln_leaky_rowquant_plain(y, scale, bias)
+    _require_cuda(y, "ln_leaky_rowquant")
+    if y.ndim != 2 or y.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"ln_leaky_rowquant: y must be 2-D bf16/f32, got {tuple(y.shape)} {y.dtype}")
+    b, f = y.shape
+    if scale.shape != (f,) or bias.shape != (f,):
+        raise ValueError("ln_leaky_rowquant: scale and bias must be [F]")
+    y, scale, bias = y.contiguous(), scale.contiguous(), bias.contiguous()
+    q = torch.empty((b, f), dtype=torch.int8, device=y.device)
+    s = torch.empty((b, 1), dtype=torch.float32, device=y.device)
+    lib = _build.library()
+    with torch.cuda.device(y.device):
+        status = lib.zdc_ln_leaky_rowquant(
+            y.data_ptr(), int(y.dtype == torch.bfloat16), scale.data_ptr(),
+            bias.data_ptr(), q.data_ptr(), s.data_ptr(), b, f, _stream(y),
+        )
+    _build.check(status, "ln_leaky_rowquant")
+    ln_leaky_rowquant.launches += 1
+    return q, s
+
+
+ln_leaky_rowquant.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel B: all-phase int8 upsample2 + conv4, fused dequant + interleave
+# ---------------------------------------------------------------------------
+
+def up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of :func:`up2_conv4_int8`: each phase's taps as
+    shifted float64 matmuls of the int8 values (exact: every partial sum is
+    an integer below 2**53), then the kernel's f32 epilogue."""
+    b, h, w, _ = xq.shape
+    xp = F.pad(xq.to(torch.float64), (0, 0, 1, 1, 1, 1))  # zero halo of 1
+    k64 = kq.to(torch.float64)
+    sxb = sx.reshape(b, 1, 1, 1)
+    phases, tap = [], 0
+    for p, name in enumerate(_PHASES):
+        acc = torch.zeros((b, h, w, kq.shape[-1]), dtype=torch.float64, device=xq.device)
+        for dr, dc in _PHASE_OFFSETS[name]:
+            acc += xp[:, 1 + dr:1 + dr + h, 1 + dc:1 + dc + w, :] @ k64[tap]
+            tap += 1
+        val = acc.to(torch.float32) * sk[p] * sxb + bias
+        phases.append(val.to(out_dtype))
+    return interleave_phases(torch.stack(phases))
+
+
+def up2_conv4_int8(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16):
+    """``conv4x4(pad1, nearest_up2(x))`` on int8 data.
+
+    xq: ``[B, H, W, Cin]`` int8 (Cin a multiple of 4); sx: ``[B]`` or
+    ``[B, 1]`` f32 per-sample dequant scales; kq, sk: the phase-merged int8
+    kernel and its f32 scales from :func:`_quant_phases`; bias: ``[Cout]``
+    f32.
+    Returns ``[B, 2H-1, 2W-1, Cout]`` in ``out_dtype`` (bf16 or f32). H, W,
+    Cin and Cout come from the tensors.
+    """
+    _require_f32("up2_conv4_int8", xq.device, sx=sx, sk=sk, bias=bias)
+    if xq.device.type == "cpu":
+        return up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype)
+    _require_cuda(xq, "up2_conv4_int8")
+    if xq.ndim != 4 or xq.dtype != torch.int8:
+        raise ValueError(f"up2_conv4_int8: xq must be [B, H, W, Cin] int8, got {tuple(xq.shape)} {xq.dtype}")
+    b, h, w, cin = xq.shape
+    if cin % 4 != 0:
+        raise ValueError(f"up2_conv4_int8: Cin={cin} must be a multiple of 4")
+    if kq.dtype != torch.int8 or kq.ndim != 3 or kq.shape[:2] != (25, cin):
+        raise ValueError(f"up2_conv4_int8: kq must be [25, {cin}, Cout] int8, got {tuple(kq.shape)} {kq.dtype}")
+    cout = kq.shape[2]
+    if sk.shape != (4, cout) or bias.shape != (cout,) or sx.numel() != b:
+        raise ValueError("up2_conv4_int8: sk must be [4, Cout], bias [Cout], sx [B]")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"up2_conv4_int8: out_dtype must be bf16 or f32, got {out_dtype}")
+    dev = xq.device
+    xq = xq.contiguous()
+    if xq.data_ptr() % 4:
+        raise ValueError("up2_conv4_int8: xq must be 4-byte aligned")
+    if kq.device != dev:
+        raise ValueError(f"up2_conv4_int8: kq must be on {dev}, got {kq.device}")
+    sx, kq, sk, bias = sx.reshape(b).contiguous(), kq.contiguous(), sk.contiguous(), bias.contiguous()
+    out = torch.empty((b, 2 * h - 1, 2 * w - 1, cout), dtype=out_dtype, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.zdc_up2_conv4_int8(
+            xq.data_ptr(), sx.data_ptr(), kq.data_ptr(), sk.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), b, h, w, cin, cout,
+            _stream(xq),
+        )
+    _build.check(status, "up2_conv4_int8")
+    up2_conv4_int8.launches += 1
+    return out
+
+
+up2_conv4_int8.launches = 0
