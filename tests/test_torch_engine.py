@@ -35,7 +35,7 @@ def test_fastsim_rejects_unported_precision(weights):
         FastSim(*weights, precision="int8_fused", device="cpu")
 
 
-@pytest.mark.parametrize("precision", ["int8", "int8_pallas_ab"])
+@pytest.mark.parametrize("precision", ["int8", "int8_pallas_ab", "int8_pallas"])
 def test_fastsim_chunks_pad_and_reproduce(weights, precision):
     eng = FastSim(*weights, batch_size=8, precision=precision, device="cpu")
     eng._build_switch(tile=4)

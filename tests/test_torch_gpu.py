@@ -92,3 +92,91 @@ def test_fast_generator_pallas_ab_card_matches_cpu(cuda):
                                int8=True, int8_backend="pallas_ab").cpu().numpy()
     # int8 bound of tests/test_pallas_decode.py:203 (rounding flips cascade)
     assert np.abs(out - ref).max() < 0.05 * np.abs(ref).max() + 0.05
+
+
+@pytest.mark.parametrize("dtype,b,h,w,c", [(torch.float32, 3, 5, 3, 64),
+                                           (torch.bfloat16, 16, 35, 19, 256),
+                                           (torch.bfloat16, 5, 35, 19, 32)])
+def test_gn_leaky_rowquant_kernel_matches_plain(cuda, dtype, b, h, w, c):
+    rng = np.random.default_rng(b + c)
+    x = torch.as_tensor(rng.standard_normal((b, h, w, c), dtype=np.float32) * 2 + 0.5).to(cuda, dtype)
+    scale = torch.as_tensor(np.abs(rng.standard_normal(c, dtype=np.float32)) + 0.5).to(cuda)
+    bias = torch.as_tensor(rng.standard_normal(c, dtype=np.float32) * 0.3).to(cuda)
+    n0 = dk.gn_leaky_rowquant.launches
+    q, s = dk.gn_leaky_rowquant(x, scale, bias)
+    qp, sp = dk.gn_leaky_rowquant_plain(x, scale, bias)
+    torch.cuda.synchronize()
+    assert dk.gn_leaky_rowquant.launches == n0 + 1
+    assert q.shape == (b, h, w, c) and q.dtype == torch.int8 and s.shape == (b, 1)
+    torch.testing.assert_close(s, sp, rtol=1e-5, atol=0)
+    # the statistics are summed in another order: at most round-boundary flips
+    diff = (q.int() - qp.int()).abs()
+    assert diff.max().item() <= 1 and (diff != 0).float().mean().item() < 0.01
+
+
+@pytest.mark.parametrize("b,w,cin,cout", [(2, 6, 8, 4), (65, 30, 256, 128), (3, 30, 32, 32)])
+def test_row_resize_conv4_int8_kernel_matches_plain(cuda, b, w, cin, cout):
+    """Exact in f32 and bf16; 65 samples x 7 rows x 30 columns is not a
+    multiple of the 64-row block."""
+    from zdcsim_torch.models.proton_fast import _row_phase_plan
+
+    rng = np.random.default_rng(cin + cout + b)
+    xq = torch.as_tensor(rng.integers(-127, 128, (b, 35, w, cin), dtype=np.int8)).to(cuda)
+    sx = torch.as_tensor(np.abs(rng.standard_normal(b)).astype(np.float32) * 0.01 + 1e-3).to(cuda)
+    kernel = torch.as_tensor(rng.standard_normal((4, 4, cin, cout), dtype=np.float32) * 0.1).to(cuda)
+    bias = torch.as_tensor(rng.standard_normal(cout, dtype=np.float32) * 0.5).to(cuda)
+    kq, sk, offsets = dk._quant_row_phases(kernel, _row_phase_plan(35, 56, 4, 1)[2])
+    n0 = dk.row_resize_conv4_int8.launches
+    for dt in (torch.float32, torch.bfloat16):
+        out = dk.row_resize_conv4_int8(xq, sx, kq, sk, offsets, bias, 56, out_dtype=dt)
+        ref = dk.row_resize_conv4_int8_plain(xq, sx, kq, sk, offsets, bias, 56, out_dtype=dt)
+        torch.cuda.synchronize()
+        assert out.shape == (b, 55, w, cout) and out.dtype == dt
+        assert torch.equal(out, ref)
+    assert dk.row_resize_conv4_int8.launches == n0 + 2
+
+
+def test_row_resize_conv4_int8_rejects_other_plans(cuda):
+    from zdcsim_torch.models.proton_fast import _row_phase_plan
+
+    kq, sk, offsets = dk._quant_row_phases(torch.randn(4, 4, 8, 8, device=cuda),
+                                           _row_phase_plan(35, 56, 4, 1)[2])
+    xq = torch.zeros((1, 19, 30, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="stride-5"):
+        dk.row_resize_conv4_int8(xq, torch.ones(1, device=cuda), kq, sk, offsets,
+                                 torch.zeros(8, device=cuda), 30)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k", [(2, 56, 30, 256, 128, 4), (2, 55, 29, 128, 64, 3),
+                                              (3, 56, 30, 32, 32, 4)])
+def test_conv_i8_is_exact_on_the_card(cuda, b, h, w, cin, cout, k):
+    """int32 sums on the card equal the CPU's (which tests/test_torch_conv_i8.py
+    holds bit-equal to JAX and to an int64 direct sum), at the extreme values
+    where a float32 sum would round."""
+    from zdcsim_torch.models.proton_fast import _conv_i8
+
+    rng = np.random.default_rng(cin)
+    xq = torch.as_tensor(np.where(rng.random((b, h, w, cin)) < 0.01, -127, 127).astype(np.int8))
+    kq = torch.as_tensor(np.where(rng.random((k, k, cin, cout)) < 0.01, -127, 127).astype(np.int8))
+    ref = _conv_i8(xq, kq, ((1, 1), (1, 1)))
+    out = _conv_i8(xq.to(cuda), kq.to(cuda), ((1, 1), (1, 1)))
+    assert out.dtype == torch.int32
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_fast_generator_pallas_card_matches_cpu(cuda):
+    """The pallas decode with all four kernels on the card against the same
+    decode on the CPU (plain versions), on a narrow random generator."""
+    torch.manual_seed(1)
+    params = from_state_dict(Generator(width=1 / 16).state_dict())
+    rng = np.random.default_rng(1)
+    noise = torch.as_tensor(rng.standard_normal((8, 10), dtype=np.float32))
+    cond = torch.as_tensor(rng.standard_normal((8, 9), dtype=np.float32))
+    ref = fast_generator_apply(tree_to_torch(params), noise, cond, int8=True,
+                               int8_backend="pallas").numpy()
+    n0 = (dk.gn_leaky_rowquant.launches, dk.row_resize_conv4_int8.launches)
+    out = fast_generator_apply(tree_to_torch(params, device=cuda), noise.to(cuda), cond.to(cuda),
+                               int8=True, int8_backend="pallas").cpu().numpy()
+    assert (dk.gn_leaky_rowquant.launches, dk.row_resize_conv4_int8.launches) == (n0[0] + 1, n0[1] + 1)
+    # int8 bound of tests/test_pallas_decode.py:203 (rounding flips cascade)
+    assert np.abs(out - ref).max() < 0.05 * np.abs(ref).max() + 0.05

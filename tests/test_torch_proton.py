@@ -38,7 +38,7 @@ def test_fast_generator_xla_backend_matches_jax(tiny, int8):
         print(f"float max |port - jax| = {err} (bound 2e-3)")
         np.testing.assert_allclose(out, ref, rtol=2e-3, atol=2e-3)
     else:
-        # The int8 stages are bit-equal to JAX on equal inputs; float32 norm
+        # The int8 stages equal JAX's on equal inputs; float32 norm
         # statistics differ in the last bits, which flips a few activation
         # roundings that cascade: the int8 bound of test_pallas_decode.py:203.
         bound = 0.05 * np.abs(ref).max() + 0.05
@@ -47,8 +47,8 @@ def test_fast_generator_xla_backend_matches_jax(tiny, int8):
 
 
 def test_int8_stages_match_jax():
-    """On equal inputs the plain int8 stages give JAX's values: the float32
-    sums of int8 products are exact at these widths (below 2**24)."""
+    """On equal inputs the plain int8 stages give JAX's values: both sum the
+    int8 products in int32."""
     import zdcsim.models.proton_fast as J
     import zdcsim_torch.models.proton_fast as T
 

@@ -3,7 +3,9 @@ matplotlib are absent (the GPU machine has none of them).
 
 A subprocess installs an import hook that refuses those packages and the
 JAX package ``zdcsim`` (not ``zdcsim_torch``), then imports every module of
-``zdcsim_torch`` and rehearses ``chip_smoke.py`` on the CPU.
+``zdcsim_torch`` and rehearses ``chip_smoke.py`` on the CPU: the kernel
+checks of A-D and ``_conv_i8``, and the serves of ``int8``,
+``int8_pallas_ab`` and ``int8_pallas``.
 """
 
 import os
@@ -64,3 +66,6 @@ runpy.run_path("chip_smoke.py", run_name="__main__")
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == '{"rehearsal": true}'
+    for phase in ("[5 kernel C]", "[6 kernel D]", "[7 conv_i8]", "int8_pallas_ab main path",
+                  "int8_pallas main path"):
+        assert phase in proc.stdout, phase

@@ -11,8 +11,12 @@ Precisions (the JAX names, so one maps onto the other):
   stage plain PyTorch (the JAX XLA int8 backend);
 - ``"int8_pallas_ab"``: as ``"int8"``, with the MLP's LayerNorm + quant and
   Conv_0 on the two CUDA kernels that replace Pallas kernels A and B
-  (``zdcsim_torch/ops/decode_kernels.py``). On a CPU device the kernels'
-  plain versions run instead.
+  (``zdcsim_torch/ops/decode_kernels.py``);
+- ``"int8_pallas"``: as ``"int8_pallas_ab"``, with GroupNorm2d_0 + quant and
+  the row-resize Conv_1 on the CUDA kernels that replace Pallas kernels C
+  and D as well (all four decode kernels).
+
+On a CPU device the kernels' plain versions run instead.
 
 PyTorch runs eagerly, so the JAX engine's one-program forms become Python
 loops over batch chunks and dispatch tiles; capturing them as CUDA graphs
@@ -35,7 +39,7 @@ from zdcsim_torch.inference.switch_dispatch import tiled_switch_decode
 from zdcsim_torch.models.proton_fast import fast_generator_apply, quantize_weights
 from zdcsim_torch.models.router import RouterNetwork
 
-_BACKENDS = {"int8": "xla", "int8_pallas_ab": "pallas_ab"}
+_BACKENDS = {"int8": "xla", "int8_pallas_ab": "pallas_ab", "int8_pallas": "pallas"}
 
 
 class FastSim:
@@ -46,7 +50,8 @@ class FastSim:
             ``zdcsim_torch.utils.artifact.load_serving_artifact`` returns
             them (generator experts stacked on the leading axis).
         batch_size: the chunk size inputs are split into and padded to.
-        precision: ``"int8"`` or ``"int8_pallas_ab"`` (see the module doc).
+        precision: ``"int8"``, ``"int8_pallas_ab"`` or ``"int8_pallas"`` (see
+            the module doc).
         device: ``None`` for CUDA (raises without a card), or ``"cpu"``.
         cfg: model geometry; defaults to ``load_config()``.
     """

@@ -9,54 +9,78 @@ every function boundary, as in JAX.
 
 int8 (``int8=True``): symmetric int8 with ``round`` half to even and a clip
 at +-127; weights per output channel, activations per tensor (the XLA
-backend) or per sample (the kernels of the ``pallas_ab`` backend).
+backend) or per sample (the kernels of the ``pallas_ab`` and ``pallas``
+backends).
 
 - ``int8_backend="xla"``: every int8 stage is plain PyTorch.
 - ``int8_backend="pallas_ab"``: the MLP's LayerNorm + LeakyReLU + quant and
-  Conv_0 run on the two CUDA kernels that replace Pallas kernels A and B
+  Conv_0 run on the CUDA kernels that replace Pallas kernels A and B
   (``zdcsim_torch.ops.decode_kernels``); Conv_1 and Conv_2 stay plain.
+- ``int8_backend="pallas"``: as ``pallas_ab``, and GroupNorm2d_0 + LeakyReLU
+  + quant and the row-resize Conv_1 run on the kernels that replace Pallas
+  kernels C and D; Conv_2 stays plain.
 
-The plain int8 convs (:func:`_conv_i8`) sum the int8 values in float32
-(cuDNN on the GPU, with TF32 off for the call): exact up to float32
-summation, where JAX sums in int32.
+The plain int8 convs (:func:`_conv_i8`) sum int8 products in int32, as the
+JAX ``_conv_i8`` does (``preferred_element_type=int32``): one
+``torch._int_mm`` per kernel tap, exact on both devices.
 """
 
 from __future__ import annotations
 
-import contextlib
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from zdcsim_torch.models.layers import group_norm_groups, leaky_relu, resize_nearest
+from zdcsim_torch.models.layers import (
+    group_norm_groups, leaky_relu, nearest_index, resize_nearest,
+)
 from zdcsim_torch.ops import decode_kernels as dk
 
 QWeights = Tuple[torch.Tensor, torch.Tensor]
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """cuDNN float32 convs in full float32 for the enclosed calls only."""
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
-        yield
-
-
-def _conv(x: torch.Tensor, k: torch.Tensor, pad) -> torch.Tensor:
+def _conv(x: torch.Tensor, k: torch.Tensor, pad, stride=(1, 1)) -> torch.Tensor:
     """NHWC x HWIO cross-correlation, ``pad = ((top, bottom), (left, right))``."""
     xt = F.pad(x.permute(0, 3, 1, 2), (pad[1][0], pad[1][1], pad[0][0], pad[0][1]))
-    return F.conv2d(xt, k.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    return F.conv2d(xt, k.permute(3, 2, 0, 1), stride=stride).permute(0, 2, 3, 1)
 
 
-def _conv_i8(xq: torch.Tensor, kq: torch.Tensor, pad) -> torch.Tensor:
-    """Conv of int8 values with int8 weights in float32 (the JAX ``_conv_i8``
-    sums in int32). A direct float32 sum equals it up to float32 summation;
-    on the card cuDNN may pick an FFT algorithm instead, whose rounding is
-    not that of a direct sum (it does so for Conv_1 on the H100)."""
-    with _no_tf32():
-        return _conv(xq.to(torch.float32), kq.to(torch.float32), pad)
+def _conv_i8(xq: torch.Tensor, kq: torch.Tensor, pad, stride=(1, 1)) -> torch.Tensor:
+    """NHWC int8 x HWIO int8 cross-correlation with int32 sums, as the JAX
+    ``_conv_i8``: for each of the kh x kw taps, ``torch._int_mm`` of the
+    shifted window ``[B*Ho*Wo, Cin]`` against the tap's ``[Cin, Cout]``
+    weights, summed in int32. Bit-equal to a direct integer sum.
+
+    ``torch._int_mm`` needs more than 16 rows and ``Cin``, ``Cout``
+    multiples of 8 (every conv of the decode meets this); other shapes
+    raise, with no float fallback.
+    """
+    if xq.dtype != torch.int8 or kq.dtype != torch.int8:
+        raise ValueError(f"_conv_i8: int8 operands expected, got {xq.dtype} and {kq.dtype}")
+    b, h, w, cin = xq.shape
+    kh, kw, kcin, cout = kq.shape
+    (pt, pb), (pl, pr) = pad
+    ho = (h + pt + pb - kh) // stride[0] + 1
+    wo = (w + pl + pr - kw) // stride[1] + 1
+    m = b * ho * wo
+    if kcin != cin or m <= 16 or cin % 8 or cout % 8:
+        raise ValueError(
+            f"_conv_i8: torch._int_mm needs > 16 rows and Cin, Cout multiples of 8; "
+            f"got {m} rows, Cin {cin} (kernel {kcin}), Cout {cout}"
+        )
+    xp = F.pad(xq, (0, 0, pl, pr, pt, pb))
+    # column-major [Cin, Cout] operands, the layout cuBLASLt's int8 GEMM takes
+    kt = kq.permute(0, 1, 3, 2).contiguous()
+    acc = None
+    for a in range(kh):
+        for c in range(kw):
+            win = xp[:, a:a + stride[0] * (ho - 1) + 1:stride[0],
+                     c:c + stride[1] * (wo - 1) + 1:stride[1]]
+            part = torch._int_mm(win.reshape(m, cin), kt[a, c].t())
+            acc = part if acc is None else acc.add_(part)
+    return acc.reshape(b, ho, wo, cout)
 
 
 # Pads that give each phase conv the full HxW source grid; the odd phases'
@@ -99,8 +123,8 @@ def _quant_act(x: torch.Tensor):
 
 
 def _dequant(y, sk, sx, bias, dtype):
-    """``y * (sk * sx) + bias`` in float32, cast to ``dtype``."""
-    return (y * (sk * sx) + bias.to(torch.float32)).to(dtype)
+    """``f32(y) * (sk * sx) + bias`` in float32, cast to ``dtype``."""
+    return (y.to(torch.float32) * (sk * sx) + bias.to(torch.float32)).to(dtype)
 
 
 def conv3x3_int8(x: torch.Tensor, q: QWeights, bias: torch.Tensor) -> torch.Tensor:
@@ -125,7 +149,7 @@ def fused_upsample2_conv4_int8(x: torch.Tensor, q: Dict[str, QWeights],
 
     def qconv(x_, k, pad):
         kq, sk = k
-        return _conv_i8(x_, kq, pad) * (sk * sx)
+        return _conv_i8(x_, kq, pad).to(torch.float32) * (sk * sx)
 
     out = _phase_convs(xq, q, qconv)
     return (out + bias.to(torch.float32)).to(x.dtype)
@@ -139,6 +163,84 @@ def resize_conv4_int8_naive(x: torch.Tensor, q: QWeights, bias: torch.Tensor,
     xr = resize_nearest(xq, (n_resized_rows, n_cols))
     kq, sk = q
     return _dequant(_conv_i8(xr, kq, ((1, 1), (1, 1))), sk, sx, bias, x.dtype)
+
+
+def _row_phase_plan(n_in: int, n_out: int, ksize: int, pad: int):
+    """Phases of a nearest row-resize ``n_in -> n_out`` folded into a
+    ``ksize``-tap row conv with ``pad`` (own copy of the JAX
+    ``_row_phase_plan``, element for element).
+
+    Output rows repeat with period ``q`` (``n_in / n_out = p / q`` reduced);
+    within a phase the conv's taps hit a fixed set of distinct source rows.
+    Returns ``(q, p, plans)`` with one ``(d0, groups, n_phase)`` per phase:
+    ``groups[l] = (d, taps)`` merges kernel row taps ``taps`` onto source
+    row offset ``d``, and the phase has ``n_phase`` output rows. For 35 -> 56,
+    ksize 4, pad 1: q = 8 phases of period p = 5, 55 output rows.
+    """
+    g = math.gcd(n_in, n_out)
+    p_num, q = n_in // g, n_out // g
+    src = nearest_index(n_out, n_in)
+    n_conv_out = n_out + 2 * pad - ksize + 1
+    plans = []
+    for phase in range(q):
+        rel = []
+        for a in range(ksize):
+            r = phase - pad + a
+            rel.append(src[r] if 0 <= r < n_out else src[0] - 1)
+        groups, cur, cur_rows = [], [0], rel[0]
+        for a in range(1, ksize):
+            if rel[a] == cur_rows:
+                cur.append(a)
+            else:
+                groups.append((cur_rows, cur))
+                cur, cur_rows = [a], rel[a]
+        groups.append((cur_rows, cur))
+        plans.append((rel[0], groups, (n_conv_out - phase + q - 1) // q))
+    return q, p_num, plans
+
+
+def _row_phase_convs(x, kernel, n_resized_rows, conv):
+    """Shared body of the folded row-resize convs: per phase, merge the row
+    taps of each group, run ``conv(rows, k_p, stride)`` on the phase's rows,
+    and interleave the phases into ``[B, n_resized_rows - 1, W, Cout]``."""
+    b, h_in = x.shape[:2]
+    q, p_num, plans = _row_phase_plan(h_in, n_resized_rows, 4, 1)
+    max_n = max(n for _, _, n in plans)
+    outs = []
+    for d0, groups, n_phase in plans:
+        k_p = torch.stack([sum(kernel[a] for a in taps) for _, taps in groups])
+        pad_t, start = max(-d0, 0), max(d0, 0)
+        span = p_num * (n_phase - 1) + k_p.shape[0]
+        pad_b = max(0, span - pad_t - (h_in - start))
+        y = conv(x[:, start:], k_p, ((pad_t, pad_b), (1, 1)), (p_num, 1))[:, :n_phase]
+        outs.append(F.pad(y, (0, 0, 0, 0, 0, max_n - n_phase)))
+    out = torch.stack(outs, dim=2)  # [B, max_n, q, W, Cout]
+    return out.reshape(b, max_n * q, *out.shape[3:])[:, : n_resized_rows - 1]
+
+
+def fused_row_resize_conv4(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                           n_resized_rows: int, n_cols: int) -> torch.Tensor:
+    """``conv4x4(pad1, resize_nearest(x, (n_resized_rows, n_cols)))`` with the
+    row resize folded into per-phase strided convs (columns are gathered):
+    ``[B, n_resized_rows - 1, n_cols - 1, Cout]``. Forward only."""
+    xc = x.index_select(2, torch.from_numpy(nearest_index(n_cols, x.shape[2])).to(x.device))
+    return _row_phase_convs(xc, kernel, n_resized_rows, _conv) + bias
+
+
+def fused_row_resize_conv4_int8(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                                n_resized_rows: int, n_cols: int) -> torch.Tensor:
+    """int8 :func:`fused_row_resize_conv4` (the JAX XLA twin of kernel D):
+    one per-tensor activation scale, each phase's merged kernel quantized
+    per output channel, int32 sums, f32 dequant."""
+    xc = x.index_select(2, torch.from_numpy(nearest_index(n_cols, x.shape[2])).to(x.device))
+    xq, sx = _quant_act(xc)
+
+    def qconv(x_, k_p, pad, stride):
+        kq, sk = _quant_per_cout(k_p)
+        return _conv_i8(x_, kq, pad, stride).to(torch.float32) * (sk * sx)
+
+    out = _row_phase_convs(xq, kernel, n_resized_rows, qconv)
+    return (out + bias.to(torch.float32)).to(x.dtype)
 
 
 def _layer_norm(x, p):
@@ -159,21 +261,31 @@ def _group_norm(x, p):
 
 def quantize_weights(p: Dict[str, Any], int8_backend: str = "xla") -> Dict[str, Any]:
     """One expert's int8 weights for :func:`fast_generator_apply`, computed
-    once per weight set (JAX hoists the same work out of its loops)."""
-    q = {
-        "conv1": _quant_per_cout(p["Conv_1"]["kernel"]),
-        "conv2": _quant_per_cout(p["Conv_2"]["kernel"]),
-    }
-    if int8_backend == "pallas_ab":
-        # the kernels take their per-channel parameters in float32
-        ln = p["MLPBlock_1"]["LayerNorm_0"]
-        q["ln1"] = (ln["scale"].to(torch.float32), ln["bias"].to(torch.float32))
-        q["conv0"] = dk._quant_phases(p["Conv_0"]["kernel"])
-        q["conv0_bias"] = p["Conv_0"]["bias"].to(torch.float32)
-    elif int8_backend == "xla":
+    once per weight set (JAX hoists the same work out of its loops). The
+    kernels take their per-channel parameters in float32, cast here once."""
+    if int8_backend not in ("xla", "pallas_ab", "pallas"):
+        raise ValueError(
+            f"int8_backend must be 'xla', 'pallas_ab' or 'pallas', got {int8_backend!r}"
+        )
+    f32 = lambda t: t.to(torch.float32)  # noqa: E731
+    q = {"conv2": _quant_per_cout(p["Conv_2"]["kernel"])}
+    if int8_backend == "xla":
         q["conv0"] = quant_conv0_phases(p["Conv_0"]["kernel"])
     else:
-        raise ValueError(f"int8_backend must be 'xla' or 'pallas_ab', got {int8_backend!r}")
+        ln = p["MLPBlock_1"]["LayerNorm_0"]
+        q["ln1"] = (f32(ln["scale"]), f32(ln["bias"]))
+        q["conv0"] = dk._quant_phases(p["Conv_0"]["kernel"])
+        q["conv0_bias"] = f32(p["Conv_0"]["bias"])
+    if int8_backend == "pallas":
+        gn = p["GroupNorm2d_0"]["GroupNorm_0"]
+        q["gn0"] = (f32(gn["scale"]), f32(gn["bias"]))
+        k1 = p["Conv_1"]["kernel"]
+        _, _, plans = _row_phase_plan(35, 56, 4, 1)
+        q["conv1"] = dk._quant_row_phases(k1, plans)
+        q["conv1_bias"] = f32(p["Conv_1"]["bias"])
+        q["col_map"] = torch.from_numpy(nearest_index(30, 19)).to(k1.device)
+    else:
+        q["conv1"] = _quant_per_cout(p["Conv_1"]["kernel"])
     return q
 
 
@@ -190,7 +302,8 @@ def fast_generator_apply(
     p = params
     if int8 and qweights is None:
         qweights = quantize_weights(p, int8_backend)
-    use_kernels = int8 and int8_backend == "pallas_ab"
+    use_ab = int8 and int8_backend in ("pallas_ab", "pallas")
+    use_cd = int8 and int8_backend == "pallas"
 
     x = torch.cat([noise, cond], dim=1)
     bp0 = p["MLPBlock_0"]
@@ -199,7 +312,7 @@ def fast_generator_apply(
     bp1 = p["MLPBlock_1"]
     x = x @ bp1["Dense_0"]["kernel"] + bp1["Dense_0"]["bias"]
     c0 = bp1["Dense_0"]["kernel"].shape[1] // (18 * 10)
-    if use_kernels:
+    if use_ab:
         xq, sx = dk.ln_leaky_rowquant(x, *qweights["ln1"])
         kq, sk = qweights["conv0"]
         x = dk.up2_conv4_int8(
@@ -213,14 +326,25 @@ def fast_generator_apply(
             x = fused_upsample2_conv4_int8(x, qweights["conv0"], p["Conv_0"]["bias"])
         else:
             x = fused_upsample2_conv4(x, p["Conv_0"]["kernel"], p["Conv_0"]["bias"])
-    x = leaky_relu(_group_norm(x, p["GroupNorm2d_0"]["GroupNorm_0"]))
 
     # resize 35x19 -> 56x30 + Conv_1 4x4 pad 1 -> 55x29
-    if int8:
-        x = resize_conv4_int8_naive(x, qweights["conv1"], p["Conv_1"]["bias"], 56, 30)
+    if use_cd:
+        # GN + leaky + per-sample int8 (kernel C), the int8 column gather,
+        # then the row-phase conv with dequant and interleave (kernel D)
+        xq, sx = dk.gn_leaky_rowquant(x, *qweights["gn0"],
+                                      groups=group_norm_groups(x.shape[-1], 32))
+        kq, sk, offsets = qweights["conv1"]
+        x = dk.row_resize_conv4_int8(
+            xq.index_select(2, qweights["col_map"]), sx, kq, sk, offsets,
+            qweights["conv1_bias"], 56, out_dtype=noise.dtype,
+        )[:, :, :29]
     else:
-        x = _conv(resize_nearest(x, (56, 30)), p["Conv_1"]["kernel"], ((1, 1), (1, 1)))
-        x = x + p["Conv_1"]["bias"]
+        x = leaky_relu(_group_norm(x, p["GroupNorm2d_0"]["GroupNorm_0"]))
+        if int8:
+            x = resize_conv4_int8_naive(x, qweights["conv1"], p["Conv_1"]["bias"], 56, 30)
+        else:
+            x = _conv(resize_nearest(x, (56, 30)), p["Conv_1"]["kernel"], ((1, 1), (1, 1)))
+            x = x + p["Conv_1"]["bias"]
     x = leaky_relu(_group_norm(x, p["GroupNorm2d_1"]["GroupNorm_0"]))
 
     if int8:

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with plain ``nvcc`` and bind them with ctypes.
 
-One ``nvcc`` call compiles every ``zdcsim_torch/csrc/*.cu`` source for
-``sm_90a`` into one shared library with a plain C interface (no PyTorch
+Every ``zdcsim_torch/csrc/*.cu`` source is compiled for ``sm_90a`` by its
+own ``nvcc -c``, all started together, and one ``nvcc -shared`` links the
+objects into one shared library with a plain C interface (no PyTorch
 headers, no ninja, no lock file), on first use, into
 ``zdcsim_torch/_build/``. The library's name carries a hash of the sources
 and flags, so an edited source builds anew and an unchanged one is reused.
@@ -21,10 +22,13 @@ from typing import Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("ln_leaky_rowquant.cu", "up2_conv4_int8.cu")
+SOURCES = (
+    "ln_leaky_rowquant.cu", "up2_conv4_int8.cu", "gn_leaky_rowquant.cu",
+    "row_resize_conv4_int8.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -33,6 +37,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "zdc_ln_leaky_rowquant": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
     "zdc_up2_conv4_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "zdc_gn_leaky_rowquant": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "zdc_row_resize_conv4_int8": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+    ),
 }
 
 _lib = None
@@ -68,10 +76,26 @@ def build() -> Tuple[str, str]:
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    try:
+        for src, proc, out in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{out}")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     return lib_path, log
 

@@ -1,5 +1,5 @@
-"""The int8 serving-decode kernels of the ``pallas_ab`` path, with their plain
-versions (counterpart of ``zdcsim/ops/pallas_decode.py:1-305``).
+"""The int8 serving-decode kernels of the ``pallas_ab`` and ``pallas`` paths,
+with their plain versions (counterpart of ``zdcsim/ops/pallas_decode.py``).
 
 - :func:`ln_leaky_rowquant` replaces Pallas kernel A: per-row LayerNorm
   (f32 statistics, centred variance, eps 1e-6) -> scale/bias ->
@@ -7,6 +7,13 @@ versions (counterpart of ``zdcsim/ops/pallas_decode.py:1-305``).
 - :func:`up2_conv4_int8` replaces Pallas kernel B: nearest-2x upsample +
   4x4 pad-1 conv as 25 parity-phase int8 taps with int32 sums, per-phase and
   per-cout dequant x per-sample scale + bias, and the 2x2 interleave.
+- :func:`gn_leaky_rowquant` replaces Pallas kernel C: GroupNorm (one-pass
+  f32 statistics per sample and group, eps 1e-6) -> scale/bias ->
+  LeakyReLU(0.1) -> per-sample symmetric int8.
+- :func:`row_resize_conv4_int8` replaces Pallas kernel D: the nearest row
+  resize 35 -> 56 folded into the 4x4 pad-1 conv by 8 row phases, int32
+  sums, per-phase and per-cout dequant x per-sample scale + bias, written
+  into the interleaved rows.
 
 Each wrapper launches its hand-written CUDA kernel (``zdcsim_torch/csrc``)
 for a CUDA tensor, and runs the plain PyTorch version for a CPU tensor; it
@@ -15,6 +22,9 @@ kernel's launches (plain runs and CPU calls do not count).
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -211,3 +221,199 @@ def up2_conv4_int8(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16):
 
 
 up2_conv4_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: GroupNorm + LeakyReLU + per-sample int8
+# ---------------------------------------------------------------------------
+
+def gn_leaky_rowquant_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                            groups: int = 32):
+    """Plain PyTorch version of :func:`gn_leaky_rowquant`, op for op the
+    kernel's arithmetic (its sums run in another order). The JAX kernel
+    takes ``lax.rsqrt``; this version and the CUDA kernel take the IEEE
+    ``1 / sqrt``, as kernel A does."""
+    b, h, w, c = x.shape
+    x = x.to(torch.float32)
+    xg = x.reshape(b, h * w, groups, c // groups)
+    n = float(h * w * (c // groups))
+    mu = xg.sum(dim=(1, 3)) / n  # [B, G]
+    var = torch.clamp((xg * xg).sum(dim=(1, 3)) / n - mu * mu, min=0.0)
+    rstd = 1.0 / torch.sqrt(var + 1e-6)
+    y = (xg - mu[:, None, :, None]) * rstd[:, None, :, None]
+    y = y.reshape(b, h, w, c) * scale + bias
+    y = torch.where(y >= 0, y, 0.1 * y)
+    s = torch.clamp(y.abs().amax(dim=(1, 2, 3)).reshape(b, 1) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(y / s.reshape(b, 1, 1, 1)), -127, 127).to(torch.int8)
+    return q, s
+
+
+def gn_leaky_rowquant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      groups: int = 32):
+    """``GroupNorm(x) * scale + bias -> LeakyReLU(0.1) -> per-sample int8``.
+
+    x: ``[B, H, W, C]`` bf16 or f32, NHWC; statistics per sample and group of
+    ``C / groups`` consecutive channels over H, W and the group's channels,
+    one pass in f32 (``var = max(E[x^2] - E[x]^2, 0)``), eps 1e-6. scale,
+    bias: ``[C]`` f32. Returns ``(q [B, H, W, C] int8, s [B, 1] f32)`` with
+    sample ``i`` ``~= q[i] * s[i]``.
+    """
+    _require_f32("gn_leaky_rowquant", x.device, scale=scale, bias=bias)
+    if x.ndim != 4 or x.shape[-1] % groups:
+        raise ValueError(f"gn_leaky_rowquant: x must be [B, H, W, C] with C % {groups} == 0, "
+                         f"got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return gn_leaky_rowquant_plain(x, scale, bias, groups)
+    _require_cuda(x, "gn_leaky_rowquant")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gn_leaky_rowquant: x must be bf16/f32, got {x.dtype}")
+    b, h, w, c = x.shape
+    if c % 8 or 128 % (c // 8):
+        raise ValueError(f"gn_leaky_rowquant: C={c} must be a multiple of 8 with C/8 dividing 128")
+    if scale.shape != (c,) or bias.shape != (c,):
+        raise ValueError("gn_leaky_rowquant: scale and bias must be [C]")
+    x, scale, bias = x.contiguous(), scale.contiguous(), bias.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("gn_leaky_rowquant: x must be 16-byte aligned")
+    q = torch.empty((b, h, w, c), dtype=torch.int8, device=x.device)
+    s = torch.empty((b, 1), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        status = lib.zdc_gn_leaky_rowquant(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(), bias.data_ptr(),
+            q.data_ptr(), s.data_ptr(), b, h * w, c, groups, _stream(x),
+        )
+    _build.check(status, "gn_leaky_rowquant")
+    gn_leaky_rowquant.launches += 1
+    return q, s
+
+
+gn_leaky_rowquant.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: int8 row-resize conv (Conv_1), fused dequant + row interleave
+# ---------------------------------------------------------------------------
+
+def _quant_row_phases(w: torch.Tensor, plans):
+    """Per-phase merged row-group kernels of a ``_row_phase_plan``, zero-padded
+    to a uniform group count and quantized per phase and per cout.
+
+    w: ``[4, 4, Cin, Cout]``; the merge runs in float32 in the JAX order of
+    additions (``sum(w[a] for a in taps)``). Returns ``(kq [Q, maxL*4, Cin,
+    Cout] int8, sk [Q, Cout] f32, offsets [Q][maxL])``: tap ``l*4 + b`` of
+    phase ``p`` reads source row offset ``offsets[p][l]`` and column shift
+    ``b - 1``; a padded group repeats the phase's first offset.
+    """
+    w = w.to(torch.float32)
+    max_l = max(len(groups) for _, groups, _ in plans)
+    kqs, sks, offsets = [], [], []
+    for _, groups, _ in plans:
+        ks = [sum(w[a] for a in taps) for _, taps in groups]
+        ks += [torch.zeros_like(ks[0])] * (max_l - len(ks))
+        k_p = torch.stack(ks)  # [maxL, 4, Cin, Cout]
+        s = torch.clamp(k_p.abs().amax(dim=(0, 1, 2)) / 127.0, min=1e-12)
+        kqs.append(torch.clamp(torch.round(k_p / s), -127, 127).to(torch.int8)
+                   .reshape(max_l * 4, *k_p.shape[2:]))
+        sks.append(s)
+        offsets.append([int(d) for d, _ in groups] + [int(groups[0][0])] * (max_l - len(groups)))
+    return torch.stack(kqs), torch.stack(sks), offsets
+
+
+def _row_plan_periods(h_src: int, n_resized_rows: int, name: str):
+    """``(q, p)`` of the resize ``h_src -> n_resized_rows``; the kernel, like
+    the JAX one, is specialised to the stride-5 plan of 35 -> 56."""
+    g = math.gcd(h_src, n_resized_rows)
+    p_num, q = h_src // g, n_resized_rows // g
+    if p_num != 5:
+        raise ValueError(f"{name}: only the stride-5 row plan (35 -> 56) is supported, "
+                         f"got {h_src} -> {n_resized_rows} (stride {p_num})")
+    return q, p_num
+
+
+def row_resize_conv4_int8_plain(xq, sx, kq, sk, offsets, bias, n_resized_rows,
+                                out_dtype=torch.bfloat16):
+    """Plain PyTorch version of :func:`row_resize_conv4_int8`: each phase's
+    taps as shifted float64 matmuls of the int8 values (exact), then the
+    kernel's f32 epilogue."""
+    b, h, w, _ = xq.shape
+    q, p_num = _row_plan_periods(h, n_resized_rows, "row_resize_conv4_int8_plain")
+    n_rows = n_resized_rows - 1
+    max_l = kq.shape[1] // 4
+    x64 = F.pad(xq.to(torch.float64), (0, 0, 1, 2))  # column taps j-1 .. j+2
+    k64 = kq.to(torch.float64)
+    sxb = sx.reshape(b, 1, 1, 1)
+    out = torch.empty((b, n_rows, w, kq.shape[-1]), dtype=out_dtype, device=xq.device)
+    for p in range(q):
+        n_phase = (n_rows - p + q - 1) // q
+        acc = torch.zeros((b, n_phase, w, kq.shape[-1]), dtype=torch.float64, device=xq.device)
+        for l in range(max_l):
+            src = p_num * torch.arange(n_phase, device=xq.device) + offsets[p][l]
+            valid = (src >= 0) & (src < h)
+            rows = x64.index_select(1, src.clamp(0, h - 1)) * valid.reshape(1, -1, 1, 1)
+            for bc in range(4):
+                acc += rows[:, :, bc:bc + w] @ k64[p, l * 4 + bc]
+        val = acc.to(torch.float32) * sk[p] * sxb + bias
+        out[:, p::q] = val.to(out_dtype)
+    return out
+
+
+def row_resize_conv4_int8(xq, sx, kq, sk, offsets, bias, n_resized_rows,
+                          out_dtype=torch.bfloat16):
+    """``conv4x4(pad1, resize_rows(x, n_resized_rows))`` on int8 data.
+
+    xq: ``[B, H_src, W, Cin]`` int8 with the columns already resized (Cin a
+    multiple of 4); sx: ``[B]`` or ``[B, 1]`` f32 per-sample scales; kq, sk,
+    offsets: :func:`_quant_row_phases` of the Conv_1 kernel; bias: ``[Cout]``
+    f32. Output row ``i = r * Q + p`` sums phase ``p``'s merged row groups
+    (source row ``5 r + offsets[p][l]``), the 4 column taps ``j-1 .. j+2`` and
+    every channel; taps off the source grid read zero. Returns ``[B,
+    n_resized_rows - 1, W, Cout]`` in ``out_dtype`` (bf16 or f32); callers
+    trim to the conv-valid ``W - 1`` columns. Only the stride-5 plan of
+    35 -> 56 is supported, as in JAX.
+    """
+    _require_f32("row_resize_conv4_int8", xq.device, sx=sx, sk=sk, bias=bias)
+    if xq.ndim != 4 or xq.dtype != torch.int8:
+        raise ValueError(f"row_resize_conv4_int8: xq must be [B, H, W, Cin] int8, "
+                         f"got {tuple(xq.shape)} {xq.dtype}")
+    b, h, w, cin = xq.shape
+    q, p_num = _row_plan_periods(h, n_resized_rows, "row_resize_conv4_int8")
+    if kq.dtype != torch.int8 or kq.ndim != 4 or kq.shape[0] != q or kq.shape[1] % 4 \
+            or kq.shape[2] != cin or len(offsets) != q:
+        raise ValueError(f"row_resize_conv4_int8: kq must be [{q}, maxL*4, {cin}, Cout] int8 "
+                         f"with {q} offset rows, got {tuple(kq.shape)} {kq.dtype}")
+    cout, max_l = kq.shape[3], kq.shape[1] // 4
+    if sk.shape != (q, cout) or bias.shape != (cout,) or sx.numel() != b:
+        raise ValueError(f"row_resize_conv4_int8: sk must be [{q}, Cout], bias [Cout], sx [B]")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"row_resize_conv4_int8: out_dtype must be bf16 or f32, got {out_dtype}")
+    if xq.device.type == "cpu":
+        return row_resize_conv4_int8_plain(xq, sx, kq, sk, offsets, bias, n_resized_rows,
+                                           out_dtype)
+    _require_cuda(xq, "row_resize_conv4_int8")
+    if cin % 4 != 0:
+        raise ValueError(f"row_resize_conv4_int8: Cin={cin} must be a multiple of 4")
+    if q > 8 or max_l > 4:
+        raise ValueError(f"row_resize_conv4_int8: at most 8 phases of 4 groups, got {q} x {max_l}")
+    dev = xq.device
+    xq = xq.contiguous()
+    if xq.data_ptr() % 4:
+        raise ValueError("row_resize_conv4_int8: xq must be 4-byte aligned")
+    if kq.device != dev:
+        raise ValueError(f"row_resize_conv4_int8: kq must be on {dev}, got {kq.device}")
+    sx, kq, sk, bias = sx.reshape(b).contiguous(), kq.contiguous(), sk.contiguous(), bias.contiguous()
+    offs = (ctypes.c_int * (q * max_l))(*[int(d) for row in offsets for d in row])
+    out = torch.empty((b, n_resized_rows - 1, w, cout), dtype=out_dtype, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.zdc_row_resize_conv4_int8(
+            xq.data_ptr(), sx.data_ptr(), kq.data_ptr(), sk.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), b, h, w, cin, cout, q, p_num,
+            max_l, n_resized_rows - 1, ctypes.cast(offs, ctypes.c_void_p), _stream(xq),
+        )
+    _build.check(status, "row_resize_conv4_int8")
+    row_resize_conv4_int8.launches += 1
+    return out
+
+
+row_resize_conv4_int8.launches = 0
