@@ -2,7 +2,7 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-8 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 on the CPU at small sizes
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
 Phases, each printing lines with the elapsed seconds:
@@ -26,18 +26,38 @@ Phases, each printing lines with the elapsed seconds:
    ``"int8"``, rate and peak memory of all three. The teacher's router
    sends every condition to expert 1, so the serve routes with a router
    drawn from ``--seed`` and fails unless every expert decodes showers;
-9. kernel times with CUDA events at the serving tile (64 rows).
+9. kernel times with CUDA events at the serving tile (64 rows);
+10. the fidelity gate's test split (25600 synthetic events, seed 7, numpy),
+    and kernel E (expm1 + channel sums) against its plain version on its
+    5120 real showers [5120, 56, 30] and on a [37, 44, 44] batch;
+11. kernel F (routed expm1 + channel sums) on the teacher's all-expert
+    log-space decode of 4096 showers [3, 4096, 56, 30], routed by phase 8's
+    seeded router (launches counted over this path): against its plain
+    version, and bit-equal to kernel E on the routed rows;
+12. ``f32`` and ``bf16`` serves of 4096 teacher showers against ``int8`` on
+    the same inputs (routing identical, per-shower log1p sums within rtol
+    0.15), with rate and peak memory;
+13. the fidelity gate (``fidelity_torch.run_gate``, three noise draws) on
+    the teacher at ``int8`` and ``int8_pallas`` and on the w=0.125 student
+    at ``int8``: each record, its kernel launches (counts set to 0 just
+    before each gate), and a failure unless its value is finite and
+    ``vs_baseline >= 1.0``; the floor is printed beside the CPU tests' anchor;
+14. kernels E and F timed with CUDA events at 16384 showers, beside their
+    plain versions and PyTorch's ``expm1`` then the channel-basis matmul.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
 per kernel and the device's idle share of the serve's wall time.
 
 The line before the last is the kernels' JSON record, with the launches of
-the ``int8_pallas`` serve (the path that runs all four kernels); the last
-line is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
-before that line is printed. Without a CUDA device the script exits with
-code 2 and prints no result; ``--rehearse-cpu`` ends with
-``{"rehearsal": true}``.
+the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
+``int8`` gate (E) and of the all-expert path (F); the last line is
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
+that line is printed. Without a CUDA device the script exits with code 2
+and prints no result; ``--rehearse-cpu`` runs E and F at [8, 56, 30] (F's
+path decodes 32 showers, so that the seeded router reads every expert),
+serves of 8 showers, and the student's gate on the first 512 test
+conditions with one draw, and ends with ``{"rehearsal": true}``.
 """
 
 from __future__ import annotations
@@ -51,7 +71,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TEACHER = os.path.join(HERE, "artifacts", "gate", "gate_serving_weights.npz")
+STUDENT = os.path.join(HERE, "artifacts", "gate", "student_w0.125_serving_weights.npz")
+FLOOR_ANCHOR = 457.4265  # the floor of the full split on the CPU (tests/test_torch_data.py)
 N_SHOWERS = 16384
+F_SHOWERS = FLOAT_SHOWERS = 4096
+EF_TIME_ROWS = 16384
 SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
 A_ROWS, B_ROWS, C_ROWS, D_ROWS, TIME_ROWS = 256, 64, 64, 64, 64
 KERNEL_PATHS = {  # precision -> the kernels its decode launches
@@ -256,21 +280,21 @@ def seeded_router(rng, n_experts=3, widths=(9, 128, 64, 32)):
     }
 
 
-def serve_rate(eng, dev, n, batch, tile, card, seed, precision):
+def serve_rate(eng, dev, n, batch, tile, card, seed, precision, phase="8 serve"):
     import torch
 
     torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     stats = eng.throughput_bulk(n_showers=n, generator=gen)
     peak = torch.cuda.max_memory_allocated(dev)
-    log("8 serve", f"{precision} throughput_bulk: {stats['showers_per_sec']:.1f} showers/s "
+    log(phase, f"{precision} throughput_bulk: {stats['showers_per_sec']:.1f} showers/s "
         f"({n} showers in {stats['seconds']:.3f}s, batch {batch}, tile {tile}); "
         f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
 
 
 def serve(gp, rp, rng, dev, n, batch, tile, card, seed, profile=False):
     """The yardstick ``int8`` serve, then each kernel path; returns the
-    launch counts of each path's main run."""
+    launch counts of each path's main run and the seeded router."""
     import numpy as np
     import torch
 
@@ -340,7 +364,7 @@ def serve(gp, rp, rng, dev, n, batch, tile, card, seed, profile=False):
             if profile:
                 profile_serve(eng, cond, noise, card, precision)
         del eng
-    return launches
+    return launches, router
 
 
 def profile_serve(eng, cond, noise, card, precision):
@@ -491,11 +515,223 @@ def time_kernels(a_in, b_in, c_in, d_in, launches, errs, card):
     return rec
 
 
+def within_rtol(out, ref, rtol):
+    """``(max relative error, all within rtol)`` of two tensors."""
+    err = (out - ref).abs()
+    return (err / ref.abs().clamp(min=1e-30)).max().item(), bool((err <= rtol * ref.abs()).all())
+
+
+def gate_data(dev, rehearse):
+    """Phase 10: the gate's test split (numpy), and kernel E against its plain
+    version on its real showers and on a neutron-sized batch."""
+    import numpy as np
+    import torch
+
+    import fidelity_torch as ft
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    t = time.perf_counter()
+    cond, real = ft.gate_split(load_config(list(ft.GATE_OVERRIDES)))
+    log("10 kernel E", f"gate split in {time.perf_counter() - t:.2f}s: test cond {cond.shape}, "
+        f"real {real.shape}, first test showers' photon sums "
+        f"{np.expm1(real[:3]).sum(axis=(1, 2)).round(1).tolist()}")
+    rng = np.random.default_rng(10)
+    errs = []
+    for x in (real[:8] if rehearse else real,
+              rng.random((37, 44, 44), dtype=np.float32) * 3):
+        xt = torch.as_tensor(x).to(dev)
+        out, ref = ek.expm1_channel_sums(xt), ek.expm1_channel_sums_plain(xt)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rel, ok = within_rtol(out, ref, 1e-5)
+        errs.append((out - ref).abs().max().item())
+        log("10 kernel E", f"{list(x.shape)} f32 -> {list(out.shape)}: max rel err {rel:.3e} "
+            f"(rtol 1e-5: {ok}), max abs err {errs[-1]:.3e}")
+        if not ok or not torch.isfinite(out).all():
+            fail("kernel E disagrees with its plain version")
+    return cond, real, max(errs)
+
+
+def kernel_f_path(gp, router, dev, n, card):
+    """Phase 11: the teacher's all-expert log-space decode of ``n`` showers
+    (each expert decodes every shower), routed by phase 8's seeded router,
+    into kernel F; F against its plain version, and bit-equal to kernel E
+    on the routed rows. Returns ``(launches of F, max abs err)``."""
+    import numpy as np
+    import torch
+
+    from zdcsim_torch.inference.engine import FastSim
+    from zdcsim_torch.models.proton_fast import fast_generator_apply
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    rng = np.random.default_rng(11)
+    cond = torch.as_tensor(rng.standard_normal((n, 9), dtype="float32")).to(dev)
+    noise = torch.as_tensor(rng.standard_normal((n, 10), dtype="float32")).to(dev)
+    eng = FastSim(gp, router, batch_size=n, precision="int8", device=dev)
+    with torch.no_grad():
+        ids = eng.router(cond)[1].argmax(-1)
+        ek.expm1_channel_sums.launches = ek.routed_expm1_channel_sums.launches = 0
+        imgs = torch.stack([
+            fast_generator_apply(p, noise.to(torch.bfloat16), cond.to(torch.bfloat16), int8=True,
+                                 qweights=q)[..., 0].to(torch.float32)
+            for p, q in zip(eng._experts, eng._qweights)])
+        out = ek.routed_expm1_channel_sums(imgs, ids)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    launches = ek.routed_expm1_channel_sums.launches
+    used = torch.bincount(ids, minlength=3).tolist()
+    log("11 kernel F", f"all-expert decode {list(imgs.shape)} f32 (log space) -> F: {launches} "
+        f"launch(es); showers per expert {used} [{card}]")
+    if dev.type == "cuda" and launches <= 0:
+        fail("the all-expert path did not launch kernel F")
+    if min(used) <= 0:
+        fail(f"the seeded router left an expert unread: {used}")
+    ref = ek.routed_expm1_channel_sums_plain(imgs, ids)
+    rows = ek.expm1_channel_sums(imgs[ids, torch.arange(n, device=dev)].contiguous())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rel, ok = within_rtol(out, ref, 1e-5)
+    same = torch.equal(out, rows)
+    err = (out - ref).abs().max().item()
+    log("11 kernel F", f"F vs plain: max rel err {rel:.3e} (rtol 1e-5: {ok}), max abs err "
+        f"{err:.3e}; F bit-equal to E on the routed rows: {same}")
+    if not (ok and same and torch.isfinite(out).all()):
+        fail("kernel F disagrees with its plain version or with kernel E")
+    return launches, err
+
+
+def float_serves(gp, router, dev, n, batch, tile, card, seed):
+    """Phase 12: ``f32`` and ``bf16`` serves of ``n`` teacher showers against
+    ``int8`` on the same conditions and noise, with phase 8's router."""
+    import numpy as np
+    import torch
+
+    from zdcsim_torch.inference.engine import FastSim
+
+    rng = np.random.default_rng(12)
+    cond = rng.standard_normal((n, 9), dtype="float32")
+    noise = rng.standard_normal((n, 10), dtype="float32")
+    ref_ids, b = None, None
+    for precision in ("int8", "f32", "bf16"):
+        eng = FastSim(gp, router, batch_size=batch, precision=precision, device=dev)
+        eng._build_switch(tile=tile)
+        t = time.perf_counter()
+        imgs, ids = eng.simulate_bulk(cond, noise=noise, return_experts=True)
+        imgs, ids = imgs.cpu().numpy(), ids.cpu().numpy()
+        dt = time.perf_counter() - t
+        if imgs.shape != (n, 56, 30) or not np.isfinite(imgs).all() or imgs.min() < 0:
+            fail(f"{precision}: served showers not finite/non-negative of shape ({n}, 56, 30)")
+        a = np.log1p(imgs.sum(axis=(1, 2)))
+        if ref_ids is None:
+            ref_ids, b = ids, a
+            log("12 float serves", f"int8 reference: {n} showers in {dt:.3f}s, showers per "
+                f"expert {np.bincount(ids, minlength=3).tolist()}")
+        else:
+            rel = np.abs(a - b) / np.abs(b)
+            same_ids = bool((ids == ref_ids).all())
+            log("12 float serves", f"{precision}: {n} showers in {dt:.3f}s; routing identical "
+                f"to int8 {same_ids}; max rel diff of per-shower log1p sums {rel.max():.4f} "
+                f"(rtol 0.15)")
+            if not same_ids or rel.max() > 0.15:
+                fail(f"{precision} and int8 serving disagree")
+        if dev.type == "cuda" and precision != "int8":
+            serve_rate(eng, dev, n, batch, tile, card, seed, precision, "12 float serves")
+        del eng
+
+
+def gates(data, dev, rehearse, card):
+    """Phase 13: the fidelity gate (``fidelity_torch.run_gate``) on the
+    teacher at ``int8`` and ``int8_pallas`` and on the w=0.125 student at
+    ``int8``; every kernel count is set to 0 just before each gate and read
+    just after. Returns kernel E's launches of the teacher's ``int8`` gate."""
+    import numpy as np
+    import torch
+
+    import fidelity_torch as ft
+    from zdcsim_torch.ops import decode_kernels as dk
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    cond, real = data
+    ch_real = ek.expm1_channel_sums(torch.as_tensor(real).to(dev))
+    floor = ft.real_floor(ch_real)[0]
+    log("13 gate", f"real-vs-real floor {floor:.4f} on {len(cond)} test showers (CPU test "
+        f"anchor on the full split: {FLOOR_ANCHOR}; not a check here) [{card}]")
+    wrappers = {name: getattr(dk, name) for name in KERNEL_PATHS["int8_pallas"]}
+    wrappers.update(expm1_channel_sums=ek.expm1_channel_sums,
+                    routed_expm1_channel_sums=ek.routed_expm1_channel_sums)
+    runs = ([(STUDENT, "int8")] if rehearse
+            else [(TEACHER, "int8"), (TEACHER, "int8_pallas"), (STUDENT, "int8")])
+    e_launches = None
+    for path, precision in runs:
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        rec = ft.run_gate(path, precision, dev, data=data, n_draws=1 if rehearse else ft.N_DRAWS)
+        counts = {name: w.launches for name, w in wrappers.items()}
+        print(json.dumps(rec), flush=True)
+        log("13 gate", f"{os.path.basename(path)} {precision}: {time.perf_counter() - t:.2f}s, "
+            f"value {rec['value']} x floor, vs_baseline {rec['vs_baseline']}; kernel launches "
+            f"{counts} [{card}]")
+        needs = ("expm1_channel_sums",) + (KERNEL_PATHS[precision] if precision in KERNEL_PATHS
+                                           else ())
+        if dev.type == "cuda" and min(counts[k] for k in needs) <= 0:
+            fail(f"the {precision} gate did not launch each of its kernels {needs}: {counts}")
+        if not (np.isfinite(rec["value"]) and rec["vs_baseline"] >= 1.0):
+            fail(f"the gate of {os.path.basename(path)} at {precision} did not pass: {rec}")
+        if e_launches is None:
+            e_launches = counts["expm1_channel_sums"]
+    return e_launches
+
+
+def time_epilogues(e_launches, f_launches, errs, card):
+    """Phase 14: kernels E and F with CUDA events at ``EF_TIME_ROWS`` showers,
+    beside their plain versions and the library's ``expm1`` then the
+    channel-basis matmul (F: the routed gather first)."""
+    import torch
+
+    from zdcsim_torch.ops import epilogue_kernels as ek
+    from zdcsim_torch.ops.channels import channel_basis
+
+    b, h, w = EF_TIME_ROWS, 56, 30
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.rand((b, h, w), generator=gen, device="cuda") * 5
+    imgs = torch.rand((3, b, h, w), generator=gen, device="cuda") * 5
+    ids = torch.randint(0, 3, (b,), generator=gen, device="cuda")
+    rows = torch.arange(b, device="cuda")
+    basis = torch.as_tensor(channel_basis((h, w)), device="cuda")
+    e_ms = time_ms(lambda: ek.expm1_channel_sums(x), 50)
+    e_plain = time_ms(lambda: ek.expm1_channel_sums_plain(x), 20)
+    e_lib = time_ms(lambda: torch.expm1(x).reshape(b, h * w) @ basis, 20)
+    f_ms = time_ms(lambda: ek.routed_expm1_channel_sums(imgs, ids), 50)
+    f_plain = time_ms(lambda: ek.routed_expm1_channel_sums_plain(imgs, ids), 20)
+    f_lib = time_ms(lambda: torch.expm1(imgs[ids, rows]).reshape(b, h * w) @ basis, 20)
+    # each routed row read once, ids read once, sums written once; expm1 and
+    # one add per pixel (the 0-adds of the other channels are not the work)
+    e_bytes, f_bytes = b * h * w * 4 + b * 5 * 4, b * h * w * 4 + b * 8 + b * 5 * 4
+    rec = []
+    for name, replaces, ms, plain, lib, n_bytes, launches, err in (
+        ("expm1_channel_sums", "zdcsim/ops/pallas_kernels.py:103", e_ms, e_plain, e_lib,
+         e_bytes, e_launches, errs[0]),
+        ("routed_expm1_channel_sums", "zdcsim/ops/pallas_kernels.py:62", f_ms, f_plain, f_lib,
+         f_bytes, f_launches, errs[1]),
+    ):
+        bound_ms, bound_by = bound(n_bytes, 2 * b * h * w, F32_OPS_PER_S)
+        rec.append({"name": name, "route": "cuda",
+                    "source": "zdcsim_torch/csrc/expm1_channel_sums.cu", "replaces": replaces,
+                    "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib})
+        log("14 epilogue times", f"{name} at {b} showers: {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"library {lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-8 on the CPU at small sizes with the plain versions")
+                    help="run phases 3-13 on the CPU at small sizes with the plain versions")
     ap.add_argument("--profile", action="store_true",
                     help="profile one serve of each kernel path with torch.profiler")
     args = ap.parse_args(argv)
@@ -540,13 +776,22 @@ def main(argv=None) -> int:
     d_in = check_kernel_d(gp, rng_cd, dev, 4 if rehearse else D_ROWS)
     check_conv_i8(gp, rng_cd, dev, 1 if rehearse else 2)
     if rehearse:
-        serve(gp, rp, rng, dev, 24, 8, 2, card, args.seed)
+        _, router = serve(gp, rp, rng, dev, 24, 8, 2, card, args.seed)
+        cond, real, _ = gate_data(dev, rehearse)
+        kernel_f_path(gp, router, dev, 32, card)
+        float_serves(gp, router, dev, 8, 8, 2, card, args.seed)
+        gates((cond[:512], real[:512]), dev, rehearse, card)
         print(json.dumps({"rehearsal": True}), flush=True)
         return 0
-    launches = serve(gp, rp, rng, dev, N_SHOWERS, SERVE_BATCH, SERVE_TILE, card, args.seed,
-                     args.profile)
+    launches, router = serve(gp, rp, rng, dev, N_SHOWERS, SERVE_BATCH, SERVE_TILE, card,
+                             args.seed, args.profile)
     rec = time_kernels(a_in[:3], b_in[:5], c_in[:3], d_in[:6], launches["int8_pallas"],
                        (a_in[3], b_in[5], c_in[3], d_in[6]), card)
+    cond, real, e_err = gate_data(dev, rehearse)
+    f_launches, f_err = kernel_f_path(gp, router, dev, F_SHOWERS, card)
+    float_serves(gp, router, dev, FLOAT_SHOWERS, SERVE_BATCH, SERVE_TILE, card, args.seed)
+    e_launches = gates((cond, real), dev, rehearse, card)
+    rec += time_epilogues(e_launches, f_launches, (e_err, f_err), card)
     log("done", f"wall {time.perf_counter() - T0:.2f}s [{card}]")
     print(json.dumps({"kernels": rec}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -68,6 +68,15 @@ def test_config_defaults_equal_jax_config():
     assert ours.model.generator.width == ref.model.generator.width
     assert ours.dataset.zdc_type == ref.dataset.zdc_type
     assert list(ours.dataset.input_image_shape) == list(ref.dataset.input_image_shape) == [56, 30]
+    # the keys the gate's data split reads
+    for key in ("synthetic", "synthetic_n_samples", "MIN_INTENSITY_THRESHOLD",
+                "MAX_INTENSITY_THRESHOLD", "read_n_samples", "shuffle_train_test_split",
+                "test_size"):
+        assert getattr(ours.dataset, key) == ref.dataset[key], key
+    for key in ("seed", "batch_size", "save_experiment_data", "checkpoint_experiment_dir",
+                "epoch_to_load"):
+        assert getattr(ours.train, key) == ref.train[key], key
+    assert ours.dataset.MIN_INTENSITY_THRESHOLD == 1
 
 
 def test_config_router_widths_match_the_teacher_router():
@@ -80,6 +89,8 @@ def test_config_router_widths_match_the_teacher_router():
 @pytest.mark.parametrize("override", [
     "model.n_experts=5", "model.generator.width=0.25", "model.noise_dim=12",
     "dataset.input_image_shape=[44, 44]", "model.architecture=neutron",
+    "dataset.synthetic=true", "dataset.synthetic_n_samples=25600", "train.seed=7",
+    "train.batch_size=512", "dataset.MIN_INTENSITY_THRESHOLD=null", "dataset.test_size=0.25",
 ])
 def test_config_overrides_parse_as_jax(override):
     ours = load_config([override])

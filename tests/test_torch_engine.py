@@ -35,7 +35,7 @@ def test_fastsim_rejects_unported_precision(weights):
         FastSim(*weights, precision="int8_fused", device="cpu")
 
 
-@pytest.mark.parametrize("precision", ["int8", "int8_pallas_ab", "int8_pallas"])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8", "int8_pallas_ab", "int8_pallas"])
 def test_fastsim_chunks_pad_and_reproduce(weights, precision):
     eng = FastSim(*weights, batch_size=8, precision=precision, device="cpu")
     eng._build_switch(tile=4)
@@ -57,10 +57,10 @@ def test_fastsim_chunks_pad_and_reproduce(weights, precision):
 
 
 def test_fastsim_checks_noise_and_expert_count(weights):
-    eng = FastSim(*weights, batch_size=4, device="cpu")
+    eng = FastSim(*weights, batch_size=4, precision="int8", device="cpu")
     with pytest.raises(ValueError, match="noise"):
         eng.simulate_switch(np.zeros((4, 9), np.float32), noise=np.zeros((4, 7), np.float32))
     from zdcsim_torch.config import load_config
 
     with pytest.raises(ValueError, match="experts"):
-        FastSim(*weights, device="cpu", cfg=load_config(["model.n_experts=2"]))
+        FastSim(*weights, precision="int8", device="cpu", cfg=load_config(["model.n_experts=2"]))

@@ -180,3 +180,87 @@ def test_fast_generator_pallas_card_matches_cpu(cuda):
     assert (dk.gn_leaky_rowquant.launches, dk.row_resize_conv4_int8.launches) == (n0[0] + 1, n0[1] + 1)
     # int8 bound of tests/test_pallas_decode.py:203 (rounding flips cascade)
     assert np.abs(out - ref).max() < 0.05 * np.abs(ref).max() + 0.05
+
+
+@pytest.mark.parametrize("dtype,b,h,w", [(torch.float32, 10, 8, 6), (torch.float32, 37, 44, 44),
+                                         (torch.bfloat16, 9, 7, 5)])
+def test_expm1_channel_sums_kernel_matches_plain(cuda, dtype, b, h, w):
+    """Kernel E; 7x5 has odd sides and 35 pixels (the scalar-load path), 37
+    showers are not a multiple of a block's 8 warps."""
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    rng = np.random.default_rng(b + h + w)
+    x = torch.as_tensor(rng.random((b, h, w), dtype=np.float32) * 3).to(cuda, dtype)
+    n0 = ek.expm1_channel_sums.launches
+    out = ek.expm1_channel_sums(x)
+    ref = ek.expm1_channel_sums_plain(x)
+    torch.cuda.synchronize()
+    assert ek.expm1_channel_sums.launches == n0 + 1
+    assert out.shape == (b, 5) and out.dtype == torch.float32
+    # tolerance of tests/test_pallas_kernels.py (sums taken in another order)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("e,b,h,w", [(3, 8, 8, 6), (3, 37, 56, 30), (2, 5, 7, 5)])
+def test_routed_expm1_channel_sums_kernel_matches_plain_and_e(cuda, e, b, h, w):
+    """Kernel F against its plain version, and bit-equal to kernel E on the
+    routed rows (one device function reads both)."""
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    rng = np.random.default_rng(e + b + h)
+    imgs = torch.as_tensor(rng.random((e, b, h, w), dtype=np.float32) * 3).to(cuda)
+    idx = torch.as_tensor(rng.integers(0, e, b)).to(cuda)
+    n0 = ek.routed_expm1_channel_sums.launches
+    out = ek.routed_expm1_channel_sums(imgs, idx)
+    ref = ek.routed_expm1_channel_sums_plain(imgs, idx)
+    rows = ek.expm1_channel_sums(imgs[idx, torch.arange(b, device=cuda)].contiguous())
+    torch.cuda.synchronize()
+    assert ek.routed_expm1_channel_sums.launches == n0 + 1
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=0)
+    assert torch.equal(out, rows)
+
+
+def test_routed_expm1_channel_sums_writes_nan_for_a_bad_id(cuda):
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    rng = np.random.default_rng(5)
+    imgs = torch.as_tensor(rng.random((3, 6, 56, 30), dtype=np.float32)).to(cuda)
+    idx = torch.tensor([0, -1, 2, 3, 1, 1 << 40], device=cuda)
+    out = ek.routed_expm1_channel_sums(imgs, idx)
+    ref = ek.routed_expm1_channel_sums_plain(imgs, idx)
+    torch.cuda.synchronize()
+    bad = torch.tensor([False, True, False, True, False, True], device=cuda)
+    assert torch.isnan(out[bad]).all() and torch.isnan(ref[bad]).all()
+    assert torch.isfinite(out[~bad]).all()
+    torch.testing.assert_close(out[~bad], ref[~bad], rtol=1e-5, atol=0)
+
+
+def test_fastsim_f32_is_float32_on_the_card(cuda):
+    """``FastSim(precision="f32")`` on the card against the CPU, on a narrow
+    random generator: float32 agrees to 1e-4 in log space, and the same
+    decode with cuDNN's TF32 on (torch's default for convs) does not, so the
+    bound can tell the two apart."""
+    from zdcsim_torch.convert import expert, from_jax_params
+    from zdcsim_torch.inference.engine import FastSim
+    from zdcsim_torch.models.router import RouterNetwork
+    from zdcsim_torch.utils.artifact import _flatten, _unflatten
+
+    torch.manual_seed(2)
+    trees = [_flatten(from_state_dict(Generator(width=1 / 16).state_dict())) for _ in range(3)]
+    gen = _unflatten({k: np.stack([t[k] for t in trees]) for k in trees[0]})
+    router = from_state_dict(RouterNetwork(3).state_dict())
+    rng = np.random.default_rng(2)
+    cond = rng.standard_normal((16, 9), dtype=np.float32)
+    noise = rng.standard_normal((16, 10), dtype=np.float32)
+    ref = FastSim(gen, router, batch_size=16, device="cpu").simulate_switch(cond, noise=noise)
+    out = FastSim(gen, router, batch_size=16, device=cuda).simulate_switch(cond, noise=noise)
+    err = (torch.log1p(out.cpu()) - torch.log1p(ref)).abs().max().item()
+    assert err < 1e-4, err
+
+    p0 = tree_to_torch(expert(from_jax_params(gen, router)[0], 0), device=cuda)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        tf32 = fast_generator_apply(p0, torch.as_tensor(noise).to(cuda),
+                                    torch.as_tensor(cond).to(cuda))
+    f32 = fast_generator_apply(tree_to_torch(expert(from_jax_params(gen, router)[0], 0)),
+                               torch.as_tensor(noise), torch.as_tensor(cond))
+    assert (tf32.cpu() - f32).abs().max().item() > 1e-4

@@ -77,6 +77,23 @@ def test_gn_leaky_rowquant_matches_jax(shape):
     assert diff.max() <= 1 and (diff != 0).mean() < 0.01
 
 
+def _fma_f32(a, b, c):
+    """``a * b + c`` of float32 arrays with one rounding, as a fused
+    multiply-add gives it: the product is exact in float64 (24 + 24 bits),
+    the sum's rounding error is recovered exactly (TwoSum), and a float64 sum
+    that falls exactly between two float32 values rounds toward that error."""
+    a, b, c = (np.asarray(t, np.float64) for t in (a, b, c))
+    p = a * b
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r, np.float32(np.inf), np.float32(-np.inf)))
+    mid = (r.astype(np.float64) + other.astype(np.float64)) * 0.5 == s
+    toward = np.sign(err) == np.sign(other.astype(np.float64) - r.astype(np.float64))
+    return np.where(mid & (err != 0) & toward, other, r)
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,w,cin,cout", [(2, 6, 8, 4), (2, 30, 256, 128)])
 def test_row_resize_conv4_int8_matches_jax(b, w, cin, cout, out_dtype):
@@ -98,9 +115,25 @@ def test_row_resize_conv4_int8_matches_jax(b, w, cin, cout, out_dtype):
     if out_dtype == torch.float32:
         # tolerance of test_up2_conv4_int8_matches_int32_exact_reference
         np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+        # Where the two differ, they differ by the epilogue's rounding: with
+        # sx = 1 and bias = 0 both give t = f32(acc * sk), bit for bit; the
+        # port then rounds twice, f32(f32(t * sx) + bias), in the written
+        # order, while XLA's CPU backend fuses t * sx + bias into one FMA.
+        ones, zeros = np.ones_like(sx), np.zeros_like(bias)
+        t = dk.row_resize_conv4_int8(torch.from_numpy(xq), torch.from_numpy(ones), kq, sk,
+                                     offsets, torch.from_numpy(zeros), 56,
+                                     out_dtype=torch.float32).numpy()
+        t_jax = np.asarray(jpd.row_resize_conv4_int8(
+            jnp.asarray(xq), jnp.asarray(ones), jnp.asarray(kernel), jnp.asarray(zeros), 56,
+            out_dtype=jnp.float32, block_rows=2, interpret=True))
+        np.testing.assert_array_equal(t, t_jax)
+        sxb = sx.reshape(b, 1, 1, 1)
+        np.testing.assert_array_equal(out.numpy(), (t * sxb).astype(np.float32) + bias)
+        np.testing.assert_array_equal(ref, _fma_f32(t, sxb, bias))
     else:
-        # XLA's f32 epilogue may round the last bit otherwise (1e-7 relative),
-        # which can move a value to the neighbouring bf16: one bf16 ulp
+        # XLA fuses the f32 epilogue's t * sx + bias into one FMA (the f32
+        # case shows it), which can move a value to the neighbouring bf16:
+        # one bf16 ulp
         ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126))) - 7)
         assert (np.abs(out.float().numpy() - ref) <= ulp).all()
 

@@ -1,7 +1,8 @@
 """The port's configuration: plain dataclasses, no YAML.
 
 The defaults are copied from the keys of ``zdcsim/config/default.yaml`` that
-the serving slice reads (``tests/test_torch_artifact.py`` holds them equal to
+the serving path and the fidelity gate's data split read
+(``tests/test_torch_artifact.py`` holds them equal to
 ``zdcsim.config.load_config()``). The router's hidden widths are not a key
 of that file: they are fixed in ``zdcsim/models/router.py`` and copied here.
 PyYAML is not assumed: overrides use the same ``a.b=c`` dotlist syntax as
@@ -40,12 +41,29 @@ class ModelConfig:
 class DatasetConfig:
     zdc_type: str = "proton"
     input_image_shape: Tuple[int, int] = (56, 30)
+    MIN_INTENSITY_THRESHOLD: Optional[float] = 1  # photon-sum filter; None disables
+    MAX_INTENSITY_THRESHOLD: Optional[float] = None
+    read_n_samples: Optional[int] = None  # stratified subsample size; None keeps all
+    shuffle_train_test_split: bool = True
+    test_size: float = 0.2
+    synthetic: bool = False
+    synthetic_n_samples: int = 8192
+
+
+@dataclass
+class TrainConfig:
+    batch_size: int = 512
+    seed: int = 42
+    save_experiment_data: bool = False
+    checkpoint_experiment_dir: Optional[str] = None
+    epoch_to_load: Optional[int] = None
 
 
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def _parse_value(raw: str) -> Any:

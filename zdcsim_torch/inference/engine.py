@@ -2,11 +2,15 @@
 
 Route each conditioning vector with the router (float32, argmax), draw or
 take the noise, decode every sample with its routed expert through the
-tiled-switch dispatch and the fast int8 proton decode, and invert the log
-transform with ``expm1``.
+tiled-switch dispatch and the fast proton decode (float or int8), and
+invert the log transform with ``expm1``.
 
 Precisions (the JAX names, so one maps onto the other):
 
+- ``"f32"`` (the default): float32 weights and activations, the float fast
+  decode; its convs run with cuDNN's TF32 off, so float32 stays float32 on
+  the card;
+- ``"bf16"``: the float fast decode in bf16;
 - ``"int8"``: bf16 weights and activations, int8 Conv_0/Conv_1/Conv_2, every
   stage plain PyTorch (the JAX XLA int8 backend);
 - ``"int8_pallas_ab"``: as ``"int8"``, with the MLP's LayerNorm + quant and
@@ -39,7 +43,9 @@ from zdcsim_torch.inference.switch_dispatch import tiled_switch_decode
 from zdcsim_torch.models.proton_fast import fast_generator_apply, quantize_weights
 from zdcsim_torch.models.router import RouterNetwork
 
-_BACKENDS = {"int8": "xla", "int8_pallas_ab": "pallas_ab", "int8_pallas": "pallas"}
+# precision -> int8 backend of fast_generator_apply (None: the float decode)
+_BACKENDS = {"f32": None, "bf16": None, "int8": "xla", "int8_pallas_ab": "pallas_ab",
+             "int8_pallas": "pallas"}
 
 
 class FastSim:
@@ -50,14 +56,14 @@ class FastSim:
             ``zdcsim_torch.utils.artifact.load_serving_artifact`` returns
             them (generator experts stacked on the leading axis).
         batch_size: the chunk size inputs are split into and padded to.
-        precision: ``"int8"``, ``"int8_pallas_ab"`` or ``"int8_pallas"`` (see
-            the module doc).
+        precision: ``"f32"``, ``"bf16"``, ``"int8"``, ``"int8_pallas_ab"`` or
+            ``"int8_pallas"`` (see the module doc).
         device: ``None`` for CUDA (raises without a card), or ``"cpu"``.
         cfg: model geometry; defaults to ``load_config()``.
     """
 
     def __init__(self, gen_params: Any, router_params: Any, batch_size: Optional[int] = None,
-                 precision: str = "int8", device=None, cfg: Optional[Config] = None):
+                 precision: str = "f32", device=None, cfg: Optional[Config] = None):
         if precision not in _BACKENDS:
             raise ValueError(
                 f"precision must be one of {sorted(_BACKENDS)} in this port, got {precision!r}"
@@ -70,7 +76,7 @@ class FastSim:
         self.n_experts = int(cfg.model.n_experts)
         self.image_shape = tuple(cfg.dataset.input_image_shape)
         self.precision = precision
-        self._dtype = torch.bfloat16
+        self._dtype = torch.float32 if precision == "f32" else torch.bfloat16
         self._int8_backend = _BACKENDS[precision]
         # Set by a static-activation-quant calibration, which this port does
         # not have yet; kept so callers can read it unconditionally.
@@ -84,7 +90,10 @@ class FastSim:
             tree_to_torch(expert(gen, e), dtype=self._dtype, device=self.device)
             for e in range(self.n_experts)
         ]
-        self._qweights = [quantize_weights(p, self._int8_backend) for p in self._experts]
+        self._qweights = [
+            quantize_weights(p, self._int8_backend) if self._int8_backend else None
+            for p in self._experts
+        ]
         # The router stays float32: routing logits are cheap and precision-sensitive.
         self.router = RouterNetwork(
             self.n_experts, self.cond_dim, cfg.model.router.widths
@@ -100,12 +109,16 @@ class FastSim:
 
     def _decoder(self, e: int):
         params, q = self._experts[e], self._qweights[e]
+        int8 = self._int8_backend is not None
 
         def decode(z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-            img = fast_generator_apply(
-                params, z, c.to(self._dtype), int8=True,
-                int8_backend=self._int8_backend, qweights=q,
-            )
+            # cuDNN runs float32 convs in TF32 unless told not to (a bf16
+            # conv is unaffected); the context restores the caller's flags
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                img = fast_generator_apply(
+                    params, z, c.to(self._dtype), int8=int8,
+                    int8_backend=self._int8_backend or "xla", qweights=q,
+                )
             return torch.expm1(img[..., 0].to(torch.float32))
 
         return decode
