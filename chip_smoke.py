@@ -17,16 +17,24 @@ Phases, each printing lines with the elapsed seconds:
    [64, 35, 30, 256] with the teacher's Conv_1 weights;
 7. the plain int8 conv (``_conv_i8``, int32 sums) against an int64 direct
    sum at Conv_1's and Conv_2's shapes;
+7b. kernels G (fused decode front) and H (whole fused decode) against their
+   plain versions at [64, 92160]: the Dense_1 output of the teacher's
+   expert 1 (bf16, as the engine holds it) on seeded noise and conditions,
+   with that expert's weights; H also with ``apply_expm1``;
 8. serving the full-width proton teacher's generator
    (artifacts/gate/gate_serving_weights.npz): 16384 showers through
    ``FastSim(precision="int8")`` (the yardstick), then through each kernel
-   path, ``"int8_pallas_ab"`` (kernels A, B) and ``"int8_pallas"`` (A, B, C,
-   D): launch counts of each path's kernels (set to 0 just before the path
-   runs, read just after; each must be > 0), output checks, agreement with
-   ``"int8"``, rate and peak memory of all three. The teacher's router
-   sends every condition to expert 1, so the serve routes with a router
-   drawn from ``--seed`` and fails unless every expert decodes showers;
-9. kernel times with CUDA events at the serving tile (64 rows);
+   path, ``"int8_pallas_ab"`` (kernels A, B), ``"int8_pallas"`` (A, B, C,
+   D), ``"int8_fused_front"`` (G) and ``"int8_fused"`` (H): launch counts of
+   each path's kernels (set to 0 just before the path runs, read just after;
+   each must be > 0), output checks, agreement with ``"int8"``, rate and
+   peak memory of every path. The teacher's router sends every condition to
+   expert 1, so the serve routes with a router drawn from ``--seed`` and
+   fails unless every expert decodes showers;
+9. kernel times with CUDA events at the serving tile (64 rows); beside G and
+   H, the ported chains that compute the same functions: kernels A -> B
+   (f32 out) -> C -> the resize gather, and the ``int8_pallas`` decode after
+   the MLP;
 10. the fidelity gate's test split (25600 synthetic events, seed 7, numpy),
     and kernel E (expm1 + channel sums) against its plain version on its
     5120 real showers [5120, 56, 30] and on a [37, 44, 44] batch;
@@ -38,8 +46,8 @@ Phases, each printing lines with the elapsed seconds:
     the same inputs (routing identical, per-shower log1p sums within rtol
     0.15), with rate and peak memory;
 13. the fidelity gate (``fidelity_torch.run_gate``, three noise draws) on
-    the teacher at ``int8`` and ``int8_pallas`` and on the w=0.125 student
-    at ``int8``: each record, its kernel launches (counts set to 0 just
+    the teacher at ``int8``, ``int8_pallas`` and ``int8_fused`` and on the
+    w=0.125 student at ``int8``: each record, its kernel launches (counts set to 0 just
     before each gate), and a failure unless its value is finite and
     ``vs_baseline >= 1.0``; the floor is printed beside the CPU tests' anchor;
 14. kernels E and F timed with CUDA events at 16384 showers, beside their
@@ -51,13 +59,15 @@ per kernel and the device's idle share of the serve's wall time.
 
 The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
-``int8`` gate (E) and of the all-expert path (F); the last line is
+``int8`` gate (E), of the all-expert path (F) and of the ``int8_fused_front``
+(G) and ``int8_fused`` (H) serves; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line is printed. Without a CUDA device the script exits with code 2
-and prints no result; ``--rehearse-cpu`` runs E and F at [8, 56, 30] (F's
-path decodes 32 showers, so that the seeded router reads every expert),
-serves of 8 showers, and the student's gate on the first 512 test
-conditions with one draw, and ends with ``{"rehearsal": true}``.
+and prints no result; ``--rehearse-cpu`` runs G and H at [2, 92160], E and
+F at [8, 56, 30] (F's path decodes 32 showers, so that the seeded router
+reads every expert), serves of 8 showers, and the student's gate on the
+first 512 test conditions with one draw, and ends with
+``{"rehearsal": true}``.
 """
 
 from __future__ import annotations
@@ -77,11 +87,13 @@ N_SHOWERS = 16384
 F_SHOWERS = FLOAT_SHOWERS = 4096
 EF_TIME_ROWS = 16384
 SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
-A_ROWS, B_ROWS, C_ROWS, D_ROWS, TIME_ROWS = 256, 64, 64, 64, 64
+A_ROWS, B_ROWS, C_ROWS, D_ROWS, GH_ROWS, TIME_ROWS = 256, 64, 64, 64, 64, 64
 KERNEL_PATHS = {  # precision -> the kernels its decode launches
     "int8_pallas_ab": ("ln_leaky_rowquant", "up2_conv4_int8"),
     "int8_pallas": ("ln_leaky_rowquant", "up2_conv4_int8", "gn_leaky_rowquant",
                     "row_resize_conv4_int8"),
+    "int8_fused_front": ("fused_decode_front",),
+    "int8_fused": ("fused_decode",),
 }
 # Peaks of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -114,6 +126,20 @@ def bf16_ulp(t):
 
     e = torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126)))
     return torch.exp2(e - 7)
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from zdcsim_torch.ops import decode_kernels as dk
+    from zdcsim_torch.ops import epilogue_kernels as ek
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    return {
+        **{name: getattr(dk, name) for name in KERNEL_PATHS["int8_pallas"]},
+        "fused_decode_front": fdk.fused_decode_front, "fused_decode": fdk.fused_decode,
+        "expm1_channel_sums": ek.expm1_channel_sums,
+        "routed_expm1_channel_sums": ek.routed_expm1_channel_sums,
+    }
 
 
 def check_kernel_a(gp, rng, dev, rows):
@@ -265,6 +291,48 @@ def check_conv_i8(gp, rng, dev, rows):
             fail(f"_conv_i8 differs from the int64 direct sum at {name}")
 
 
+def check_kernels_gh(gp, rng, dev, rows):
+    """Phase 7b: G and H against their plain versions on the Dense_1 output
+    of ``rows`` showers of the teacher's expert 1 (bf16, as the engine holds
+    it), with that expert's weights. Returns the inputs and the errors."""
+    import torch
+
+    from zdcsim_torch.convert import expert, from_jax_params, tree_to_torch
+    from zdcsim_torch.models.proton_fast import mlp_apply
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    p = tree_to_torch(expert(from_jax_params(gp, {})[0], 1), dtype=torch.bfloat16, device=dev)
+    noise, cond = (torch.as_tensor(rng.standard_normal((rows, n), dtype="float32"))
+                   .to(dev, torch.bfloat16) for n in (10, 9))
+    front, tail = fdk.front_weights(p), fdk.tail_weights(p)
+    with torch.no_grad():
+        x = mlp_apply(p, noise, cond)
+        q, s = fdk.fused_decode_front(x, *front)
+        qp, sp = fdk.fused_decode_front_plain(x, *front)
+        out = fdk.fused_decode(x, *front, *tail)
+        ref = fdk.fused_decode_plain(x, *front, *tail)
+        counts = fdk.fused_decode(x, *front, *tail, apply_expm1=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    s_rel = ((s - sp).abs() / sp).max().item()
+    diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
+    q_max, flips = diff.max().item(), (diff != 0).float().mean().item()
+    log("7b kernels G, H", f"G [{rows}, {x.shape[1]}] bf16 -> q {tuple(q.shape)}: max s rel err "
+        f"{s_rel:.3e} (rtol 1e-5), max |q - q_plain| {q_max} (<= 1), flips {flips:.3e} (< 1%)")
+    if not (q.shape == qp.shape and s.shape == sp.shape and s_rel <= 1e-5 and q_max <= 1
+            and flips < 0.01):
+        fail("kernel G disagrees with its plain version")
+    err = (out - ref).abs().max().item()
+    lim = 0.05 * ref.abs().max().item() + 0.05  # the int8 bound of the CPU tests
+    e_rel, e_ok = within_rtol(counts, torch.expm1(out), 1e-5)
+    log("7b kernels G, H", f"H [{rows}, {x.shape[1]}] bf16 -> {tuple(out.shape)} f32: max abs err "
+        f"{err:.4e} (int8 bound {lim:.4f}); apply_expm1 against expm1 of the output: max rel "
+        f"err {e_rel:.3e} (rtol 1e-5: {e_ok})")
+    if not (out.shape == ref.shape and err < lim and e_ok and torch.isfinite(out).all()):
+        fail("kernel H disagrees with its plain version")
+    return p, x, front, tail, float(q_max), err
+
+
 def seeded_router(rng, n_experts=3, widths=(9, 128, 64, 32)):
     """A router in the artifact's Flax layout, drawn from ``rng`` (LeCun
     normal kernels, zero biases, as Flax initialises ``nn.Dense``)."""
@@ -301,7 +369,6 @@ def serve(gp, rp, rng, dev, n, batch, tile, card, seed, profile=False):
     from zdcsim_torch.convert import to_state_dict
     from zdcsim_torch.inference.engine import FastSim
     from zdcsim_torch.models.router import RouterNetwork
-    from zdcsim_torch.ops import decode_kernels as dk
 
     cond = rng.standard_normal((n, 9), dtype="float32")
     noise = rng.standard_normal((n, 10), dtype="float32")
@@ -324,7 +391,8 @@ def serve(gp, rp, rng, dev, n, batch, tile, card, seed, profile=False):
     del eng8
     b = np.log1p(imgs8.sum(axis=(1, 2)))
 
-    wrappers = {name: getattr(dk, name) for name in KERNEL_PATHS["int8_pallas"]}
+    every = kernel_wrappers()
+    wrappers = {name: every[name] for names in KERNEL_PATHS.values() for name in names}
     launches = {}
     for precision, names in KERNEL_PATHS.items():
         eng = FastSim(gp, router, batch_size=batch, precision=precision, device=dev)
@@ -443,10 +511,20 @@ def row_resize_taps(h, w, n_resized_rows):
     return rows * sum(0 <= j + t - 1 < w for j in range(w) for t in range(4))
 
 
-def bound(n_bytes, n_ops, ops_per_s):
+def pad1_taps(h, w, k):
+    """Tap-positions of a ``k x k`` conv with one zero row/column before the
+    ``[h, w]`` grid and its ``[h + 3 - k, w + 3 - k]`` output (H's Conv_1,
+    Conv_2 and Conv_3) that read the grid; taps on the padding need no work."""
+    def line(n):
+        return sum(0 <= i + a - 1 < n for i in range(n + 3 - k) for a in range(k))
+    return line(h) * line(w)
+
+
+def bound(n_bytes, n_ops, ops_per_s, f32_ops=0):
     """``(bound in ms, what bounds it)``: the larger of the bytes over the
-    memory rate and the operations over the peak rate for their type."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    memory rate and the operations over the peak rate for their type
+    (``f32_ops`` at the float32 rate, added to ``n_ops`` at ``ops_per_s``)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s + f32_ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -512,6 +590,74 @@ def time_kernels(a_in, b_in, c_in, d_in, launches, errs, card):
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, {r['launches']} launches per "
             f"{N_SHOWERS} showers on the int8_pallas path [{card}]")
+    return rec
+
+
+def time_fused(p, x, front, tail, launches, errs, card):
+    """Phase 9, G and H: CUDA-event times at the serving tile beside their
+    plain versions and the ported chains that compute the same functions
+    (kernels A -> B (f32 out) -> C -> the resize gather; the ``int8_pallas``
+    decode after the MLP)."""
+    import torch
+
+    from zdcsim_torch.models.proton_fast import decode_apply, quantize_weights
+    from zdcsim_torch.ops import decode_kernels as dk
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    x = x[:TIME_ROWS].contiguous()
+    rows, f = x.shape
+    ln_s, ln_b, kq0, sk0, b0, g0s, g0b = front
+    qw = quantize_weights(p, "pallas")
+
+    def chain_g():
+        xq, sx = dk.ln_leaky_rowquant(x, ln_s, ln_b)
+        y0 = dk.up2_conv4_int8(xq.reshape(rows, 18, 10, -1), sx, kq0, sk0, b0, torch.float32)
+        q, s = dk.gn_leaky_rowquant(y0, g0s, g0b)
+        return fdk._gather_resize(q), s
+
+    def chain_h():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return decode_apply(p, x, torch.bfloat16, int8=True, int8_backend="pallas", qweights=qw)
+
+    with torch.no_grad():
+        g_ms = time_ms(lambda: fdk.fused_decode_front(x, *front), 20)
+        g_plain = time_ms(lambda: fdk.fused_decode_front_plain(x, *front), 3)
+        g_chain = time_ms(chain_g, 20)
+        h_ms = time_ms(lambda: fdk.fused_decode(x, *front, *tail), 20)
+        h_plain = time_ms(lambda: fdk.fused_decode_plain(x, *front, *tail), 3)
+        h_chain = time_ms(chain_h, 20)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # int8 operations on the taps that read each source grid; f32 operations:
+    # LN as kernel A (13 an element), each GroupNorm as kernel C (13) and each
+    # conv epilogue (3) per element, GN2 without the quant (9), Conv_3 (2 a tap)
+    g_i8 = 2 * rows * in_grid_taps(18, 10) * 512 * 256
+    g_f32 = rows * (f * 13 + 35 * 19 * 256 * 16)
+    h_i8 = g_i8 + 2 * rows * (pad1_taps(56, 30, 4) * 256 * 128 + pad1_taps(55, 29, 3) * 128 * 64)
+    h_f32 = g_f32 + rows * (55 * 29 * (128 * 16 + 64 * 12) + 2 * pad1_taps(55, 29, 2) * 64
+                            + 56 * 30 * 2)
+    g_bytes = nbytes((x,) + front) + rows * 56 * 30 * 256 + rows * 4
+    h_bytes = nbytes((x,) + front + tail) + rows * 56 * 30 * 4
+    rec = []
+    for name, replaces, ms, plain, chain, n_bytes, i8, f32, n, err, what in (
+        ("fused_decode_front", "zdcsim/ops/pallas_decode_fused.py:586", g_ms, g_plain, g_chain,
+         g_bytes, g_i8, g_f32, launches["int8_fused_front"]["fused_decode_front"], errs[0],
+         "A -> B(f32) -> C -> gather"),
+        ("fused_decode", "zdcsim/ops/pallas_decode_fused.py:479", h_ms, h_plain, h_chain,
+         h_bytes, h_i8, h_f32, launches["int8_fused"]["fused_decode"], errs[1],
+         "the int8_pallas decode"),
+    ):
+        bound_ms, bound_by = bound(n_bytes, i8, INT8_OPS_PER_S, f32)
+        rec.append({"name": name, "route": "cuda", "source": "zdcsim_torch/csrc/fused_decode.cu",
+                    "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None, "chain_ms": chain})
+        log("9 kernel times", f"{name} at {rows} rows: {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"chain ({what}) {chain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / ms:.1f}% of bound, {n} launches per {N_SHOWERS} showers on "
+            f"its path [{card}]")
     return rec
 
 
@@ -642,14 +788,13 @@ def float_serves(gp, router, dev, n, batch, tile, card, seed):
 
 def gates(data, dev, rehearse, card):
     """Phase 13: the fidelity gate (``fidelity_torch.run_gate``) on the
-    teacher at ``int8`` and ``int8_pallas`` and on the w=0.125 student at
+    teacher at ``int8``, ``int8_pallas`` and ``int8_fused`` and on the w=0.125 student at
     ``int8``; every kernel count is set to 0 just before each gate and read
     just after. Returns kernel E's launches of the teacher's ``int8`` gate."""
     import numpy as np
     import torch
 
     import fidelity_torch as ft
-    from zdcsim_torch.ops import decode_kernels as dk
     from zdcsim_torch.ops import epilogue_kernels as ek
 
     cond, real = data
@@ -657,11 +802,10 @@ def gates(data, dev, rehearse, card):
     floor = ft.real_floor(ch_real)[0]
     log("13 gate", f"real-vs-real floor {floor:.4f} on {len(cond)} test showers (CPU test "
         f"anchor on the full split: {FLOOR_ANCHOR}; not a check here) [{card}]")
-    wrappers = {name: getattr(dk, name) for name in KERNEL_PATHS["int8_pallas"]}
-    wrappers.update(expm1_channel_sums=ek.expm1_channel_sums,
-                    routed_expm1_channel_sums=ek.routed_expm1_channel_sums)
+    wrappers = kernel_wrappers()
     runs = ([(STUDENT, "int8")] if rehearse
-            else [(TEACHER, "int8"), (TEACHER, "int8_pallas"), (STUDENT, "int8")])
+            else [(TEACHER, "int8"), (TEACHER, "int8_pallas"), (TEACHER, "int8_fused"),
+                  (STUDENT, "int8")])
     e_launches = None
     for path, precision in runs:
         for w in wrappers.values():
@@ -775,6 +919,7 @@ def main(argv=None) -> int:
     c_in = check_kernel_c(gp, rng_cd, dev, 4 if rehearse else C_ROWS)
     d_in = check_kernel_d(gp, rng_cd, dev, 4 if rehearse else D_ROWS)
     check_conv_i8(gp, rng_cd, dev, 1 if rehearse else 2)
+    gh_in = check_kernels_gh(gp, rng_cd, dev, 2 if rehearse else GH_ROWS)
     if rehearse:
         _, router = serve(gp, rp, rng, dev, 24, 8, 2, card, args.seed)
         cond, real, _ = gate_data(dev, rehearse)
@@ -787,6 +932,7 @@ def main(argv=None) -> int:
                              args.seed, args.profile)
     rec = time_kernels(a_in[:3], b_in[:5], c_in[:3], d_in[:6], launches["int8_pallas"],
                        (a_in[3], b_in[5], c_in[3], d_in[6]), card)
+    rec += time_fused(*gh_in[:4], launches, gh_in[4:], card)
     cond, real, e_err = gate_data(dev, rehearse)
     f_launches, f_err = kernel_f_path(gp, router, dev, F_SHOWERS, card)
     float_serves(gp, router, dev, FLOAT_SHOWERS, SERVE_BATCH, SERVE_TILE, card, args.seed)

@@ -264,3 +264,77 @@ def test_fastsim_f32_is_float32_on_the_card(cuda):
     f32 = fast_generator_apply(tree_to_torch(expert(from_jax_params(gen, router)[0], 0)),
                                torch.as_tensor(noise), torch.as_tensor(cond))
     assert (tf32.cpu() - f32).abs().max().item() > 1e-4
+
+
+@pytest.fixture(scope="module")
+def teacher_expert1():
+    """Expert 1 of the full-width teacher, as the engine holds it (bf16 on
+    the card), and its G and H weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from zdcsim_torch.convert import expert, from_jax_params
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+    from zdcsim_torch.utils.artifact import load_serving_artifact
+
+    path = os.path.join(os.path.dirname(__file__), "..", "artifacts", "gate",
+                        "gate_serving_weights.npz")
+    gp = load_serving_artifact(path)[0]
+    p = tree_to_torch(expert(from_jax_params(gp, {})[0], 1), dtype=torch.bfloat16,
+                      device=torch.device("cuda"))
+    return p, fdk.front_weights(p), fdk.tail_weights(p)
+
+
+def _dense1(p, b):
+    from zdcsim_torch.models.proton_fast import mlp_apply
+
+    rng = np.random.default_rng(b)
+    noise, cond = (torch.as_tensor(rng.standard_normal((b, n), dtype=np.float32))
+                   .to("cuda", torch.bfloat16) for n in (10, 9))
+    with torch.no_grad():
+        return mlp_apply(p, noise, cond)
+
+
+@pytest.mark.parametrize("b,dtype", [(1, torch.bfloat16), (7, torch.float32),
+                                     (64, torch.bfloat16)])
+def test_fused_decode_front_kernel_matches_plain(teacher_expert1, b, dtype):
+    """Kernel G, under the bounds of chip_smoke.py phase 7b (those of kernel
+    C: the statistics are summed in another order)."""
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    p, front, _ = teacher_expert1
+    x = _dense1(p, b).to(dtype)
+    n0 = fdk.fused_decode_front.launches
+    q, s = fdk.fused_decode_front(x, *front)
+    qp, sp = fdk.fused_decode_front_plain(x, *front)
+    torch.cuda.synchronize()
+    assert fdk.fused_decode_front.launches == n0 + 1
+    assert q.shape == qp.shape == (b, 56, 30, 256) and q.dtype == torch.int8
+    assert s.shape == (b,)
+    torch.testing.assert_close(s, sp, rtol=1e-5, atol=0)
+    diff = (q.int() - qp.int()).abs()
+    assert diff.max().item() <= 1 and (diff != 0).float().mean().item() < 0.01
+    # every reduction runs in a fixed order: a rerun is bit-identical
+    q2, s2 = fdk.fused_decode_front(x, *front)
+    assert torch.equal(q2, q) and torch.equal(s2, s)
+
+
+@pytest.mark.parametrize("b", [1, 7, 64])
+def test_fused_decode_kernel_matches_plain(teacher_expert1, b):
+    """Kernel H within the int8 bound of the CPU tests, and with
+    ``apply_expm1`` equal to ``expm1`` of its output."""
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    p, front, tail = teacher_expert1
+    x = _dense1(p, b)
+    n0 = fdk.fused_decode.launches
+    out = fdk.fused_decode(x, *front, *tail)
+    ref = fdk.fused_decode_plain(x, *front, *tail)
+    counts = fdk.fused_decode(x, *front, *tail, apply_expm1=True)
+    torch.cuda.synchronize()
+    assert fdk.fused_decode.launches == n0 + 2
+    assert out.shape == ref.shape == (b, 56, 30) and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() < 0.05 * ref.abs().max().item() + 0.05
+    torch.testing.assert_close(counts, torch.expm1(out), rtol=1e-5, atol=1e-5)
+    assert torch.equal(fdk.fused_decode(x, *front, *tail), out)

@@ -4,8 +4,9 @@ matplotlib are absent (the GPU machine has none of them).
 A subprocess installs an import hook that refuses those packages and the
 JAX package ``zdcsim`` (not ``zdcsim_torch``), then imports every module of
 ``zdcsim_torch`` and ``fidelity_torch.py`` and rehearses ``chip_smoke.py`` on
-the CPU: the kernel checks of A-D and ``_conv_i8``, the serves of ``int8``,
-``int8_pallas_ab`` and ``int8_pallas``, the gate's split with kernel E, the
+the CPU: the kernel checks of A-D, ``_conv_i8``, G and H, the serves of
+``int8``, ``int8_pallas_ab``, ``int8_pallas``, ``int8_fused_front`` and
+``int8_fused``, the gate's split with kernel E, the
 all-expert path with kernel F, the ``f32`` and ``bf16`` serves, and the
 student's fidelity gate on part of the split.
 """
@@ -43,6 +44,7 @@ def test_every_port_module_imports_without_forbidden_packages():
 import importlib, pkgutil
 import zdcsim_torch
 names = [m.name for m in pkgutil.walk_packages(zdcsim_torch.__path__, "zdcsim_torch.")]
+assert "zdcsim_torch.ops.fused_decode_kernels" in names, names
 for n in names:
     importlib.import_module(n)
 import fidelity_torch
@@ -69,8 +71,10 @@ runpy.run_path("chip_smoke.py", run_name="__main__")
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == '{"rehearsal": true}'
-    for phase in ("[5 kernel C]", "[6 kernel D]", "[7 conv_i8]", "int8_pallas_ab main path",
-                  "int8_pallas main path", "[10 kernel E]", "[11 kernel F]",
+    for phase in ("[5 kernel C]", "[6 kernel D]", "[7 conv_i8]", "[7b kernels G, H] t",
+                  "int8_pallas_ab main path", "int8_pallas main path",
+                  "int8_fused_front main path", "int8_fused main path",
+                  "[10 kernel E]", "[11 kernel F]",
                   "[12 float serves] t", "f32:", "bf16:", "[13 gate]",
                   '"metric": "fastsim_fidelity"'):
         assert phase in proc.stdout, phase

@@ -18,7 +18,16 @@ Precisions (the JAX names, so one maps onto the other):
   (``zdcsim_torch/ops/decode_kernels.py``);
 - ``"int8_pallas"``: as ``"int8_pallas_ab"``, with GroupNorm2d_0 + quant and
   the row-resize Conv_1 on the CUDA kernels that replace Pallas kernels C
-  and D as well (all four decode kernels).
+  and D as well (all four decode kernels);
+- ``"int8_fused_front"``: the MLP in bf16, then the LayerNorm -> Conv_0 ->
+  GroupNorm_0 -> resize front on the CUDA kernel that replaces Pallas
+  kernel G (``zdcsim_torch/ops/fused_decode_kernels.py``), then the plain
+  int8 Conv_1 and the ``"int8"`` tail;
+- ``"int8_fused"``: the MLP in bf16, then the whole decode on the CUDA
+  kernel that replaces Pallas kernel H.
+
+The two fused precisions serve full-width trees only (as in JAX); another
+width raises ``ValueError`` when the engine is built.
 
 On a CPU device the kernels' plain versions run instead.
 
@@ -45,7 +54,7 @@ from zdcsim_torch.models.router import RouterNetwork
 
 # precision -> int8 backend of fast_generator_apply (None: the float decode)
 _BACKENDS = {"f32": None, "bf16": None, "int8": "xla", "int8_pallas_ab": "pallas_ab",
-             "int8_pallas": "pallas"}
+             "int8_pallas": "pallas", "int8_fused_front": "fused_front", "int8_fused": "fused"}
 
 
 class FastSim:
@@ -56,8 +65,9 @@ class FastSim:
             ``zdcsim_torch.utils.artifact.load_serving_artifact`` returns
             them (generator experts stacked on the leading axis).
         batch_size: the chunk size inputs are split into and padded to.
-        precision: ``"f32"``, ``"bf16"``, ``"int8"``, ``"int8_pallas_ab"`` or
-            ``"int8_pallas"`` (see the module doc).
+        precision: ``"f32"``, ``"bf16"``, ``"int8"``, ``"int8_pallas_ab"``,
+            ``"int8_pallas"``, ``"int8_fused_front"`` or ``"int8_fused"`` (see
+            the module doc).
         device: ``None`` for CUDA (raises without a card), or ``"cpu"``.
         cfg: model geometry; defaults to ``load_config()``.
     """

@@ -19,6 +19,15 @@ backends).
 - ``int8_backend="pallas"``: as ``pallas_ab``, and GroupNorm2d_0 + LeakyReLU
   + quant and the row-resize Conv_1 run on the kernels that replace Pallas
   kernels C and D; Conv_2 stays plain.
+- ``int8_backend="fused_front"``: everything from the MLP's LayerNorm to the
+  int8 grid resized to 56x30 runs on the kernel that replaces Pallas kernel
+  G (``zdcsim_torch.ops.fused_decode_kernels``); Conv_1 is the plain int8
+  conv on that grid, then the ``xla`` tail.
+- ``int8_backend="fused"``: the whole decode after the MLP runs on the
+  kernel that replaces Pallas kernel H.
+
+The fused backends are full width only (as in JAX); their int8 activation
+scales are per sample.
 
 The plain int8 convs (:func:`_conv_i8`) sum int8 products in int32, as the
 JAX ``_conv_i8`` does (``preferred_element_type=int32``): one
@@ -37,6 +46,7 @@ from zdcsim_torch.models.layers import (
     group_norm_groups, leaky_relu, nearest_index, resize_nearest,
 )
 from zdcsim_torch.ops import decode_kernels as dk
+from zdcsim_torch.ops import fused_decode_kernels as fdk
 
 QWeights = Tuple[torch.Tensor, torch.Tensor]
 
@@ -105,12 +115,8 @@ def fused_upsample2_conv4(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Ten
     return _phase_convs(x, dk._phase_kernels(kernel), _conv) + bias
 
 
-def _quant_per_cout(k: torch.Tensor):
-    """Per-output-channel symmetric int8 of a kernel: ``(q, s [cout])``."""
-    k = k.to(torch.float32)
-    s = torch.clamp(k.abs().amax(dim=tuple(range(k.ndim - 1))) / 127.0, min=1e-12)
-    q = torch.clamp(torch.round(k / s), -127, 127).to(torch.int8)
-    return q, s
+# Per-output-channel symmetric int8 of a kernel: ``(q, s [cout])``.
+_quant_per_cout = fdk._quant_cout
 
 
 def _quant_act(x: torch.Tensor):
@@ -259,17 +265,24 @@ def _group_norm(x, p):
     return xg.reshape(b, h, w, c) * p["scale"] + p["bias"]
 
 
+_INT8_BACKENDS = ("xla", "pallas_ab", "pallas", "fused_front", "fused")
+
+
 def quantize_weights(p: Dict[str, Any], int8_backend: str = "xla") -> Dict[str, Any]:
     """One expert's int8 weights for :func:`fast_generator_apply`, computed
     once per weight set (JAX hoists the same work out of its loops). The
-    kernels take their per-channel parameters in float32, cast here once."""
-    if int8_backend not in ("xla", "pallas_ab", "pallas"):
-        raise ValueError(
-            f"int8_backend must be 'xla', 'pallas_ab' or 'pallas', got {int8_backend!r}"
-        )
+    kernels take their per-channel parameters in float32, cast here once.
+    The fused backends take full-width trees only and raise ``ValueError``
+    on any other."""
+    if int8_backend not in _INT8_BACKENDS:
+        raise ValueError(f"int8_backend must be one of {_INT8_BACKENDS}, got {int8_backend!r}")
+    if int8_backend == "fused":
+        return {"front": fdk.front_weights(p), "tail": fdk.tail_weights(p)}
     f32 = lambda t: t.to(torch.float32)  # noqa: E731
     q = {"conv2": _quant_per_cout(p["Conv_2"]["kernel"])}
-    if int8_backend == "xla":
+    if int8_backend == "fused_front":
+        q["front"] = fdk.front_weights(p)
+    elif int8_backend == "xla":
         q["conv0"] = quant_conv0_phases(p["Conv_0"]["kernel"])
     else:
         ln = p["MLPBlock_1"]["LayerNorm_0"]
@@ -289,38 +302,31 @@ def quantize_weights(p: Dict[str, Any], int8_backend: str = "xla") -> Dict[str, 
     return q
 
 
-def fast_generator_apply(
-    params: Dict[str, Any], noise: torch.Tensor, cond: torch.Tensor, int8: bool = False,
-    int8_backend: str = "xla", qweights: Optional[Dict[str, Any]] = None,
-) -> torch.Tensor:
-    """Inference forward of ``Generator`` for one expert: ``[B, 56, 30, 1]``.
-
-    ``params`` is the expert's Flax-layout tree of tensors in the compute
-    dtype; ``noise`` and ``cond`` are in that dtype too. ``qweights`` are
-    :func:`quantize_weights` of ``params`` (computed here when not given).
-    """
-    p = params
-    if int8 and qweights is None:
-        qweights = quantize_weights(p, int8_backend)
-    use_ab = int8 and int8_backend in ("pallas_ab", "pallas")
-    use_cd = int8 and int8_backend == "pallas"
-
+def mlp_apply(params: Dict[str, Any], noise: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    """The generator's MLP up to the Dense_1 output, before its LayerNorm:
+    ``[B, 18 * 10 * C0]``."""
     x = torch.cat([noise, cond], dim=1)
-    bp0 = p["MLPBlock_0"]
+    bp0 = params["MLPBlock_0"]
     x = x @ bp0["Dense_0"]["kernel"] + bp0["Dense_0"]["bias"]
     x = leaky_relu(_layer_norm(x, bp0["LayerNorm_0"]))
-    bp1 = p["MLPBlock_1"]
-    x = x @ bp1["Dense_0"]["kernel"] + bp1["Dense_0"]["bias"]
-    c0 = bp1["Dense_0"]["kernel"].shape[1] // (18 * 10)
+    bp1 = params["MLPBlock_1"]
+    return x @ bp1["Dense_0"]["kernel"] + bp1["Dense_0"]["bias"]
+
+
+def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights):
+    """LN1 -> Conv_0 -> GN0 -> resize + Conv_1 of the unfused backends:
+    ``[B, 55, 29, 128]`` in ``dtype``."""
+    use_ab = int8 and int8_backend in ("pallas_ab", "pallas")
+    use_cd = int8 and int8_backend == "pallas"
+    c0 = p["MLPBlock_1"]["Dense_0"]["kernel"].shape[1] // (18 * 10)
     if use_ab:
         xq, sx = dk.ln_leaky_rowquant(x, *qweights["ln1"])
         kq, sk = qweights["conv0"]
         x = dk.up2_conv4_int8(
-            xq.reshape(-1, 18, 10, c0), sx, kq, sk, qweights["conv0_bias"],
-            out_dtype=noise.dtype,
+            xq.reshape(-1, 18, 10, c0), sx, kq, sk, qweights["conv0_bias"], out_dtype=dtype,
         )
     else:
-        x = leaky_relu(_layer_norm(x, bp1["LayerNorm_0"]))
+        x = leaky_relu(_layer_norm(x, p["MLPBlock_1"]["LayerNorm_0"]))
         x = x.reshape(-1, 18, 10, c0)
         if int8:
             x = fused_upsample2_conv4_int8(x, qweights["conv0"], p["Conv_0"]["bias"])
@@ -334,17 +340,39 @@ def fast_generator_apply(
         xq, sx = dk.gn_leaky_rowquant(x, *qweights["gn0"],
                                       groups=group_norm_groups(x.shape[-1], 32))
         kq, sk, offsets = qweights["conv1"]
-        x = dk.row_resize_conv4_int8(
+        return dk.row_resize_conv4_int8(
             xq.index_select(2, qweights["col_map"]), sx, kq, sk, offsets,
-            qweights["conv1_bias"], 56, out_dtype=noise.dtype,
+            qweights["conv1_bias"], 56, out_dtype=dtype,
         )[:, :, :29]
+    x = leaky_relu(_group_norm(x, p["GroupNorm2d_0"]["GroupNorm_0"]))
+    if int8:
+        return resize_conv4_int8_naive(x, qweights["conv1"], p["Conv_1"]["bias"], 56, 30)
+    x = _conv(resize_nearest(x, (56, 30)), p["Conv_1"]["kernel"], ((1, 1), (1, 1)))
+    return x + p["Conv_1"]["bias"]
+
+
+def decode_apply(
+    params: Dict[str, Any], x: torch.Tensor, dtype: torch.dtype, int8: bool = False,
+    int8_backend: str = "xla", qweights: Optional[Dict[str, Any]] = None,
+) -> torch.Tensor:
+    """The decode after the MLP, from the Dense_1 output ``x``
+    (:func:`mlp_apply`): ``[B, 56, 30, 1]`` in ``dtype``. Arguments as for
+    :func:`fast_generator_apply`."""
+    p = params
+    if int8 and qweights is None:
+        qweights = quantize_weights(p, int8_backend)
+    if int8 and int8_backend == "fused":
+        # the whole decode on kernel H, cast to the compute dtype as JAX does
+        return fdk.fused_decode(x, *qweights["front"], *qweights["tail"])[..., None].to(dtype)
+    if int8 and int8_backend == "fused_front":
+        # kernel G, then the plain int8 Conv_1 on its resized grid, dequantized
+        # as JAX's f32(y) * (sk * s[b]) + bias (sk * s first)
+        q, s = fdk.fused_decode_front(x, *qweights["front"])
+        kq, sk = qweights["conv1"]
+        x = _dequant(_conv_i8(q, kq, ((1, 1), (1, 1))), sk, s.reshape(-1, 1, 1, 1),
+                     p["Conv_1"]["bias"], dtype)
     else:
-        x = leaky_relu(_group_norm(x, p["GroupNorm2d_0"]["GroupNorm_0"]))
-        if int8:
-            x = resize_conv4_int8_naive(x, qweights["conv1"], p["Conv_1"]["bias"], 56, 30)
-        else:
-            x = _conv(resize_nearest(x, (56, 30)), p["Conv_1"]["kernel"], ((1, 1), (1, 1)))
-            x = x + p["Conv_1"]["bias"]
+        x = _conv0_conv1(p, x, dtype, int8, int8_backend, qweights)
     x = leaky_relu(_group_norm(x, p["GroupNorm2d_1"]["GroupNorm_0"]))
 
     if int8:
@@ -355,3 +383,17 @@ def fast_generator_apply(
 
     x = _conv(x, p["Conv_3"]["kernel"], ((1, 1), (1, 1))) + p["Conv_3"]["bias"]
     return torch.relu(x)
+
+
+def fast_generator_apply(
+    params: Dict[str, Any], noise: torch.Tensor, cond: torch.Tensor, int8: bool = False,
+    int8_backend: str = "xla", qweights: Optional[Dict[str, Any]] = None,
+) -> torch.Tensor:
+    """Inference forward of ``Generator`` for one expert: ``[B, 56, 30, 1]``.
+
+    ``params`` is the expert's Flax-layout tree of tensors in the compute
+    dtype; ``noise`` and ``cond`` are in that dtype too. ``qweights`` are
+    :func:`quantize_weights` of ``params`` (computed here when not given).
+    """
+    return decode_apply(params, mlp_apply(params, noise, cond), noise.dtype, int8,
+                        int8_backend, qweights)

@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = (
     "ln_leaky_rowquant.cu", "up2_conv4_int8.cu", "gn_leaky_rowquant.cu",
-    "row_resize_conv4_int8.cu", "expm1_channel_sums.cu",
+    "row_resize_conv4_int8.cu", "expm1_channel_sums.cu", "fused_decode.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +43,8 @@ SIGNATURES = {
     ),
     "zdc_expm1_channel_sums": (_P, _I, _P, _I, _I, _I, _P),
     "zdc_routed_expm1_channel_sums": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    "zdc_fused_decode_front": (_P, _I) + (_P,) * 12 + (_I, _P),
+    "zdc_fused_decode": (_P, _I) + (_P,) * 23 + (_I, _I, _P),
 }
 
 _lib = None

@@ -227,11 +227,11 @@ up2_conv4_int8.launches = 0
 # Kernel C: GroupNorm + LeakyReLU + per-sample int8
 # ---------------------------------------------------------------------------
 
-def gn_leaky_rowquant_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                            groups: int = 32):
-    """Plain PyTorch version of :func:`gn_leaky_rowquant`, op for op the
-    kernel's arithmetic (its sums run in another order). The JAX kernel
-    takes ``lax.rsqrt``; this version and the CUDA kernel take the IEEE
+def gn_leaky_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   groups: int = 32) -> torch.Tensor:
+    """GroupNorm (one-pass f32 statistics per sample and group, eps 1e-6) ->
+    scale/bias -> LeakyReLU(0.1) of ``[B, H, W, C]``, in f32. The JAX kernels
+    take ``lax.rsqrt``; this version and the CUDA kernels take the IEEE
     ``1 / sqrt``, as kernel A does."""
     b, h, w, c = x.shape
     x = x.to(torch.float32)
@@ -242,7 +242,16 @@ def gn_leaky_rowquant_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
     rstd = 1.0 / torch.sqrt(var + 1e-6)
     y = (xg - mu[:, None, :, None]) * rstd[:, None, :, None]
     y = y.reshape(b, h, w, c) * scale + bias
-    y = torch.where(y >= 0, y, 0.1 * y)
+    return torch.where(y >= 0, y, 0.1 * y)
+
+
+def gn_leaky_rowquant_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                            groups: int = 32):
+    """Plain PyTorch version of :func:`gn_leaky_rowquant`, op for op the
+    kernel's arithmetic (its sums run in another order):
+    :func:`gn_leaky_plain`, then the per-sample int8."""
+    b = x.shape[0]
+    y = gn_leaky_plain(x, scale, bias, groups)
     s = torch.clamp(y.abs().amax(dim=(1, 2, 3)).reshape(b, 1) / 127.0, min=1e-12)
     q = torch.clamp(torch.round(y / s.reshape(b, 1, 1, 1)), -127, 127).to(torch.int8)
     return q, s

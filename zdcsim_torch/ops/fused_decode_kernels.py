@@ -1,0 +1,281 @@
+"""The fused int8 post-MLP decode of the ``fused_front`` and ``fused``
+paths, with its plain versions (counterpart of
+``zdcsim/ops/pallas_decode_fused.py``).
+
+- :func:`fused_decode_front` replaces Pallas kernel G: from the Dense_1
+  output, LayerNorm -> leaky -> per-sample int8 -> Conv_0's four parity
+  phases (int32 sums, f32 epilogue, never rounded to bf16) -> GroupNorm_0
+  (one pass over the whole 35x19 grid) -> leaky -> ONE per-sample int8 scale
+  -> nearest resize to 56x30: ``(q int8 [B, 56, 30, 256], s f32 [B])``.
+- :func:`fused_decode` replaces Pallas kernel H: the front, then Conv_1 (a
+  plain 4x4 pad-1 int8 conv on the resized grid, per-cout weights) ->
+  GroupNorm_1 -> leaky -> per-sample int8 -> Conv_2 (3x3 pad-1 int8) ->
+  GroupNorm_2 -> leaky (f32) -> Conv_3 (2x2 pad-1, f32) -> ReLU [-> expm1]:
+  ``f32 [B, 56, 30]``.
+
+Both are full width only: C0..C3 = 512/256/128/64 are fixed, as in JAX.
+Every int8 activation scale is per sample. The GroupNorms take the IEEE
+``1 / sqrt`` where JAX takes ``lax.rsqrt``, as kernels A and C do.
+
+Each wrapper launches its CUDA entry point (``zdcsim_torch/csrc/
+fused_decode.cu``: 3 device launches for G, 7 for H) for CUDA tensors and
+runs the plain PyTorch version for CPU tensors; it never falls back from one
+to the other. ``<wrapper>.launches`` counts the wrapper's calls that
+launched the kernels (plain runs and CPU calls do not count).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from zdcsim_torch.ops import _build
+from zdcsim_torch.ops import decode_kernels as dk
+
+# Geometry of the full-width generator (pallas_decode_fused.py:88-91).
+H0, W0, C0 = 18, 10, 512  # MLP grid
+H1, W1, C1 = 35, 19, 256  # Conv_0 output
+HG, WG = 56, 30  # resized and final grid
+C2, C3 = 128, 64
+GROUPS = 32
+_ROW_MAP = np.floor((np.arange(HG) + 0.5) * H1 / HG).astype(np.int64)
+_COL_MAP = np.floor((np.arange(WG) + 0.5) * W1 / WG).astype(np.int64)
+
+
+def _quant_cout(k: torch.Tensor):
+    """Per-output-channel symmetric int8 of a kernel, computed in float32:
+    ``(q int8, s f32 [cout])`` (``pallas_decode_fused._quant_cout``)."""
+    k = k.to(torch.float32)
+    s = torch.clamp(k.abs().amax(dim=tuple(range(k.ndim - 1))) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(k / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _conv_pad1_exact(xq: torch.Tensor, kq: torch.Tensor, out_hw) -> torch.Tensor:
+    """Int32 sums of an NHWC int8 x HWIO int8 conv with one zero row/column
+    before the grid, as float64 matmuls per tap (exact: every partial sum is
+    an integer below 2**53); ``out_hw`` output positions."""
+    ho, wo = out_hw
+    kh, kw = kq.shape[:2]
+    b, h, w, _ = xq.shape
+    xp = F.pad(xq.to(torch.float64), (0, 0, 1, wo + kw - 2 - w, 1, ho + kh - 2 - h))
+    k64 = kq.to(torch.float64)
+    acc = torch.zeros((b, ho, wo, kq.shape[-1]), dtype=torch.float64, device=xq.device)
+    for a in range(kh):
+        for c in range(kw):
+            acc += xp[:, a:a + ho, c:c + wo] @ k64[a, c]
+    return acc
+
+
+def _require(cond: bool, name: str, what: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {what} (the fused decode is full width only)")
+
+
+def _check_front(name, x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
+    dev = x.device
+    _require(x.ndim == 2 and x.shape[1] == H0 * W0 * C0
+             and x.dtype in (torch.bfloat16, torch.float32), name,
+             f"x must be [B, {H0 * W0 * C0}] bf16/f32, got {tuple(x.shape)} {x.dtype}")
+    dk._require_f32(name, dev, ln_scale=ln_scale, ln_bias=ln_bias, sk0=sk0, b0=b0,
+                    gn0_scale=gn0_scale, gn0_bias=gn0_bias)
+    _require(kq0.dtype == torch.int8 and tuple(kq0.shape) == (25, C0, C1) and kq0.device == dev,
+             name, f"kq0 must be [25, {C0}, {C1}] int8 on {dev}, "
+             f"got {tuple(kq0.shape)} {kq0.dtype}")
+    _require(tuple(ln_scale.shape) == tuple(ln_bias.shape) == (H0 * W0 * C0,)
+             and tuple(sk0.shape) == (4, C1)
+             and tuple(b0.shape) == tuple(gn0_scale.shape) == tuple(gn0_bias.shape) == (C1,),
+             name, f"ln_* must be [{H0 * W0 * C0}], sk0 [4, {C1}], b0 and gn0_* [{C1}]")
+
+
+def _check_tail(name, dev, kq1, sk1, b1, gn1_scale, gn1_bias, kq2, sk2, b2, gn2_scale, gn2_bias,
+                k3, b3):
+    dk._require_f32(name, dev, sk1=sk1, b1=b1, gn1_scale=gn1_scale, gn1_bias=gn1_bias, sk2=sk2,
+                    b2=b2, gn2_scale=gn2_scale, gn2_bias=gn2_bias, k3=k3, b3=b3)
+    for key, k, shape in (("kq1", kq1, (4, 4, C1, C2)), ("kq2", kq2, (3, 3, C2, C3))):
+        _require(k.dtype == torch.int8 and tuple(k.shape) == shape and k.device == dev, name,
+                 f"{key} must be {list(shape)} int8 on {dev}, got {tuple(k.shape)} {k.dtype}")
+    _require(all(tuple(t.shape) == (C2,) for t in (sk1, b1, gn1_scale, gn1_bias))
+             and all(tuple(t.shape) == (C3,) for t in (sk2, b2, gn2_scale, gn2_bias))
+             and tuple(k3.shape) == (2, 2, C3, 1) and tuple(b3.shape) == (1,), name,
+             f"sk1, b1, gn1_* must be [{C2}], sk2, b2, gn2_* [{C3}], k3 [2, 2, {C3}, 1], b3 [1]")
+
+
+def _gather_resize(q: torch.Tensor) -> torch.Tensor:
+    rows = torch.from_numpy(_ROW_MAP).to(q.device)
+    cols = torch.from_numpy(_COL_MAP).to(q.device)
+    return q.index_select(1, rows).index_select(2, cols)
+
+
+# ---------------------------------------------------------------------------
+# G: the front half
+# ---------------------------------------------------------------------------
+
+def fused_decode_front_plain(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
+    """Plain PyTorch version of :func:`fused_decode_front`: the plain
+    versions of kernels A, B (with an f32 output) and C, then the int8
+    gather of the nearest resize. Its arithmetic is the kernel's, op for op;
+    the kernel sums the statistics in another order."""
+    b = x.shape[0]
+    xq, sx = dk.ln_leaky_rowquant_plain(x, ln_scale, ln_bias)
+    y0 = dk.up2_conv4_int8_plain(xq.reshape(b, H0, W0, C0), sx, kq0, sk0, b0,
+                                 out_dtype=torch.float32)
+    q, s = dk.gn_leaky_rowquant_plain(y0, gn0_scale, gn0_bias, GROUPS)
+    return _gather_resize(q), s.reshape(b)
+
+
+def fused_decode_front(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
+    """The front half of the fused decode.
+
+    x: ``[B, 92160]`` bf16 or f32, the Dense_1 output before its LayerNorm;
+    ln_scale, ln_bias: ``[92160]`` f32; kq0, sk0: ``dk._quant_phases`` of the
+    Conv_0 kernel; b0, gn0_scale, gn0_bias: ``[256]`` f32. Returns ``(q int8
+    [B, 56, 30, 256], s f32 [B])``: the resized grid and its per-sample
+    dequant scale.
+    """
+    name = "fused_decode_front"
+    _check_front(name, x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)
+    if x.device.type == "cpu":
+        return fused_decode_front_plain(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)
+    dk._require_cuda(x, name)
+    b, dev = x.shape[0], x.device
+    args = [t.contiguous() for t in (x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)]
+    q = torch.empty((b, HG, WG, C1), dtype=torch.int8, device=dev)
+    s = torch.empty((b,), dtype=torch.float32, device=dev)
+    ws_i8 = torch.empty((b * H0 * W0 * C0,), dtype=torch.int8, device=dev)
+    ws_f32 = torch.empty((b * H1 * W1 * C1,), dtype=torch.float32, device=dev)
+    ws_s = torch.empty((b,), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.zdc_fused_decode_front(
+            args[0].data_ptr(), int(x.dtype == torch.bfloat16), *(t.data_ptr() for t in args[1:]),
+            ws_i8.data_ptr(), ws_f32.data_ptr(), ws_s.data_ptr(), q.data_ptr(), s.data_ptr(), b,
+            dk._stream(x),
+        )
+    _build.check(status, name)
+    fused_decode_front.launches += 1
+    return q, s
+
+
+fused_decode_front.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# H: the whole post-MLP decode
+# ---------------------------------------------------------------------------
+
+def fused_decode_plain(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
+                       kq1, sk1, b1, gn1_scale, gn1_bias, kq2, sk2, b2, gn2_scale, gn2_bias,
+                       k3, b3, apply_expm1=False):
+    """Plain PyTorch version of :func:`fused_decode`: the front's plain
+    version, then each tail stage in the kernel's arithmetic (int8 convs as
+    exact float64 sums, Conv_3 summed in float64 and rounded to f32 once, so
+    that no TF32 or cuDNN choice enters it)."""
+    b = x.shape[0]
+    q, s = fused_decode_front_plain(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)
+    sb = s.reshape(b, 1, 1, 1)
+    y1 = _conv_pad1_exact(q, kq1, (HG - 1, WG - 1)).to(torch.float32) * sk1 * sb + b1
+    q2, s2 = dk.gn_leaky_rowquant_plain(y1, gn1_scale, gn1_bias, GROUPS)
+    y2 = _conv_pad1_exact(q2, kq2, (HG - 1, WG - 1)).to(torch.float32) * sk2
+    y2 = y2 * s2.reshape(b, 1, 1, 1) + b2
+    y2 = dk.gn_leaky_plain(y2, gn2_scale, gn2_bias, GROUPS).to(torch.float64)
+    yp = F.pad(y2, (0, 0, 1, 1, 1, 1))
+    k64 = k3.to(torch.float64)
+    acc = sum(yp[:, a:a + HG, c:c + WG] @ k64[a, c] for a in range(2) for c in range(2))
+    out = torch.relu(acc[..., 0].to(torch.float32) + b3)
+    return torch.expm1(out) if apply_expm1 else out
+
+
+def fused_decode(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
+                 kq1, sk1, b1, gn1_scale, gn1_bias, kq2, sk2, b2, gn2_scale, gn2_bias,
+                 k3, b3, apply_expm1=False):
+    """The whole post-MLP decode.
+
+    The front's arguments as for :func:`fused_decode_front`; kq1, sk1:
+    :func:`_quant_cout` of Conv_1 ``[4, 4, 256, 128]``; kq2, sk2: of Conv_2
+    ``[3, 3, 128, 64]``; b1, gn1_*: ``[128]`` f32; b2, gn2_*: ``[64]`` f32;
+    k3: Conv_3 ``[2, 2, 64, 1]`` f32; b3: ``[1]`` f32. Returns ``f32 [B, 56,
+    30]``: ``relu(conv3(...))`` (log-space pixel intensities), or its
+    ``expm1`` (photon counts) with ``apply_expm1``.
+    """
+    name = "fused_decode"
+    _check_front(name, x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)
+    tail = (kq1, sk1, b1, gn1_scale, gn1_bias, kq2, sk2, b2, gn2_scale, gn2_bias, k3, b3)
+    _check_tail(name, x.device, *tail)
+    front = (x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)
+    if x.device.type == "cpu":
+        return fused_decode_plain(*front, *tail, apply_expm1=apply_expm1)
+    dk._require_cuda(x, name)
+    b, dev = x.shape[0], x.device
+    args = [t.contiguous() for t in front + tail]
+    out = torch.empty((b, HG, WG), dtype=torch.float32, device=dev)
+    ws_i8 = torch.empty((b * HG * WG * C1,), dtype=torch.int8, device=dev)
+    ws_f32 = torch.empty((b * (HG - 1) * (WG - 1) * C2,), dtype=torch.float32, device=dev)
+    ws_s = torch.empty((3 * b,), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.zdc_fused_decode(
+            args[0].data_ptr(), int(x.dtype == torch.bfloat16), *(t.data_ptr() for t in args[1:]),
+            ws_i8.data_ptr(), ws_f32.data_ptr(), ws_s.data_ptr(), out.data_ptr(),
+            int(apply_expm1), b, dk._stream(x),
+        )
+    _build.check(status, name)
+    fused_decode.launches += 1
+    return out
+
+
+fused_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One expert's Flax-layout tree -> the kernels' weights
+# ---------------------------------------------------------------------------
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32)
+
+
+def _gn(p, name):
+    gn = p[name]["GroupNorm_0"]
+    return _f32(gn["scale"]), _f32(gn["bias"])
+
+
+_FULL_WIDTH = {"Conv_0": (4, 4, C0, C1), "Conv_1": (4, 4, C1, C2), "Conv_2": (3, 3, C2, C3),
+               "Conv_3": (2, 2, C3, 1)}
+
+
+def front_weights(p) -> tuple:
+    """The front's weight arguments (after ``x``) from one expert's tree,
+    quantized once: the LN1 and GN0 parameters and Conv_0's bias in f32, and
+    Conv_0's parity-phase int8 weights. Raises ``ValueError`` unless the
+    tree has the full width."""
+    for key, shape in _FULL_WIDTH.items():
+        got = tuple(p[key]["kernel"].shape)
+        _require(got == shape, "fused decode weights",
+                 f"{key} kernel must be {list(shape)}, got {list(got)}")
+    ln = p["MLPBlock_1"]["LayerNorm_0"]
+    kq0, sk0 = dk._quant_phases(p["Conv_0"]["kernel"])
+    return (_f32(ln["scale"]), _f32(ln["bias"]), kq0, sk0, _f32(p["Conv_0"]["bias"]),
+            *_gn(p, "GroupNorm2d_0"))
+
+
+def tail_weights(p) -> tuple:
+    """H's tail weight arguments from one expert's tree: Conv_1 and Conv_2
+    per-cout int8, the GN1/GN2 parameters, Conv_3 in f32."""
+    kq1, sk1 = _quant_cout(p["Conv_1"]["kernel"])
+    kq2, sk2 = _quant_cout(p["Conv_2"]["kernel"])
+    return (kq1, sk1, _f32(p["Conv_1"]["bias"]), *_gn(p, "GroupNorm2d_1"),
+            kq2, sk2, _f32(p["Conv_2"]["bias"]), *_gn(p, "GroupNorm2d_2"),
+            _f32(p["Conv_3"]["kernel"]), _f32(p["Conv_3"]["bias"]))
+
+
+def fused_decode_front_from_params(p, x):
+    """:func:`fused_decode_front` over one expert's tree of tensors."""
+    return fused_decode_front(x, *front_weights(p))
+
+
+def fused_decode_from_params(p, x, apply_expm1=False):
+    """:func:`fused_decode` over one expert's tree of tensors (the tree
+    ``fast_generator_apply`` consumes); ``x`` is the Dense_1 output."""
+    return fused_decode(x, *front_weights(p), *tail_weights(p), apply_expm1=apply_expm1)
