@@ -8,7 +8,11 @@
 Phases, each printing lines with the elapsed seconds:
 
 1. the card: name, device count and ``nvidia-smi`` name / power limit;
-2. the build of the CUDA kernels (seconds, ptxas register/smem report);
+2. the build of the CUDA kernels (seconds, ptxas register/smem report), and
+   from ``cuobjdump -sass`` of the built library, where the toolkit has it,
+   the count of int8 tensor-core (``IMMA``, ``IGMMA``) and ``IDP4A``
+   instructions in each instantiation of the fused decode's conv kernel:
+   it fails unless each has tensor-core instructions and no ``IDP4A``;
 3. kernel A (LN + leaky + int8) against its plain version at [256, 92160];
 4. kernel B (up2 + conv4 int8) against its plain version at [64, 18, 10, 512];
 5. kernel C (GN + leaky + int8) against its plain version at [64, 35, 19, 256]
@@ -20,7 +24,10 @@ Phases, each printing lines with the elapsed seconds:
 7b. kernels G (fused decode front) and H (whole fused decode) against their
    plain versions at [64, 92160]: the Dense_1 output of the teacher's
    expert 1 (bf16, as the engine holds it) on seeded noise and conditions,
-   with that expert's weights; H also with ``apply_expm1``;
+   with that expert's weights; H also with ``apply_expm1``; then each of
+   the three int8 convs that G and H launch (``fused_conv_int8``: Conv_0's
+   parity phases, Conv_1, Conv_2) on that path's own activations, equal to
+   its plain version bit for bit;
 8. serving the full-width proton teacher's generator
    (artifacts/gate/gate_serving_weights.npz): 16384 showers through
    ``FastSim(precision="int8")`` (the yardstick), then through each kernel
@@ -34,7 +41,9 @@ Phases, each printing lines with the elapsed seconds:
 9. kernel times with CUDA events at the serving tile (64 rows); beside G and
    H, the ported chains that compute the same functions: kernels A -> B
    (f32 out) -> C -> the resize gather, and the ``int8_pallas`` decode after
-   the MLP;
+   the MLP; each of the three convs beside its int8 bound and, as a
+   yardstick the port never calls, ``torch._int_mm`` on pre-built [M, K] x
+   [K, N] matrices of the same GEMM shapes (no im2col);
 10. the fidelity gate's test split (25600 synthetic events, seed 7, numpy),
     and kernel E (expm1 + channel sums) against its plain version on its
     5120 real showers [5120, 56, 30] and on a [37, 44, 44] batch;
@@ -60,7 +69,8 @@ per kernel and the device's idle share of the serve's wall time.
 The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
 ``int8`` gate (E), of the all-expert path (F) and of the ``int8_fused_front``
-(G) and ``int8_fused`` (H) serves; the last line is
+(G) and ``int8_fused`` (H) serves, and G's and H's ``conv_ms`` (their convs'
+times); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line is printed. Without a CUDA device the script exits with code 2
 and prints no result; ``--rehearse-cpu`` runs G and H at [2, 92160], E and
@@ -333,6 +343,79 @@ def check_kernels_gh(gp, rng, dev, rows):
     return p, x, front, tail, float(q_max), err
 
 
+CONV_NAMES = {0: "Conv_0 (4 parity phases)", 1: "Conv_1", 2: "Conv_2"}
+
+
+def conv_sass_counts(lib_path):
+    """Phase 2: ``({instantiation: {op: count}}, IDP4A in the whole
+    library)`` for the int8 tensor-core (``IMMA``, ``IGMMA``) and ``IDP4A``
+    instructions of each instantiation of the fused decode's
+    ``conv_mma_kernel``, from ``cuobjdump -sass`` of the built library;
+    ``None`` where the toolkit has no ``cuobjdump``."""
+    import re
+
+    from zdcsim_torch.ops import _build
+
+    exe = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.isfile(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn, lib_dp4a = {}, None, 0
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = None
+            if "conv_mma_kernel" in name:
+                args = re.findall(r"Li(\d+)E", name[name.index("conv_mma_kernel"):])
+                fn = f"conv_mma_kernel<{', '.join(args)}>"
+                counts[fn] = dict.fromkeys(("IMMA", "IGMMA", "IDP4A"), 0)
+            continue
+        # opcodes as SASS spells them: IMMA.16832..., IGMMA.64x..., IDP.4A...
+        ops = [op if op != "IDP" else "IDP4A"
+               for op in re.findall(r"\b(IMMA|IGMMA|IDP)(?=[.\s])", line)]
+        lib_dp4a += ops.count("IDP4A")
+        if fn:
+            for op in ops:
+                counts[fn][op] += 1
+    return counts, lib_dp4a
+
+
+def check_conv_stages(x, front, tail, dev):
+    """Phase 7b, the convs: each int8 conv that G and H launch
+    (``fused_conv_int8``: Conv_0's parity phases, Conv_1, Conv_2) on the
+    activations of that path (the plain versions' LN-quant of the Dense_1
+    output, G's resized grid, GN1-quant of Conv_1's output), equal to its
+    plain version bit for bit. Returns each conv's inputs."""
+    import torch
+
+    from zdcsim_torch.ops import decode_kernels as dk
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    rows = x.shape[0]
+    ln_s, ln_b, kp0, sk0, b0 = front[:5]
+    kp1, sk1, b1, g1s, g1b, kp2, sk2, b2 = tail[:8]
+    with torch.no_grad():
+        xq, sx = dk.ln_leaky_rowquant_plain(x, ln_s, ln_b)
+        q, s = fdk.fused_decode_front_plain(x, *front)
+        y1 = fdk.fused_conv_int8_plain(1, q, s, kp1, sk1, b1)
+        q2, s2 = dk.gn_leaky_rowquant_plain(y1, g1s, g1b, fdk.GROUPS)
+        inputs = {0: (xq.reshape(rows, fdk.H0, fdk.W0, fdk.C0), sx.reshape(rows), kp0, sk0, b0),
+                  1: (q, s, kp1, sk1, b1), 2: (q2, s2.reshape(rows), kp2, sk2, b2)}
+        for conv, args in inputs.items():
+            out = fdk.fused_conv_int8(conv, *args)
+            ref = fdk.fused_conv_int8_plain(conv, *args)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            same = out.shape == ref.shape and torch.equal(out, ref)
+            e = (out - ref).abs().max().item() if out.shape == ref.shape else float("inf")
+            log("7b conv stages", f"conv{conv} {CONV_NAMES[conv]} {list(args[0].shape)} int8 -> "
+                f"{list(out.shape)} f32: equal to its plain version {same} (max abs err {e:.3e})")
+            if not same:
+                fail(f"the int8 conv {CONV_NAMES[conv]} of G/H differs from its plain version")
+    return inputs
+
+
 def seeded_router(rng, n_experts=3, widths=(9, 128, 64, 32)):
     """A router in the artifact's Flax layout, drawn from ``rng`` (LeCun
     normal kernels, zero biases, as Flax initialises ``nn.Dense``)."""
@@ -593,11 +676,55 @@ def time_kernels(a_in, b_in, c_in, d_in, launches, errs, card):
     return rec
 
 
-def time_fused(p, x, front, tail, launches, errs, card):
+def time_conv_stages(conv_in, card):
+    """Phase 9, the convs: each int8 conv of G and H with CUDA events at the
+    serving tile, beside its int8 bound (the taps that read the source grid)
+    and ``torch._int_mm`` on pre-built ``[M, K] x [K, N]`` int8 matrices of
+    the same GEMM shapes (one per Conv_0 phase, the full K; no im2col), a
+    yardstick the port never calls. Returns ``{"conv<i>": ms}``."""
+    import torch
+
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    taps = {0: in_grid_taps(18, 10), 1: pad1_taps(56, 30, 4), 2: pad1_taps(55, 29, 3)}
+    phase_taps = {0: (9, 6, 6, 4), 1: (16,), 2: (9,)}
+    times = {}
+    for conv, args in conv_in.items():
+        xq, sx, kp, sk, bias = args
+        rows = xq.shape[0]
+        (h, w, cin), (oh, ow, cout) = fdk.CONVS[conv][:2]
+        with torch.no_grad():
+            ms = time_ms(lambda: fdk.fused_conv_int8(conv, *args), 50)
+        n_ops = 2 * rows * taps[conv] * cin * cout
+        n_bytes = (xq.numel() + kp.numel() + 4 * (sx.numel() + sk.numel() + bias.numel())
+                   + 4 * rows * oh * ow * cout)
+        bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OPS_PER_S)
+        m = rows * (h * w if conv == 0 else oh * ow)
+        mats, k0 = [], 0
+        for t in phase_taps[conv]:
+            a = torch.randint(-127, 128, (m, t * cin), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            mats.append((a, kp[:, k0:k0 + t * cin].contiguous().t()))  # [K, N] column-major
+            k0 += t * cin
+        mm_ms = time_ms(lambda: [torch._int_mm(a, b) for a, b in mats], 50)
+        mm_ops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in mats)
+        shapes = [[a.shape[0], a.shape[1], b.shape[1]] for a, b in mats]
+        del mats
+        times[f"conv{conv}"] = ms
+        log("9 conv times", f"conv{conv} {CONV_NAMES[conv]} at {rows} rows: {ms:.4f} ms "
+            f"({n_ops / ms / 1e9:.1f} TOP/s on the in-grid taps), bound {bound_ms:.4f} ms "
+            f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound; torch._int_mm on pre-built "
+            f"[M, K, N] {shapes}: {mm_ms:.4f} ms ({mm_ops / mm_ms / 1e9:.1f} TOP/s) [{card}]")
+    return times
+
+
+def time_fused(p, x, front, tail, launches, errs, conv_ms, card):
     """Phase 9, G and H: CUDA-event times at the serving tile beside their
     plain versions and the ported chains that compute the same functions
     (kernels A -> B (f32 out) -> C -> the resize gather; the ``int8_pallas``
-    decode after the MLP)."""
+    decode after the MLP); ``conv_ms`` (phase 9's conv times) goes into
+    their records."""
     import torch
 
     from zdcsim_torch.models.proton_fast import decode_apply, quantize_weights
@@ -606,7 +733,8 @@ def time_fused(p, x, front, tail, launches, errs, card):
 
     x = x[:TIME_ROWS].contiguous()
     rows, f = x.shape
-    ln_s, ln_b, kq0, sk0, b0, g0s, g0b = front
+    ln_s, ln_b, kp0, sk0, b0, g0s, g0b = front
+    kq0 = fdk.unpack_k_major(kp0, fdk.CONVS[0][2]).contiguous()  # kernel B's layout
     qw = quantize_weights(p, "pallas")
 
     def chain_g():
@@ -641,20 +769,22 @@ def time_fused(p, x, front, tail, launches, errs, card):
     g_bytes = nbytes((x,) + front) + rows * 56 * 30 * 256 + rows * 4
     h_bytes = nbytes((x,) + front + tail) + rows * 56 * 30 * 4
     rec = []
-    for name, replaces, ms, plain, chain, n_bytes, i8, f32, n, err, what in (
+    for name, replaces, ms, plain, chain, n_bytes, i8, f32, n, err, what, convs in (
         ("fused_decode_front", "zdcsim/ops/pallas_decode_fused.py:586", g_ms, g_plain, g_chain,
          g_bytes, g_i8, g_f32, launches["int8_fused_front"]["fused_decode_front"], errs[0],
-         "A -> B(f32) -> C -> gather"),
+         "A -> B(f32) -> C -> gather", ("conv0",)),
         ("fused_decode", "zdcsim/ops/pallas_decode_fused.py:479", h_ms, h_plain, h_chain,
          h_bytes, h_i8, h_f32, launches["int8_fused"]["fused_decode"], errs[1],
-         "the int8_pallas decode"),
+         "the int8_pallas decode", ("conv0", "conv1", "conv2")),
     ):
         bound_ms, bound_by = bound(n_bytes, i8, INT8_OPS_PER_S, f32)
         rec.append({"name": name, "route": "cuda", "source": "zdcsim_torch/csrc/fused_decode.cu",
                     "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None, "chain_ms": chain})
-        log("9 kernel times", f"{name} at {rows} rows: {ms:.4f} ms, plain {plain:.4f} ms, "
+                    "library_ms": None, "chain_ms": chain,
+                    "conv_ms": {c: conv_ms[c] for c in convs}})
+        log("9 kernel times", f"{name} at {rows} rows: {ms:.4f} ms (its convs "
+            f"{sum(conv_ms[c] for c in convs):.4f} ms), plain {plain:.4f} ms, "
             f"chain ({what}) {chain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
             f"{100 * bound_ms / ms:.1f}% of bound, {n} launches per {N_SHOWERS} showers on "
             f"its path [{card}]")
@@ -907,6 +1037,18 @@ def main(argv=None) -> int:
         for line in build_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
+        sass = conv_sass_counts(lib_path)
+        if sass is None:
+            log("2 build", "no cuobjdump beside nvcc: SASS instruction counts not measured")
+        else:
+            counts, lib_dp4a = sass
+            if not counts:
+                fail("the library's SASS holds no conv_mma_kernel")
+            for fn, c in counts.items():
+                log("2 build", f"SASS of {fn}: IMMA {c['IMMA']}, IGMMA {c['IGMMA']}, IDP4A "
+                    f"{c['IDP4A']} (IDP4A in the whole library, kernels B and D: {lib_dp4a})")
+                if c["IMMA"] + c["IGMMA"] == 0 or c["IDP4A"]:
+                    fail(f"{fn} does not run on the int8 tensor cores alone: {c}")
 
     rng = np.random.default_rng(args.seed)
     gp, _, rp, _ = load_serving_artifact(TEACHER)
@@ -920,6 +1062,7 @@ def main(argv=None) -> int:
     d_in = check_kernel_d(gp, rng_cd, dev, 4 if rehearse else D_ROWS)
     check_conv_i8(gp, rng_cd, dev, 1 if rehearse else 2)
     gh_in = check_kernels_gh(gp, rng_cd, dev, 2 if rehearse else GH_ROWS)
+    conv_in = check_conv_stages(*gh_in[1:4], dev)
     if rehearse:
         _, router = serve(gp, rp, rng, dev, 24, 8, 2, card, args.seed)
         cond, real, _ = gate_data(dev, rehearse)
@@ -932,7 +1075,8 @@ def main(argv=None) -> int:
                              args.seed, args.profile)
     rec = time_kernels(a_in[:3], b_in[:5], c_in[:3], d_in[:6], launches["int8_pallas"],
                        (a_in[3], b_in[5], c_in[3], d_in[6]), card)
-    rec += time_fused(*gh_in[:4], launches, gh_in[4:], card)
+    conv_ms = time_conv_stages(conv_in, card)
+    rec += time_fused(*gh_in[:4], launches, gh_in[4:], conv_ms, card)
     cond, real, e_err = gate_data(dev, rehearse)
     f_launches, f_err = kernel_f_path(gp, router, dev, F_SHOWERS, card)
     float_serves(gp, router, dev, FLOAT_SHOWERS, SERVE_BATCH, SERVE_TILE, card, args.seed)

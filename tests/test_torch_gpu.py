@@ -16,6 +16,8 @@ from zdcsim_torch.models.proton import Generator
 from zdcsim_torch.models.proton_fast import fast_generator_apply
 from zdcsim_torch.ops import decode_kernels as dk
 
+from test_torch_fused_mma import conv_inputs
+
 pytestmark = pytest.mark.gpu
 
 
@@ -338,3 +340,22 @@ def test_fused_decode_kernel_matches_plain(teacher_expert1, b):
     assert (out - ref).abs().max().item() < 0.05 * ref.abs().max().item() + 0.05
     torch.testing.assert_close(counts, torch.expm1(out), rtol=1e-5, atol=1e-5)
     assert torch.equal(fdk.fused_decode(x, *front, *tail), out)
+
+
+@pytest.mark.parametrize("b", [1, 7, 64])
+@pytest.mark.parametrize("conv", [0, 1, 2])
+def test_fused_conv_int8_kernel_equals_plain(cuda, conv, b):
+    """Each conv of G and H on the int8 tensor cores equals its plain version
+    bit for bit: the int32 sums are exact in any order, and the epilogue
+    rounds as the plain version does. Full-range int8 operands."""
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    xq, kq, sx, sk, bias = (t.to(cuda) for t in conv_inputs(conv, b, 100 * conv + b))
+    args = (xq, sx, fdk.pack_k_major(kq), sk, bias)
+    n0 = fdk.fused_conv_int8.launches
+    out = fdk.fused_conv_int8(conv, *args)
+    ref = fdk.fused_conv_int8_plain(conv, *args)
+    torch.cuda.synchronize()
+    assert fdk.fused_conv_int8.launches == n0 + 1
+    assert out.shape == ref.shape == (b, *fdk.CONVS[conv][1]) and out.dtype == torch.float32
+    assert torch.equal(out, ref)

@@ -35,7 +35,8 @@
 // taps that read the source grid and moves 0.6 MB (184 KB of bf16 in, 430 KB
 // of int8 out); H adds about 836 M (Conv_1) and 118 M (Conv_2) MACs and a
 // small f32 Conv_3. At 1979 TOP/s the 64-row serving tile needs about 36 us
-// (G) and 96 us (H); chip_smoke.py computes the exact counts.
+// (G) and 96 us (H); chip_smoke.py computes the exact counts. The three convs
+// are nearly all of that work, so they run on the int8 tensor cores.
 //
 // Design: one sample's f32 Conv_0 output (680 KB) exceeds the 227 KB of
 // shared memory of a block, and the LayerNorm and each GroupNorm need the
@@ -44,11 +45,20 @@
 // (one int8, one f32, each reused by the later stages in stream order):
 //  - LN-quant: one block of 1024 threads per sample, four passes over the
 //    row (the first from device memory, the rest from L2);
-//  - the convs: one tiled GEMM per phase on `__dp4a` (4 int8 products per
-//    instruction, int32 sums), M = output positions, N = Cout, K = taps x
-//    Cin; a block of 256 threads owns a 64 x 64 tile and stages the shifted,
-//    edge-masked activations and the packed weights in shared memory; the
-//    Conv_0 phases write straight into the interleaved grid;
+//  - the convs: one implicit GEMM per phase, M = output positions, N = Cout,
+//    K = taps x Cin in tap-major order, so a K step of 128 bytes is 128
+//    channels of ONE shifted source pixel (NHWC) and 128 contiguous bytes of
+//    the weights, which the wrappers pack once as [Cout, taps x Cin]. A block
+//    of two warpgroups owns a 128 x 128 tile (128 x 64 for Conv_2's 64
+//    channels), two blocks an SM. All 256 threads stage a 3-stage ring in
+//    dynamic shared memory with 16-byte cp.async copies (a copy of 0 source
+//    bytes zero-fills a tap off the grid, so the halo costs no branch) into
+//    the 128-byte-swizzled K-major layout that wgmma reads; each warpgroup
+//    then runs wgmma m64nNk32 s8 x s8 -> s32 from shared memory, four per K
+//    step. The sums are exact in any order (no .satfinite; |sum| < 2^31), so
+//    with the f32 epilogue rounded op for op every output is bit-identical
+//    to the plain versions. The epilogue writes two channels as one float2,
+//    through the plan's (i * sr + pr, j * sc + pc) map for Conv_0's phases;
 //  - the GroupNorms: one block of 512 threads per sample, per-channel then
 //    per-group sums in a fixed order (no atomics: a rerun is bit-identical);
 //    the quantise pass walks the OUTPUT grid, so the nearest resize costs
@@ -56,13 +66,17 @@
 //  - GroupNorm_2 + Conv_3: one block per sample; after the statistics, one
 //    warp per output pixel normalises its 4 x 64 inputs on the fly and sums
 //    them with a fixed shuffle tree.
-// A first, simple design: dp4a runs at a fraction of the int8 tensor-core
-// rate, and mma.sync/wgmma, or a cluster that keeps a sample on chip, is
-// later work.
+// Left for later: TMA loads and warp-specialised producer/consumer
+// warpgroups (the copies here are issued by the same threads that wait on
+// wgmma, and keeping a wgmma group in flight across K steps measured slower
+// with that structure), a persistent grid, and a cluster that keeps a sample
+// on chip between the stages.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -151,21 +165,26 @@ __global__ void __launch_bounds__(kLnThreads)
 }
 
 // ---------------------------------------------------------------------------
-// 2, 4, 6. int8 convs as tiled dp4a GEMMs with an f32 dequant epilogue
+// 2, 4, 6. int8 convs as implicit GEMMs on the int8 tensor cores, f32 epilogue
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64;       // output positions per block
-constexpr int BN = 64;       // output channels per block
-constexpr int KW = 8;        // 32-bit words (4 int8 channels each) per K step
-constexpr int TM = 4, TN = 4;
-constexpr int kConvThreads = 256;
-constexpr int APAD = 4;      // keeps the A-tile stores free of bank conflicts
+// Tile: 128 output positions (two warpgroups of 64) x BN output channels a
+// block (BN = 128, or 64 for Conv_2's 64 channels), K steps of 128 bytes, a
+// ring of kConvStages K steps in dynamic shared memory, registers capped for
+// kConvMinBlocks blocks an SM. Both were chosen by a sweep on the H100
+// (PERF.md, section 6).
+constexpr int kConvStages = 3;
+constexpr int kConvMinBlocks = 2;  // blocks per SM that __launch_bounds__ asks registers for
+constexpr int kConvThreads = 256;  // two warpgroups
+constexpr int kConvBM = 128, kConvBK = 128;
+constexpr int kMaxDevices = 64;  // devices whose shared-memory attribute is remembered
 
 // One GEMM of a conv: output position (i, j) in [0, mh) x [0, mw) of a sample
 // sums taps (a, t) in [0, kr) x [0, kc), each reading source pixel
-// (i + dr0 + a, j + dc0 + t) (zero off the source grid) against tap
-// tap0 + a * kc + t of kq [taps, cin, cout]; it lands on output pixel
-// (i * sr + pr, j * sc + pc) and is dropped outside the output grid.
+// (i + dr0 + a, j + dc0 + t) (zero off the source grid) against the K slab of
+// tap tap0 + a * kc + t of the packed weights kp [cout, taps x cin] (K-major,
+// tap-major); it lands on output pixel (i * sr + pr, j * sc + pc) and is
+// dropped outside the output grid.
 struct ConvPhase {
   int mh, mw, kr, kc, dr0, dc0, tap0, sr, pr, sc, pc, skoff;
 };
@@ -175,13 +194,108 @@ struct ConvPlan {
   int oh, ow;       // output grid [nb, oh, ow, cout]
 };
 
-__global__ void __launch_bounds__(kConvThreads)
-    conv_int8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-                     const int8_t* __restrict__ kq, const float* __restrict__ sk,
-                     const float* __restrict__ bias, float* __restrict__ out, int nb, int cin,
-                     int cout, ConvPlan plan) {
-  __shared__ __align__(16) int As[KW][BM + APAD];
-  __shared__ __align__(16) int Bs[KW][BN];
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  // copies src_bytes (16 or 0) and zero-fills the rest of the 16 bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk c of tile row r: rows of 128 bytes, the chunk
+// index XORed with the row's index mod 8. This is the 128-byte swizzle that
+// wgmma reads (8-row groups of 1024 bytes, from a 1024-byte-aligned base),
+// and it keeps the cp.async stores free of bank conflicts.
+__device__ __forceinline__ int swizzle(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// wgmma's shared-memory descriptor of a K-major tile in that layout: start
+// address, leading offset (unused with a swizzle), 1024 bytes between 8-row
+// groups, 128-byte swizzle.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// d += a (64 x 32 s8, K-major) * b (32 x N s8, K-major) in s32, exactly (no
+// .satfinite: |sum| <= 127^2 * 4608 < 2^31, so the order never matters).
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t a, uint64_t b) {
+  if constexpr (BN == 128) wgmma_m64n128k32(d, a, b);
+  else wgmma_m64n64k32(d, a, b);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kConvThreads, kConvMinBlocks)
+    conv_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+                    const int8_t* __restrict__ kp, const float* __restrict__ sk,
+                    const float* __restrict__ bias, float* __restrict__ out, int nb, int cin,
+                    int cout, int ktot, ConvPlan plan) {
+  constexpr int BM = kConvBM, BK = kConvBK, STAGES = kConvStages, kChunks = BK / 16;
+  constexpr int kALoads = BM * kChunks / kConvThreads, kBLoads = BN * kChunks / kConvThreads;
+  constexpr int kABytes = BM * BK, kStageBytes = (BM + BN) * BK;
+  static_assert(BN == 64 || BN == 128, "BN is 64 or 128");
+  static_assert(kStageBytes % 1024 == 0, "stages stay 1024-byte aligned");
+  extern __shared__ uint8_t smem[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to that
+  const uint32_t smem0 = ((uint32_t)__cvta_generic_to_shared(smem) + 1023u) & ~1023u;
 
   const ConvPhase ph = plan.ph[blockIdx.z];
   const int mhw = ph.mh * ph.mw;
@@ -189,104 +303,157 @@ __global__ void __launch_bounds__(kConvThreads)
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   if (m0 >= m_total) return;  // the grid is sized for the longest phase
   const int h = plan.h, w = plan.w;
-  const int cw = cin >> 2;  // 32-bit words per source pixel
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2;  // warpgroup: output positions 64 * wg ..
 
-  // The two A words and two B words this thread stages at every K step.
-  int a_m[2], a_kw[2], a_b[2], a_i[2], a_j[2];
-  int b_n[2], b_kw[2];
+  // The A chunks (output position, 16 channels) and B chunks (output channel,
+  // 16 K bytes) this thread stages at every K step.
+  int a_pix[kALoads], a_i[kALoads], a_j[kALoads], a_c[kALoads];
+  uint32_t a_dst[kALoads];
 #pragma unroll
-  for (int l = 0; l < 2; ++l) {
-    const int idx = tid + l * kConvThreads;
-    a_m[l] = idx >> 3;
-    a_kw[l] = idx & 7;
-    const int m = m0 + a_m[l];
-    a_b[l] = m < m_total ? m / mhw : -1;
-    a_i[l] = (m / ph.mw) % ph.mh;
-    a_j[l] = m % ph.mw;
-    b_n[l] = idx & 63;
-    b_kw[l] = idx >> 6;
+  for (int l = 0; l < kALoads; ++l) {
+    const int idx = tid + l * kConvThreads, r = idx / kChunks, c = idx % kChunks;
+    const int m = m0 + r;
+    if (m < m_total) {
+      const int b = m / mhw, rem = m - b * mhw;
+      a_i[l] = rem / ph.mw;
+      a_j[l] = rem - a_i[l] * ph.mw;
+      a_pix[l] = (b * h + a_i[l]) * w + a_j[l];
+    } else {
+      a_i[l] = -(1 << 20);  // off every grid: always zero-filled
+      a_j[l] = a_pix[l] = 0;
+    }
+    a_c[l] = c * 16;
+    a_dst[l] = swizzle(r, c);
+  }
+  const int8_t* b_src[kBLoads];
+  uint32_t b_dst[kBLoads];
+#pragma unroll
+  for (int l = 0; l < kBLoads; ++l) {
+    const int idx = tid + l * kConvThreads, r = idx / kChunks, c = idx % kChunks;
+    b_src[l] = kp + (size_t)(n0 + r) * ktot + (size_t)ph.tap0 * cin + c * 16;
+    b_dst[l] = kABytes + swizzle(r, c);
   }
 
-  int acc[TM][TN];
+  // The next K step to stage: tap (ld_a, ld_t), channel block ld_c, at byte
+  // ld_k of the phase's K slab (tap-major, so ld_k just advances by BK).
+  const int csteps = cin / BK, nk = ph.kr * ph.kc * csteps;
+  int ld_a = 0, ld_t = 0, ld_c = 0, ld_k = 0;
+  auto stage = [&](int slot) {
+    const int dr = ph.dr0 + ld_a, dc = ph.dc0 + ld_t;
+    const int shift = dr * w + dc, cpos = ld_c * BK;
+    const uint32_t base = smem0 + slot * kStageBytes;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int l = 0; l < kALoads; ++l) {
+      const int si = a_i[l] + dr, sj = a_j[l] + dc;
+      const bool ok = si >= 0 && si < h && sj >= 0 && sj < w;
+      const int8_t* src = ok ? xq + (size_t)(a_pix[l] + shift) * cin + cpos + a_c[l] : xq;
+      cp_async16(base + a_dst[l], src, ok ? 16 : 0);
+    }
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  const int* x32 = reinterpret_cast<const int*>(xq);
-  for (int ta = 0; ta < ph.kr; ++ta) {
-    for (int tb = 0; tb < ph.kc; ++tb) {
-      const int dr = ph.dr0 + ta, dc = ph.dc0 + tb;
-      const int8_t* ktap = kq + (size_t)(ph.tap0 + ta * ph.kc + tb) * cin * cout;
-      for (int w0 = 0; w0 < cw; w0 += KW) {
-#pragma unroll
-        for (int l = 0; l < 2; ++l) {
-          const int si = a_i[l] + dr, sj = a_j[l] + dc, wd = w0 + a_kw[l];
-          int v = 0;
-          if (a_b[l] >= 0 && si >= 0 && si < h && sj >= 0 && sj < w && wd < cw)
-            v = x32[((size_t)(a_b[l] * h + si) * w + sj) * cw + wd];
-          As[a_kw[l]][a_m[l]] = v;
-
-          const int n = n0 + b_n[l], wb = w0 + b_kw[l];
-          int packed = 0;
-          if (n < cout && wb < cw) {
-            const int8_t* src = ktap + (size_t)(4 * wb) * cout + n;
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              packed |= ((int)(uint8_t)src[(size_t)c * cout]) << (8 * c);
-          }
-          Bs[b_kw[l]][b_n[l]] = packed;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < KW; ++k) {
-          const int4 a4 = *reinterpret_cast<const int4*>(&As[k][ty * TM]);
-          const int4 b4 = *reinterpret_cast<const int4*>(&Bs[k][tx * TN]);
-          const int a[TM] = {a4.x, a4.y, a4.z, a4.w};
-          const int bv[TN] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
+    for (int l = 0; l < kBLoads; ++l) cp_async16(base + b_dst[l], b_src[l] + ld_k, 16);
+    ld_k += BK;
+    if (++ld_c == csteps) {
+      ld_c = 0;
+      if (++ld_t == ph.kc) {
+        ld_t = 0;
+        ++ld_a;
       }
     }
-  }
+  };
+
+  int acc[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0;
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) stage(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // step kt has landed (this thread's copies)
+    // order those generic-proxy writes before wgmma's async-proxy reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // ... everyone's; and step kt - 1's slot is read
+    if (kt + STAGES - 1 < nk) stage((kt + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const uint32_t sa = smem0 + (kt % STAGES) * kStageBytes;
+    const uint64_t da = wgmma_desc(sa + wg * 64 * BK), db = wgmma_desc(sa + kABytes);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks)  // +32 bytes = +2 in the descriptor's 16-byte units
+      wgmma_tile<BN>(acc, da + 2 * ks, db + 2 * ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+
+  // Epilogue: in each warp's 16 rows of its warpgroup's 64, acc[4 * j + 2 *
+  // half + e] is row g + 8 * half, channel 8 * j + 2 * (lane % 4) + e.
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + wg * 64 + (warp & 3) * 16 + half * 8 + g;
     if (m >= m_total) continue;
-    const int b = m / mhw;
-    const int r = ((m / ph.mw) % ph.mh) * ph.sr + ph.pr, c = (m % ph.mw) * ph.sc + ph.pc;
+    const int b = m / mhw, rem = m - b * mhw;
+    const int mi = rem / ph.mw, mj = rem - mi * ph.mw;
+    const int r = mi * ph.sr + ph.pr, c = mj * ph.sc + ph.pc;
     if (r >= plan.oh || c >= plan.ow) continue;  // the odd phases' last row/column
     const float sxb = sx[b];
-    const size_t base = ((size_t)(b * plan.oh + r) * plan.ow + c) * cout;
+    float* o = out + ((size_t)(b * plan.oh + r) * plan.ow + c) * cout;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n >= cout) continue;
-      const float v = __fmul_rn(__fmul_rn((float)acc[i][j], sk[ph.skoff + n]), sxb);
-      out[base + n] = __fadd_rn(v, bias[n]);
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + j * 8 + 2 * tig;
+      const float2 s2 = *reinterpret_cast<const float2*>(sk + ph.skoff + n);
+      const float2 b2 = *reinterpret_cast<const float2*>(bias + n);
+      float2 v;
+      v.x = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[4 * j + 2 * half], s2.x), sxb), b2.x);
+      v.y = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[4 * j + 2 * half + 1], s2.y), sxb), b2.y);
+      *reinterpret_cast<float2*>(o + n) = v;
     }
   }
 }
 
-int launch_conv(const int8_t* xq, const float* sx, const int8_t* kq, const float* sk,
-                const float* bias, float* out, int nb, int cin, int cout, const ConvPlan& plan,
-                int n_phases, cudaStream_t st) {
+template <int BN>
+int launch_conv_tiles(const int8_t* xq, const float* sx, const int8_t* kp, const float* sk,
+                      const float* bias, float* out, int nb, int cin, int cout, int ktot,
+                      const ConvPlan& plan, int n_phases, cudaStream_t st) {
+  constexpr int smem = kConvStages * (kConvBM + BN) * kConvBK + 1024;  // + alignment slack
+  const auto kernel = conv_mma_kernel<BN>;
+  // Above 48 KB a block's dynamic shared memory must be allowed per kernel
+  // and device: once each, not per launch (a host-side CUDA call).
+  static std::atomic<bool> smem_allowed[kMaxDevices];
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= kMaxDevices || !smem_allowed[dev].load(std::memory_order_acquire)) {
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+    if (dev < kMaxDevices) smem_allowed[dev].store(true, std::memory_order_release);
+  }
   int max_m = 0;
   for (int p = 0; p < n_phases; ++p) {
     const int m = nb * plan.ph[p].mh * plan.ph[p].mw;
     max_m = m > max_m ? m : max_m;
   }
-  dim3 grid((max_m + BM - 1) / BM, (cout + BN - 1) / BN, n_phases);
-  conv_int8_kernel<<<grid, kConvThreads, 0, st>>>(xq, sx, kq, sk, bias, out, nb, cin, cout,
-                                                  plan);
+  dim3 grid((max_m + kConvBM - 1) / kConvBM, cout / BN, n_phases);
+  kernel<<<grid, kConvThreads, smem, st>>>(xq, sx, kp, sk, bias, out, nb, cin, cout, ktot, plan);
   return (int)cudaGetLastError();
+}
+
+// The plan's convs: cin a multiple of 128, cout of 64 (every conv here).
+int launch_conv(const int8_t* xq, const float* sx, const int8_t* kp, const float* sk,
+                const float* bias, float* out, int nb, int cin, int cout, const ConvPlan& plan,
+                int n_phases, cudaStream_t st) {
+  if (cin % kConvBK != 0 || cout % 64 != 0) return (int)cudaErrorInvalidValue;
+  int taps = 0;
+  for (int p = 0; p < n_phases; ++p) taps += plan.ph[p].kr * plan.ph[p].kc;
+  const int ktot = taps * cin;  // K of the packed weights, all phases
+  if (cout % 128 == 0)
+    return launch_conv_tiles<128>(xq, sx, kp, sk, bias, out, nb, cin, cout, ktot, plan, n_phases,
+                                  st);
+  return launch_conv_tiles<64>(xq, sx, kp, sk, bias, out, nb, cin, cout, ktot, plan, n_phases,
+                               st);
 }
 
 // ---------------------------------------------------------------------------
@@ -497,7 +664,7 @@ ConvPlan pad1_plan(int k, int h, int w) {
 struct Front {
   const void* x; int x_is_bf16;
   const float *ln_scale, *ln_bias;
-  const int8_t* kq0; const float *sk0, *b0, *g0s, *g0b;
+  const int8_t* kp0; const float *sk0, *b0, *g0s, *g0b;
 };
 
 // Launches 1-3: q [nb, 56, 30, 256] int8 and s [nb]; ws_i8 holds xq
@@ -512,7 +679,7 @@ int run_front(const Front& f, int8_t* ws_i8, float* ws_f32, float* ws_sx, int8_t
                                                       f.ln_bias, ws_i8, ws_sx);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  err = launch_conv(ws_i8, ws_sx, f.kq0, f.sk0, f.b0, ws_f32, nb, C0, C1, conv0_plan(), 4, st);
+  err = launch_conv(ws_i8, ws_sx, f.kp0, f.sk0, f.b0, ws_f32, nb, C0, C1, conv0_plan(), 4, st);
   if (err) return err;
   gn_quant_kernel<<<nb, kGnThreads, 0, st>>>(ws_f32, f.g0s, f.g0b, q, s, H1, W1, C1, HG, WG);
   return (int)cudaGetLastError();
@@ -521,34 +688,36 @@ int run_front(const Front& f, int8_t* ws_i8, float* ws_f32, float* ws_sx, int8_t
 }  // namespace
 
 // G. x: [nb, 92160] bf16 (x_is_bf16 = 1) or f32; ln_scale, ln_bias: [92160]
-// f32; kq0: [25, 512, 256] int8 and sk0: [4, 256] f32 (the parity-phase
-// weights); b0, g0s, g0b: [256] f32. Workspaces: ws_i8 [nb * 92160] int8,
+// f32; kp0: [256, 25 * 512] int8, the parity-phase taps [25, 512, 256] packed
+// K-major (phase p's slab at tap0[p] * 512), and sk0: [4, 256] f32; b0, g0s,
+// g0b: [256] f32. Workspaces: ws_i8 [nb * 92160] int8,
 // ws_f32 [nb * 35 * 19 * 256] f32, ws_s [nb] f32. Writes q [nb, 56, 30, 256]
 // int8 and s [nb] f32. Returns the first CUDA error of its 3 launches.
 extern "C" int zdc_fused_decode_front(const void* x, int x_is_bf16, const void* ln_scale,
-                                      const void* ln_bias, const void* kq0, const void* sk0,
+                                      const void* ln_bias, const void* kp0, const void* sk0,
                                       const void* b0, const void* g0s, const void* g0b,
                                       void* ws_i8, void* ws_f32, void* ws_s, void* q, void* s,
                                       int nb, void* stream) {
   if (nb <= 0) return (int)cudaSuccess;
   const Front f{x, x_is_bf16, (const float*)ln_scale, (const float*)ln_bias,
-                (const int8_t*)kq0, (const float*)sk0, (const float*)b0, (const float*)g0s,
+                (const int8_t*)kp0, (const float*)sk0, (const float*)b0, (const float*)g0s,
                 (const float*)g0b};
   return run_front(f, (int8_t*)ws_i8, (float*)ws_f32, (float*)ws_s, (int8_t*)q, (float*)s, nb,
                    (cudaStream_t)stream);
 }
 
-// H. The front's arguments as for G, then kq1 [4, 4, 256, 128] int8, sk1,
-// b1, g1s, g1b [128] f32; kq2 [3, 3, 128, 64] int8, sk2, b2, g2s, g2b [64]
-// f32; k3 [2, 2, 64] f32, b3 [1] f32. Workspaces: ws_i8 [nb * 56 * 30 * 256]
+// H. The front's arguments as for G, then kp1 [128, 16 * 256] int8 (Conv_1's
+// [4, 4, 256, 128] packed K-major), sk1, b1, g1s, g1b [128] f32; kp2
+// [64, 9 * 128] int8 (Conv_2's [3, 3, 128, 64]), sk2, b2, g2s, g2b [64] f32;
+// k3 [2, 2, 64] f32, b3 [1] f32. Workspaces: ws_i8 [nb * 56 * 30 * 256]
 // int8, ws_f32 [nb * 55 * 29 * 128] f32, ws_s [3 * nb] f32. Writes out
 // [nb, 56, 30] f32 (expm1 of it when apply_expm1). Returns the first CUDA
 // error of its 7 launches.
 extern "C" int zdc_fused_decode(const void* x, int x_is_bf16, const void* ln_scale,
-                                const void* ln_bias, const void* kq0, const void* sk0,
+                                const void* ln_bias, const void* kp0, const void* sk0,
                                 const void* b0, const void* g0s, const void* g0b,
-                                const void* kq1, const void* sk1, const void* b1,
-                                const void* g1s, const void* g1b, const void* kq2,
+                                const void* kp1, const void* sk1, const void* b1,
+                                const void* g1s, const void* g1b, const void* kp2,
                                 const void* sk2, const void* b2, const void* g2s,
                                 const void* g2b, const void* k3, const void* b3, void* ws_i8,
                                 void* ws_f32, void* ws_s, void* out, int apply_expm1, int nb,
@@ -559,25 +728,48 @@ extern "C" int zdc_fused_decode(const void* x, int x_is_bf16, const void* ln_sca
   float* wf = (float*)ws_f32;
   float* s = (float*)ws_s;  // [sx, s1, s2] x nb
   const Front f{x, x_is_bf16, (const float*)ln_scale, (const float*)ln_bias,
-                (const int8_t*)kq0, (const float*)sk0, (const float*)b0, (const float*)g0s,
+                (const int8_t*)kp0, (const float*)sk0, (const float*)b0, (const float*)g0s,
                 (const float*)g0b};
   // Each stage reads what the one before wrote and overwrites what no later
   // stage reads: the resized q replaces xq in ws_i8, q2 replaces q, and the
   // f32 conv outputs replace one another in ws_f32.
   int err = run_front(f, wi, wf, s, wi, s + nb, nb, st);
   if (err) return err;
-  err = launch_conv(wi, s + nb, (const int8_t*)kq1, (const float*)sk1, (const float*)b1, wf, nb,
+  err = launch_conv(wi, s + nb, (const int8_t*)kp1, (const float*)sk1, (const float*)b1, wf, nb,
                     C1, C2, pad1_plan(4, HG, WG), 1, st);
   if (err) return err;
   gn_quant_kernel<<<nb, kGnThreads, 0, st>>>(wf, (const float*)g1s, (const float*)g1b, wi,
                                              s + 2 * nb, HV, WV, C2, HV, WV);
   err = (int)cudaGetLastError();
   if (err) return err;
-  err = launch_conv(wi, s + 2 * nb, (const int8_t*)kq2, (const float*)sk2, (const float*)b2, wf,
+  err = launch_conv(wi, s + 2 * nb, (const int8_t*)kp2, (const float*)sk2, (const float*)b2, wf,
                     nb, C2, C3, pad1_plan(3, HV, WV), 1, st);
   if (err) return err;
   gn_conv3_kernel<<<nb, kGnThreads, 0, st>>>(wf, (const float*)g2s, (const float*)g2b,
                                              (const float*)k3, (const float*)b3, (float*)out,
                                              apply_expm1);
   return (int)cudaGetLastError();
+}
+
+// One conv stage as H launches it, for tests: conv 0 is Conv_0's four parity
+// phases (xq [nb, 18, 10, 512], kp0, sk0 [4, 256], bias [256] -> out
+// [nb, 35, 19, 256]); conv 1 is Conv_1 (xq [nb, 56, 30, 256], kp1, sk1, bias
+// [128] -> out [nb, 55, 29, 128]); conv 2 is Conv_2 (xq [nb, 55, 29, 128], kp2,
+// sk2, bias [64] -> out [nb, 55, 29, 64]). sx: [nb] f32. Returns the launch's
+// CUDA error (cudaErrorInvalidValue for another conv).
+extern "C" int zdc_fused_conv_int8(int conv, const void* xq, const void* sx, const void* kp,
+                                   const void* sk, const void* bias, void* out, int nb,
+                                   void* stream) {
+  if (nb <= 0) return (int)cudaSuccess;
+  const int8_t* x = (const int8_t*)xq;
+  const float *s = (const float*)sx, *k = (const float*)sk, *b = (const float*)bias;
+  const int8_t* w = (const int8_t*)kp;
+  float* o = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (conv) {
+    case 0: return launch_conv(x, s, w, k, b, o, nb, C0, C1, conv0_plan(), 4, st);
+    case 1: return launch_conv(x, s, w, k, b, o, nb, C1, C2, pad1_plan(4, HG, WG), 1, st);
+    case 2: return launch_conv(x, s, w, k, b, o, nb, C2, C3, pad1_plan(3, HV, WV), 1, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

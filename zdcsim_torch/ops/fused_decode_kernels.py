@@ -13,18 +13,29 @@ paths, with its plain versions (counterpart of
   GroupNorm_2 -> leaky (f32) -> Conv_3 (2x2 pad-1, f32) -> ReLU [-> expm1]:
   ``f32 [B, 56, 30]``.
 
+- :func:`fused_conv_int8` runs one of the three int8 convs (Conv_0's
+  phases, Conv_1, Conv_2) as H launches it, so that each can be held bit
+  for bit against its plain version on the card; nothing on the serving
+  path calls it.
+
 Both are full width only: C0..C3 = 512/256/128/64 are fixed, as in JAX.
 Every int8 activation scale is per sample. The GroupNorms take the IEEE
-``1 / sqrt`` where JAX takes ``lax.rsqrt``, as kernels A and C do.
+``1 / sqrt`` where JAX takes ``lax.rsqrt``, as kernels A and C do. The convs
+run on the int8 tensor cores, which read each weight as ``[Cout, taps x
+Cin]`` int8, contiguous in K (:func:`pack_k_major`); :func:`front_weights`
+and :func:`tail_weights` pack once per expert, and the plain versions read
+the logical layout back through :func:`unpack_k_major`.
 
 Each wrapper launches its CUDA entry point (``zdcsim_torch/csrc/
-fused_decode.cu``: 3 device launches for G, 7 for H) for CUDA tensors and
-runs the plain PyTorch version for CPU tensors; it never falls back from one
-to the other. ``<wrapper>.launches`` counts the wrapper's calls that
-launched the kernels (plain runs and CPU calls do not count).
+fused_decode.cu``: 3 device launches for G, 7 for H, 1 for a conv) for CUDA
+tensors and runs the plain PyTorch version for CPU tensors; it never falls
+back from one to the other. ``<wrapper>.launches`` counts the wrapper's
+calls that launched the kernels (plain runs and CPU calls do not count).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -41,6 +52,26 @@ C2, C3 = 128, 64
 GROUPS = 32
 _ROW_MAP = np.floor((np.arange(HG) + 0.5) * H1 / HG).astype(np.int64)
 _COL_MAP = np.floor((np.arange(WG) + 0.5) * W1 / WG).astype(np.int64)
+# conv -> (source grid [h, w, cin], output grid [oh, ow, cout], logical kernel
+# shape, sk shape): Conv_0's parity phases, Conv_1, Conv_2, as H runs them
+CONVS = {
+    0: ((H0, W0, C0), (H1, W1, C1), (25, C0, C1), (4, C1)),
+    1: ((HG, WG, C1), (HG - 1, WG - 1, C2), (4, 4, C1, C2), (C2,)),
+    2: ((HG - 1, WG - 1, C2), (HG - 1, WG - 1, C3), (3, 3, C2, C3), (C3,)),
+}
+
+
+def pack_k_major(kq: torch.Tensor) -> torch.Tensor:
+    """``[taps..., Cin, Cout]`` int8 -> ``[Cout, taps x Cin]``, contiguous
+    in K, taps major: the layout the tensor-core convs read (each K step
+    is consecutive channels of one tap)."""
+    return kq.reshape(-1, kq.shape[-1]).t().contiguous()
+
+
+def unpack_k_major(kp: torch.Tensor, shape) -> torch.Tensor:
+    """The inverse of :func:`pack_k_major`: a view of ``kp`` in the logical
+    ``shape`` (``[taps..., Cin, Cout]``)."""
+    return kp.t().reshape(shape)
 
 
 def _quant_cout(k: torch.Tensor):
@@ -73,6 +104,21 @@ def _require(cond: bool, name: str, what: str) -> None:
         raise ValueError(f"{name}: {what} (the fused decode is full width only)")
 
 
+def _check_packed(name, key, kp, logical, dev):
+    shape = (logical[-1], math.prod(logical[:-1]))
+    _require(kp.dtype == torch.int8 and tuple(kp.shape) == shape and kp.device == dev, name,
+             f"{key} must be {list(shape)} int8 on {dev} (pack_k_major of {list(logical)}), "
+             f"got {tuple(kp.shape)} {kp.dtype}")
+
+
+def _require_aligned(name, align, **params):
+    """The convs copy int8 operands 16 bytes at a time and read sk and bias
+    as float2, from aligned addresses (a view with an offset may not be)."""
+    for key, t in params.items():
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: {key} must be {align}-byte aligned on the card")
+
+
 def _check_front(name, x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
     dev = x.device
     _require(x.ndim == 2 and x.shape[1] == H0 * W0 * C0
@@ -80,9 +126,7 @@ def _check_front(name, x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
              f"x must be [B, {H0 * W0 * C0}] bf16/f32, got {tuple(x.shape)} {x.dtype}")
     dk._require_f32(name, dev, ln_scale=ln_scale, ln_bias=ln_bias, sk0=sk0, b0=b0,
                     gn0_scale=gn0_scale, gn0_bias=gn0_bias)
-    _require(kq0.dtype == torch.int8 and tuple(kq0.shape) == (25, C0, C1) and kq0.device == dev,
-             name, f"kq0 must be [25, {C0}, {C1}] int8 on {dev}, "
-             f"got {tuple(kq0.shape)} {kq0.dtype}")
+    _check_packed(name, "kq0", kq0, CONVS[0][2], dev)
     _require(tuple(ln_scale.shape) == tuple(ln_bias.shape) == (H0 * W0 * C0,)
              and tuple(sk0.shape) == (4, C1)
              and tuple(b0.shape) == tuple(gn0_scale.shape) == tuple(gn0_bias.shape) == (C1,),
@@ -93,9 +137,8 @@ def _check_tail(name, dev, kq1, sk1, b1, gn1_scale, gn1_bias, kq2, sk2, b2, gn2_
                 k3, b3):
     dk._require_f32(name, dev, sk1=sk1, b1=b1, gn1_scale=gn1_scale, gn1_bias=gn1_bias, sk2=sk2,
                     b2=b2, gn2_scale=gn2_scale, gn2_bias=gn2_bias, k3=k3, b3=b3)
-    for key, k, shape in (("kq1", kq1, (4, 4, C1, C2)), ("kq2", kq2, (3, 3, C2, C3))):
-        _require(k.dtype == torch.int8 and tuple(k.shape) == shape and k.device == dev, name,
-                 f"{key} must be {list(shape)} int8 on {dev}, got {tuple(k.shape)} {k.dtype}")
+    _check_packed(name, "kq1", kq1, CONVS[1][2], dev)
+    _check_packed(name, "kq2", kq2, CONVS[2][2], dev)
     _require(all(tuple(t.shape) == (C2,) for t in (sk1, b1, gn1_scale, gn1_bias))
              and all(tuple(t.shape) == (C3,) for t in (sk2, b2, gn2_scale, gn2_bias))
              and tuple(k3.shape) == (2, 2, C3, 1) and tuple(b3.shape) == (1,), name,
@@ -119,8 +162,7 @@ def fused_decode_front_plain(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_
     the kernel sums the statistics in another order."""
     b = x.shape[0]
     xq, sx = dk.ln_leaky_rowquant_plain(x, ln_scale, ln_bias)
-    y0 = dk.up2_conv4_int8_plain(xq.reshape(b, H0, W0, C0), sx, kq0, sk0, b0,
-                                 out_dtype=torch.float32)
+    y0 = fused_conv_int8_plain(0, xq.reshape(b, H0, W0, C0), sx, kq0, sk0, b0)
     q, s = dk.gn_leaky_rowquant_plain(y0, gn0_scale, gn0_bias, GROUPS)
     return _gather_resize(q), s.reshape(b)
 
@@ -130,9 +172,9 @@ def fused_decode_front(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
 
     x: ``[B, 92160]`` bf16 or f32, the Dense_1 output before its LayerNorm;
     ln_scale, ln_bias: ``[92160]`` f32; kq0, sk0: ``dk._quant_phases`` of the
-    Conv_0 kernel; b0, gn0_scale, gn0_bias: ``[256]`` f32. Returns ``(q int8
-    [B, 56, 30, 256], s f32 [B])``: the resized grid and its per-sample
-    dequant scale.
+    Conv_0 kernel, kq0 packed by :func:`pack_k_major` (``[256, 12800]``); b0,
+    gn0_scale, gn0_bias: ``[256]`` f32. Returns ``(q int8 [B, 56, 30, 256],
+    s f32 [B])``: the resized grid and its per-sample dequant scale.
     """
     name = "fused_decode_front"
     _check_front(name, x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)
@@ -141,6 +183,8 @@ def fused_decode_front(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
     dk._require_cuda(x, name)
     b, dev = x.shape[0], x.device
     args = [t.contiguous() for t in (x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)]
+    _require_aligned(name, 16, kq0=args[3])
+    _require_aligned(name, 8, sk0=args[4], b0=args[5])
     q = torch.empty((b, HG, WG, C1), dtype=torch.int8, device=dev)
     s = torch.empty((b,), dtype=torch.float32, device=dev)
     ws_i8 = torch.empty((b * H0 * W0 * C0,), dtype=torch.int8, device=dev)
@@ -172,13 +216,10 @@ def fused_decode_plain(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
     version, then each tail stage in the kernel's arithmetic (int8 convs as
     exact float64 sums, Conv_3 summed in float64 and rounded to f32 once, so
     that no TF32 or cuDNN choice enters it)."""
-    b = x.shape[0]
     q, s = fused_decode_front_plain(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)
-    sb = s.reshape(b, 1, 1, 1)
-    y1 = _conv_pad1_exact(q, kq1, (HG - 1, WG - 1)).to(torch.float32) * sk1 * sb + b1
+    y1 = fused_conv_int8_plain(1, q, s, kq1, sk1, b1)
     q2, s2 = dk.gn_leaky_rowquant_plain(y1, gn1_scale, gn1_bias, GROUPS)
-    y2 = _conv_pad1_exact(q2, kq2, (HG - 1, WG - 1)).to(torch.float32) * sk2
-    y2 = y2 * s2.reshape(b, 1, 1, 1) + b2
+    y2 = fused_conv_int8_plain(2, q2, s2, kq2, sk2, b2)
     y2 = dk.gn_leaky_plain(y2, gn2_scale, gn2_bias, GROUPS).to(torch.float64)
     yp = F.pad(y2, (0, 0, 1, 1, 1, 1))
     k64 = k3.to(torch.float64)
@@ -194,9 +235,10 @@ def fused_decode(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
 
     The front's arguments as for :func:`fused_decode_front`; kq1, sk1:
     :func:`_quant_cout` of Conv_1 ``[4, 4, 256, 128]``; kq2, sk2: of Conv_2
-    ``[3, 3, 128, 64]``; b1, gn1_*: ``[128]`` f32; b2, gn2_*: ``[64]`` f32;
-    k3: Conv_3 ``[2, 2, 64, 1]`` f32; b3: ``[1]`` f32. Returns ``f32 [B, 56,
-    30]``: ``relu(conv3(...))`` (log-space pixel intensities), or its
+    ``[3, 3, 128, 64]``; kq1 and kq2 packed by :func:`pack_k_major`
+    (``[128, 4096]``, ``[64, 1152]``); b1, gn1_*: ``[128]`` f32; b2, gn2_*:
+    ``[64]`` f32; k3: Conv_3 ``[2, 2, 64, 1]`` f32; b3: ``[1]`` f32. Returns
+    ``f32 [B, 56, 30]``: ``relu(conv3(...))`` (log-space pixel intensities), or its
     ``expm1`` (photon counts) with ``apply_expm1``.
     """
     name = "fused_decode"
@@ -209,6 +251,9 @@ def fused_decode(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
     dk._require_cuda(x, name)
     b, dev = x.shape[0], x.device
     args = [t.contiguous() for t in front + tail]
+    _require_aligned(name, 16, kq0=args[3], kq1=args[8], kq2=args[13])
+    _require_aligned(name, 8, sk0=args[4], b0=args[5], sk1=args[9], b1=args[10], sk2=args[14],
+                     b2=args[15])
     out = torch.empty((b, HG, WG), dtype=torch.float32, device=dev)
     ws_i8 = torch.empty((b * HG * WG * C1,), dtype=torch.int8, device=dev)
     ws_f32 = torch.empty((b * (HG - 1) * (WG - 1) * C2,), dtype=torch.float32, device=dev)
@@ -226,6 +271,64 @@ def fused_decode(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
 
 
 fused_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One conv stage of H, for tests
+# ---------------------------------------------------------------------------
+
+def fused_conv_int8_plain(conv, xq, sx, kp, sk, bias):
+    """Plain PyTorch version of :func:`fused_conv_int8`: the int8 sums as
+    exact float64 matmuls (:func:`dk.up2_conv4_int8_plain` for Conv_0's
+    phases, :func:`_conv_pad1_exact` for Conv_1 and Conv_2) over the
+    logical weights, then the kernel's f32 epilogue ``(f32(acc) * sk) * sx +
+    bias``."""
+    _, (oh, ow, _), logical, _ = CONVS[conv]
+    kq = unpack_k_major(kp, logical)
+    if conv == 0:
+        return dk.up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.float32)
+    acc = _conv_pad1_exact(xq, kq, (oh, ow)).to(torch.float32)
+    return acc * sk * sx.reshape(-1, 1, 1, 1) + bias
+
+
+def fused_conv_int8(conv, xq, sx, kp, sk, bias):
+    """One int8 conv of the fused decode as H launches it.
+
+    conv 0: Conv_0's four parity phases, xq ``[B, 18, 10, 512]`` -> ``[B, 35,
+    19, 256]``, kp, sk ``[4, 256]`` as in :func:`front_weights`; conv 1:
+    Conv_1, ``[B, 56, 30, 256]`` -> ``[B, 55, 29, 128]``; conv 2: Conv_2,
+    ``[B, 55, 29, 128]`` -> ``[B, 55, 29, 64]``, kp, sk as in
+    :func:`tail_weights`. xq int8, sx ``[B]`` f32 per-sample scales, bias
+    ``[Cout]`` f32. Returns the f32 output ``(f32(acc) * sk) * sx + bias``.
+    """
+    name = "fused_conv_int8"
+    if conv not in CONVS:
+        raise ValueError(f"{name}: conv must be one of {sorted(CONVS)}, got {conv!r}")
+    src, (oh, ow, cout), logical, sk_shape = CONVS[conv]
+    _require(xq.dtype == torch.int8 and xq.ndim == 4 and tuple(xq.shape[1:]) == src, name,
+             f"xq must be [B, {', '.join(map(str, src))}] int8, got {tuple(xq.shape)} {xq.dtype}")
+    b, dev = xq.shape[0], xq.device
+    _check_packed(name, "kp", kp, logical, dev)
+    dk._require_f32(name, dev, sx=sx, sk=sk, bias=bias)
+    _require(sx.numel() == b and tuple(sk.shape) == sk_shape and tuple(bias.shape) == (cout,),
+             name, f"sx must have B values, sk be {list(sk_shape)}, bias [{cout}]")
+    if dev.type == "cpu":
+        return fused_conv_int8_plain(conv, xq, sx, kp, sk, bias)
+    dk._require_cuda(xq, name)
+    args = [t.contiguous() for t in (xq, sx, kp, sk, bias)]
+    _require_aligned(name, 16, xq=args[0], kp=args[2])
+    _require_aligned(name, 8, sk=args[3], bias=args[4])
+    out = torch.empty((b, oh, ow, cout), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.zdc_fused_conv_int8(conv, *(t.data_ptr() for t in args), out.data_ptr(), b,
+                                         dk._stream(xq))
+    _build.check(status, name)
+    fused_conv_int8.launches += 1
+    return out
+
+
+fused_conv_int8.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -247,24 +350,25 @@ _FULL_WIDTH = {"Conv_0": (4, 4, C0, C1), "Conv_1": (4, 4, C1, C2), "Conv_2": (3,
 
 def front_weights(p) -> tuple:
     """The front's weight arguments (after ``x``) from one expert's tree,
-    quantized once: the LN1 and GN0 parameters and Conv_0's bias in f32, and
-    Conv_0's parity-phase int8 weights. Raises ``ValueError`` unless the
-    tree has the full width."""
+    quantized and packed once: the LN1 and GN0 parameters and Conv_0's bias
+    in f32, and Conv_0's parity-phase int8 weights, K-major. Raises
+    ``ValueError`` unless the tree has the full width."""
     for key, shape in _FULL_WIDTH.items():
         got = tuple(p[key]["kernel"].shape)
         _require(got == shape, "fused decode weights",
                  f"{key} kernel must be {list(shape)}, got {list(got)}")
     ln = p["MLPBlock_1"]["LayerNorm_0"]
     kq0, sk0 = dk._quant_phases(p["Conv_0"]["kernel"])
-    return (_f32(ln["scale"]), _f32(ln["bias"]), kq0, sk0, _f32(p["Conv_0"]["bias"]),
-            *_gn(p, "GroupNorm2d_0"))
+    return (_f32(ln["scale"]), _f32(ln["bias"]), pack_k_major(kq0), sk0,
+            _f32(p["Conv_0"]["bias"]), *_gn(p, "GroupNorm2d_0"))
 
 
 def tail_weights(p) -> tuple:
     """H's tail weight arguments from one expert's tree: Conv_1 and Conv_2
-    per-cout int8, the GN1/GN2 parameters, Conv_3 in f32."""
+    per-cout int8, K-major, the GN1/GN2 parameters, Conv_3 in f32."""
     kq1, sk1 = _quant_cout(p["Conv_1"]["kernel"])
     kq2, sk2 = _quant_cout(p["Conv_2"]["kernel"])
+    kq1, kq2 = pack_k_major(kq1), pack_k_major(kq2)
     return (kq1, sk1, _f32(p["Conv_1"]["bias"]), *_gn(p, "GroupNorm2d_1"),
             kq2, sk2, _f32(p["Conv_2"]["bias"]), *_gn(p, "GroupNorm2d_2"),
             _f32(p["Conv_3"]["kernel"]), _f32(p["Conv_3"]["bias"]))
