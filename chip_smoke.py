@@ -11,14 +11,21 @@ Phases, each printing lines with the elapsed seconds:
 2. the build of the CUDA kernels (seconds, ptxas register/smem report), and
    from ``cuobjdump -sass`` of the built library, where the toolkit has it,
    the count of int8 tensor-core (``IMMA``, ``IGMMA``) and ``IDP4A``
-   instructions in each instantiation of the fused decode's conv kernel:
-   it fails unless each has tensor-core instructions and no ``IDP4A``;
+   instructions in each instantiation of the shared conv kernel
+   (``conv_mma.cuh``: two in G's and H's source, four each in B's and D's,
+   f32 and bf16 epilogues) and in B's and D's ``__dp4a`` bodies: it fails
+   unless every ``conv_mma_kernel`` has ``IGMMA`` and no ``IMMA`` or
+   ``IDP4A``;
 3. kernel A (LN + leaky + int8) against its plain version at [256, 92160];
-4. kernel B (up2 + conv4 int8) against its plain version at [64, 18, 10, 512];
+4. kernel B (up2 + conv4 int8) against its plain version, bit for bit in f32
+   and bf16, at [64, 18, 10, 512] -> 256 with the teacher's Conv_0 weights
+   (on the int8 tensor cores) and at a narrow [4, 5, 3, 36] -> 70 (its
+   ``__dp4a`` body);
 5. kernel C (GN + leaky + int8) against its plain version at [64, 35, 19, 256]
    with the teacher's GroupNorm2d_0 parameters;
-6. kernel D (row-resize conv4 int8) against its plain version at
-   [64, 35, 30, 256] with the teacher's Conv_1 weights;
+6. kernel D (row-resize conv4 int8) against its plain version, bit for bit
+   in f32 and bf16, at [64, 35, 30, 256] -> 128 with the teacher's Conv_1
+   weights (on the tensor cores) and at a narrow [4, 35, 30, 32] -> 32;
 7. the plain int8 conv (``_conv_i8``, int32 sums) against an int64 direct
    sum at Conv_1's and Conv_2's shapes;
 7b. kernels G (fused decode front) and H (whole fused decode) against their
@@ -34,16 +41,18 @@ Phases, each printing lines with the elapsed seconds:
    path, ``"int8_pallas_ab"`` (kernels A, B), ``"int8_pallas"`` (A, B, C,
    D), ``"int8_fused_front"`` (G) and ``"int8_fused"`` (H): launch counts of
    each path's kernels (set to 0 just before the path runs, read just after;
-   each must be > 0), output checks, agreement with ``"int8"``, rate and
-   peak memory of every path. The teacher's router sends every condition to
+   each must be > 0, and every launch of B and D on the tensor cores),
+   output checks, agreement with ``"int8"``, rate and peak memory of every
+   path. The teacher's router sends every condition to
    expert 1, so the serve routes with a router drawn from ``--seed`` and
    fails unless every expert decodes showers;
-9. kernel times with CUDA events at the serving tile (64 rows); beside G and
-   H, the ported chains that compute the same functions: kernels A -> B
+9. kernel times with CUDA events at the serving tile (64 rows); B and D
+   beside, as a yardstick the port never calls, ``torch._int_mm`` on pre-built
+   [M, K] x [K, N] matrices of the same GEMM shapes (no im2col); beside G
+   and H, the ported chains that compute the same functions: kernels A -> B
    (f32 out) -> C -> the resize gather, and the ``int8_pallas`` decode after
-   the MLP; each of the three convs beside its int8 bound and, as a
-   yardstick the port never calls, ``torch._int_mm`` on pre-built [M, K] x
-   [K, N] matrices of the same GEMM shapes (no im2col);
+   the MLP; each of G's and H's three convs beside its int8 bound and
+   ``torch._int_mm`` likewise;
 10. the fidelity gate's test split (25600 synthetic events, seed 7, numpy),
     and kernel E (expm1 + channel sums) against its plain version on its
     5120 real showers [5120, 56, 30] and on a [37, 44, 44] batch;
@@ -69,8 +78,8 @@ per kernel and the device's idle share of the serve's wall time.
 The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
 ``int8`` gate (E), of the all-expert path (F) and of the ``int8_fused_front``
-(G) and ``int8_fused`` (H) serves, and G's and H's ``conv_ms`` (their convs'
-times); the last line is
+(G) and ``int8_fused`` (H) serves, B's and D's ``int_mm_ms``, and G's and H's ``conv_ms`` (their convs' times); the last
+line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line is printed. Without a CUDA device the script exits with code 2
 and prints no result; ``--rehearse-cpu`` runs G and H at [2, 92160], E and
@@ -131,13 +140,6 @@ def card_line() -> str:
     return out.splitlines()[0].strip()
 
 
-def bf16_ulp(t):
-    import torch
-
-    e = torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126)))
-    return torch.exp2(e - 7)
-
-
 def kernel_wrappers():
     """Every kernel wrapper of the port by name; each counts its launches."""
     from zdcsim_torch.ops import decode_kernels as dk
@@ -150,6 +152,60 @@ def kernel_wrappers():
         "expm1_channel_sums": ek.expm1_channel_sums,
         "routed_expm1_channel_sums": ek.routed_expm1_channel_sums,
     }
+
+
+def reset_counts(wrappers):
+    """Set every launch count to 0 (B's and D's tensor-core counts too)."""
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "mma_launches"):
+            w.mma_launches = 0
+
+
+def read_counts(wrappers):
+    """``{name: launches}``, and ``{name + " on conv_mma": n}`` for B and D."""
+    counts = {name: w.launches for name, w in wrappers.items()}
+    counts.update({f"{name} on conv_mma": w.mma_launches for name, w in wrappers.items()
+                   if hasattr(w, "mma_launches")})
+    return counts
+
+
+def check_conv_equal(phase, what, fn, plain, args, dev, mma):
+    """Kernel B or D (``fn``) against its plain version on ``args``, bit for
+    bit in f32 and bf16, and on the tensor cores exactly when ``mma``.
+    Returns the largest absolute difference (0)."""
+    import torch
+
+    n0 = fn.mma_launches
+    errs, same = [], True
+    for dt in (torch.float32, torch.bfloat16):
+        out, ref = fn(*args, out_dtype=dt), plain(*args, out_dtype=dt)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        same = same and out.shape == ref.shape and torch.equal(out, ref)
+        errs.append((out.float() - ref.float()).abs().max().item())
+    on_mma = dev.type == "cuda" and fn.mma_launches == n0 + 2
+    body = "int8 tensor cores" if mma else "__dp4a body"
+    ran = body if dev.type == "cuda" else f"plain version on the CPU; the card runs the {body}"
+    log(phase, f"{what} -> {tuple(out.shape)} ({ran}): equal to its plain version {same} "
+        f"(max abs err f32 {errs[0]:.3e}, bf16 {errs[1]:.3e})")
+    if not same:
+        fail(f"{what} disagrees with its plain version")
+    if dev.type == "cuda" and on_mma != mma:
+        fail(f"{what} ran on the {'__dp4a body' if mma else 'tensor cores'}, not the {body}")
+    return max(errs)
+
+
+def narrow_conv_inputs(rng, rows, h, w, cin, cout, dev):
+    """Seeded int8 activations, a random 4x4 kernel (f32), sx and bias at a
+    narrow width (a student's, on the ``__dp4a`` bodies)."""
+    import torch
+
+    xq = torch.as_tensor(rng.integers(-127, 128, (rows, h, w, cin), dtype="int8")).to(dev)
+    kernel = torch.as_tensor(rng.standard_normal((4, 4, cin, cout), dtype="float32") * 0.1).to(dev)
+    sx = torch.as_tensor((abs(rng.standard_normal(rows)) * 0.01 + 1e-3).astype("float32")).to(dev)
+    bias = torch.as_tensor(rng.standard_normal(cout, dtype="float32")).to(dev)
+    return xq, kernel, sx, bias
 
 
 def check_kernel_a(gp, rng, dev, rows):
@@ -177,7 +233,8 @@ def check_kernel_a(gp, rng, dev, rows):
     return y, scale, bias, float(q_max)
 
 
-def check_kernel_b(gp, rng, dev, rows):
+def check_kernel_b(gp, rng, dev, rows, seed):
+    import numpy as np
     import torch
 
     from zdcsim_torch.ops import decode_kernels as dk
@@ -186,27 +243,20 @@ def check_kernel_b(gp, rng, dev, rows):
     kernel = torch.as_tensor(conv["kernel"][0]).to(dev, torch.bfloat16)
     bias = torch.as_tensor(conv["bias"][0]).to(dev, torch.bfloat16).float()
     kq, sk = dk._quant_phases(kernel)
+    kp = dk.pack_k_major(kq)
     cin = kernel.shape[2]
     xq = torch.as_tensor(rng.integers(-127, 128, (rows, 18, 10, cin), dtype="int8")).to(dev)
     sx = torch.as_tensor(
         (abs(rng.standard_normal(rows)) * 0.01 + 1e-3).astype("float32")
     ).to(dev)
-    out = dk.up2_conv4_int8(xq, sx, kq, sk, bias, out_dtype=torch.float32)
-    ref = dk.up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.float32)
-    outb = dk.up2_conv4_int8(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16)
-    refb = dk.up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    err = (out - ref).abs()
-    ok32 = bool((err <= 1e-5 + 1e-5 * ref.abs()).all())
-    errb = (outb.float() - refb.float()).abs()
-    okb = bool((errb <= bf16_ulp(refb.float())).all())
-    log("4 kernel B", f"[{rows}, 18, 10, {cin}] -> {tuple(out.shape)}: f32 max abs err "
-        f"{err.max().item():.3e} (rtol=atol=1e-5: {ok32}), bf16 max abs err "
-        f"{errb.max().item():.3e} (within one bf16 ulp: {okb})")
-    if not (ok32 and okb):
-        fail("kernel B disagrees with its plain version")
-    return xq[:TIME_ROWS], sx[:TIME_ROWS], kq, sk, bias, err.max().item()
+    err = check_conv_equal("4 kernel B", f"[{rows}, 18, 10, {cin}]", dk.up2_conv4_int8,
+                           dk.up2_conv4_int8_plain, (xq, sx, kp, sk, bias), dev, True)
+    # a narrow width from a stream of its own, so that the serve's data do not change
+    nx, nk, nsx, nb = narrow_conv_inputs(np.random.default_rng([seed, 4]), 4, 5, 3, 36, 70, dev)
+    nkq, nsk = dk._quant_phases(nk)
+    check_conv_equal("4 kernel B", "narrow [4, 5, 3, 36]", dk.up2_conv4_int8,
+                     dk.up2_conv4_int8_plain, (nx, nsx, dk.pack_k_major(nkq), nsk, nb), dev, False)
+    return xq[:TIME_ROWS], sx[:TIME_ROWS], kp, sk, bias, err
 
 
 def check_kernel_c(gp, rng, dev, rows):
@@ -234,7 +284,8 @@ def check_kernel_c(gp, rng, dev, rows):
     return x[:TIME_ROWS], scale, bias, float(q_max)
 
 
-def check_kernel_d(gp, rng, dev, rows):
+def check_kernel_d(gp, rng, dev, rows, seed):
+    import numpy as np
     import torch
 
     from zdcsim_torch.models.proton_fast import _row_phase_plan
@@ -243,24 +294,25 @@ def check_kernel_d(gp, rng, dev, rows):
     conv = gp["Conv_1"]
     kernel = torch.as_tensor(conv["kernel"][0]).to(dev, torch.bfloat16)
     bias = torch.as_tensor(conv["bias"][0]).to(dev, torch.bfloat16).float()
-    kq, sk, offsets = dk._quant_row_phases(kernel, _row_phase_plan(35, 56, 4, 1)[2])
+    plans = _row_phase_plan(35, 56, 4, 1)[2]
+    kq, sk, offsets = dk._quant_row_phases(kernel, plans)
+    kp = dk.pack_k_major(kq)
     cin = kernel.shape[2]
     xq = torch.as_tensor(rng.integers(-127, 128, (rows, 35, 30, cin), dtype="int8")).to(dev)
     sx = torch.as_tensor(
         (abs(rng.standard_normal(rows)) * 0.01 + 1e-3).astype("float32")
     ).to(dev)
-    errs = []
-    for dt in (torch.float32, torch.bfloat16):
-        out = dk.row_resize_conv4_int8(xq, sx, kq, sk, offsets, bias, 56, out_dtype=dt)
-        ref = dk.row_resize_conv4_int8_plain(xq, sx, kq, sk, offsets, bias, 56, out_dtype=dt)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        errs.append((out.float() - ref.float()).abs().max().item())
-    log("6 kernel D", f"[{rows}, 35, 30, {cin}] -> {tuple(out.shape)}: max abs err f32 "
-        f"{errs[0]:.3e}, bf16 {errs[1]:.3e} (both must be 0)")
-    if max(errs) != 0.0:
-        fail("kernel D disagrees with its plain version")
-    return xq[:TIME_ROWS], sx[:TIME_ROWS], kq, sk, offsets, bias, errs[0]
+    log("6 kernel D", f"row phases: real groups {dk.row_phase_groups(offsets)}, offsets {offsets}")
+    err = check_conv_equal("6 kernel D", f"[{rows}, 35, 30, {cin}]", dk.row_resize_conv4_int8,
+                           dk.row_resize_conv4_int8_plain, (xq, sx, kp, sk, offsets, bias, 56),
+                           dev, True)
+    # a narrow width from a stream of its own, so that the later checks' data do not change
+    nx, nk, nsx, nb = narrow_conv_inputs(np.random.default_rng([seed, 6]), 4, 35, 30, 32, 32, dev)
+    nkq, nsk, noff = dk._quant_row_phases(nk, plans)
+    check_conv_equal("6 kernel D", "narrow [4, 35, 30, 32]", dk.row_resize_conv4_int8,
+                     dk.row_resize_conv4_int8_plain,
+                     (nx, nsx, dk.pack_k_major(nkq), nsk, noff, nb, 56), dev, False)
+    return xq[:TIME_ROWS], sx[:TIME_ROWS], kp, sk, offsets, bias, err
 
 
 def conv_int64(xq, kq, pad):
@@ -344,14 +396,34 @@ def check_kernels_gh(gp, rng, dev, rows):
 
 
 CONV_NAMES = {0: "Conv_0 (4 parity phases)", 1: "Conv_1", 2: "Conv_2"}
+CONV0_SLABS = ((0, 9), (9, 6), (15, 6), (21, 4))  # (first tap, taps) of each parity phase
+
+
+CONV_SOURCES = ("fused_decode", "up2_conv4_int8", "row_resize_conv4_int8")
+DP4A_BODIES = ("up2_conv4_int8_kernel", "row_resize_conv4_int8_kernel")
+
+
+def sass_label(name, index):
+    """A readable label of a mangled kernel name from the SASS: the shared
+    conv kernel as ``conv_mma_kernel<BN, f32|bf16> [source]`` (its anonymous
+    namespace carries the source's name), a ``__dp4a`` body by its name with
+    ``<f32|bf16>``; ``None`` for any other kernel."""
+    import re
+
+    out = "bf16" if "nv_bfloat16" in name else "f32"
+    if "conv_mma_kernel" in name:
+        bn = re.search(r"Li(\d+)E", name[name.index("conv_mma_kernel"):]).group(1)
+        src = next((c for c in CONV_SOURCES if f"{c}_cu" in name), f"object {index}")
+        return f"conv_mma_kernel<{bn}, {out}> [{src}]"
+    return next((f"{b}<{out}>" for b in DP4A_BODIES if b in name), None)
 
 
 def conv_sass_counts(lib_path):
-    """Phase 2: ``({instantiation: {op: count}}, IDP4A in the whole
-    library)`` for the int8 tensor-core (``IMMA``, ``IGMMA``) and ``IDP4A``
-    instructions of each instantiation of the fused decode's
-    ``conv_mma_kernel``, from ``cuobjdump -sass`` of the built library;
-    ``None`` where the toolkit has no ``cuobjdump``."""
+    """Phase 2: ``{label: {op: count}}`` of the int8 tensor-core (``IMMA``,
+    ``IGMMA``) and ``IDP4A`` instructions in each instantiation of the shared
+    ``conv_mma_kernel`` and of B's and D's ``__dp4a`` bodies, from
+    ``cuobjdump -sass`` of the built library; ``None`` where the toolkit has
+    no ``cuobjdump``."""
     import re
 
     from zdcsim_torch.ops import _build
@@ -361,24 +433,22 @@ def conv_sass_counts(lib_path):
         return None
     sass = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    counts, fn, lib_dp4a = {}, None, 0
+    counts, fn, n_elf = {}, None, 0
     for line in sass.splitlines():
+        if "Fatbin elf code" in line:
+            n_elf += 1  # one ELF per compiled source
         if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            fn = None
-            if "conv_mma_kernel" in name:
-                args = re.findall(r"Li(\d+)E", name[name.index("conv_mma_kernel"):])
-                fn = f"conv_mma_kernel<{', '.join(args)}>"
+            fn = sass_label(line.split("Function :")[1].strip(), n_elf)
+            if fn is not None:
+                while fn in counts:  # two sources' instantiations under one label
+                    fn += "'"
                 counts[fn] = dict.fromkeys(("IMMA", "IGMMA", "IDP4A"), 0)
             continue
-        # opcodes as SASS spells them: IMMA.16832..., IGMMA.64x..., IDP.4A...
-        ops = [op if op != "IDP" else "IDP4A"
-               for op in re.findall(r"\b(IMMA|IGMMA|IDP)(?=[.\s])", line)]
-        lib_dp4a += ops.count("IDP4A")
         if fn:
-            for op in ops:
-                counts[fn][op] += 1
-    return counts, lib_dp4a
+            # opcodes as SASS spells them: IMMA.16832..., IGMMA.64x..., IDP.4A...
+            for op in re.findall(r"\b(IMMA|IGMMA|IDP)(?=[.\s])", line):
+                counts[fn]["IDP4A" if op == "IDP" else op] += 1
+    return counts
 
 
 def check_conv_stages(x, front, tail, dev):
@@ -480,20 +550,23 @@ def serve(gp, rp, rng, dev, n, batch, tile, card, seed, profile=False):
     for precision, names in KERNEL_PATHS.items():
         eng = FastSim(gp, router, batch_size=batch, precision=precision, device=dev)
         eng._build_switch(tile=tile)
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts(wrappers)
         t = time.perf_counter()
         imgs, ids = eng.simulate_bulk(cond, noise=noise, return_experts=True)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t_main = time.perf_counter() - t
-        counts = {name: w.launches for name, w in wrappers.items()}
+        counts = read_counts(wrappers)
         launches[precision] = counts
         used = torch.bincount(ids, minlength=3).tolist()
         log("8 serve", f"{precision} main path: {n} showers, batch {batch}, tile {tile} in "
             f"{t_main:.3f}s; kernel launches {counts}; showers per expert {used}")
         if dev.type == "cuda" and min(counts[k] for k in names) <= 0:
             fail(f"the {precision} path did not launch each of its kernels {names}: {counts}")
+        # the teacher's B (512 -> 256) and D (256 -> 128) run on the tensor cores
+        off_mma = [k for k in names if counts.get(f"{k} on conv_mma", counts[k]) != counts[k]]
+        if dev.type == "cuda" and off_mma:
+            fail(f"the {precision} path ran {off_mma} off the tensor cores: {counts}")
         if min(used) <= 0:
             fail(f"the serve did not decode with every expert: {used}")
         imgs_np, ids_np = imgs.cpu().numpy(), ids.cpu().numpy()
@@ -611,10 +684,32 @@ def bound(n_bytes, n_ops, ops_per_s, f32_ops=0):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def int_mm_ms(kp, cin, gemms, gen):
+    """``torch._int_mm`` on pre-built int8 matrices of a conv's GEMM shapes,
+    a yardstick the port never calls: one ``[M, taps x Cin] x [taps x Cin,
+    N]`` product per ``(M, first tap, taps)`` of ``gemms`` (no im2col), the
+    B operand that slab of the packed weights ``kp`` (column-major, as
+    cuBLASLt takes it). Returns ``(ms, TOP/s, [[M, K, N], ...])``."""
+    import torch
+
+    mats = []
+    for m, tap0, taps in gemms:
+        a = torch.randint(-127, 128, (m, taps * cin), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        mats.append((a, kp[:, tap0 * cin:(tap0 + taps) * cin].contiguous().t()))
+    ms = time_ms(lambda: [torch._int_mm(a, b) for a, b in mats], 50)
+    ops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in mats)
+    return ms, ops / ms / 1e9, [[a.shape[0], a.shape[1], b.shape[1]] for a, b in mats]
+
+
 def time_kernels(a_in, b_in, c_in, d_in, launches, errs, card):
+    """Phase 9, kernels A-D at the serving tile; B and D also beside
+    ``torch._int_mm`` on their GEMM shapes."""
     import torch
 
     from zdcsim_torch.ops import decode_kernels as dk
+
+    gen = torch.Generator(device="cuda").manual_seed(90)
 
     y, scale, bias = a_in
     y = y[:TIME_ROWS].contiguous()
@@ -624,14 +719,15 @@ def time_kernels(a_in, b_in, c_in, d_in, launches, errs, card):
     a_bytes = rows * f * 2 + 2 * f * 4 + rows * f + rows * 4
     a_ops = rows * f * 13  # mean 1, variance 3, normalise+affine 4, leaky 1, amax 1, quantise 3
 
-    xq, sx, kq, sk, cbias = b_in
+    xq, sx, kp, sk, cbias = b_in
     nb, h, w, cin = xq.shape
-    cout = kq.shape[2]
-    b_ms = time_ms(lambda: dk.up2_conv4_int8(xq, sx, kq, sk, cbias, torch.bfloat16), 20)
-    b_plain = time_ms(lambda: dk.up2_conv4_int8_plain(xq, sx, kq, sk, cbias, torch.bfloat16), 3)
+    cout = kp.shape[0]
+    b_ms = time_ms(lambda: dk.up2_conv4_int8(xq, sx, kp, sk, cbias, torch.bfloat16), 50)
+    b_plain = time_ms(lambda: dk.up2_conv4_int8_plain(xq, sx, kp, sk, cbias, torch.bfloat16), 3)
     b_ops = 2 * nb * in_grid_taps(h, w) * cin * cout
-    b_bytes = (xq.numel() + nb * 4 + kq.numel() + sk.numel() * 4 + cout * 4
+    b_bytes = (xq.numel() + nb * 4 + kp.numel() + sk.numel() * 4 + cout * 4
                + nb * (2 * h - 1) * (2 * w - 1) * cout * 2)
+    b_mm = int_mm_ms(kp, cin, [(nb * h * w, t0, t) for t0, t in CONV0_SLABS], gen)
 
     x, gscale, gbias = c_in
     x = x.contiguous()
@@ -640,17 +736,20 @@ def time_kernels(a_in, b_in, c_in, d_in, launches, errs, card):
     c_bytes = x.numel() * 2 + 2 * x.shape[-1] * 4 + x.numel() + x.shape[0] * 4
     c_ops = x.numel() * 13  # sums 3, normalise+affine 4, leaky 1, amax 1, quantise 3, +1 rounding
 
-    dq, dsx, dkq, dsk, offsets, dbias = d_in
+    dq, dsx, dkp, dsk, offsets, dbias = d_in
     dq = dq.contiguous()
     nd, hd, wd, dcin = dq.shape
-    dcout = dkq.shape[3]
-    d_ms = time_ms(lambda: dk.row_resize_conv4_int8(dq, dsx, dkq, dsk, offsets, dbias, 56,
-                                                    torch.bfloat16), 20)
-    d_plain = time_ms(lambda: dk.row_resize_conv4_int8_plain(dq, dsx, dkq, dsk, offsets, dbias,
+    dcout = dkp.shape[0]
+    d_ms = time_ms(lambda: dk.row_resize_conv4_int8(dq, dsx, dkp, dsk, offsets, dbias, 56,
+                                                    torch.bfloat16), 50)
+    d_plain = time_ms(lambda: dk.row_resize_conv4_int8_plain(dq, dsx, dkp, dsk, offsets, dbias,
                                                              56, torch.bfloat16), 3)
     d_ops = 2 * nd * row_resize_taps(hd, wd, 56) * dcin * dcout
-    d_bytes = (dq.numel() + nd * 4 + dkq.numel() + dsk.numel() * 4 + dcout * 4
+    d_bytes = (dq.numel() + nd * 4 + dkp.numel() + dsk.numel() * 4 + dcout * 4
                + nd * 55 * wd * dcout * 2)
+    max_l = len(offsets[0])
+    d_mm = int_mm_ms(dkp, dcin, [(nd * ((55 - p + 7) // 8) * wd, p * max_l * 4, 4 * n)
+                                 for p, n in enumerate(dk.row_phase_groups(offsets))], gen)
 
     rec = []
     for name, src, replaces, ms, plain, n_bytes, n_ops, peak, err in (
@@ -668,6 +767,13 @@ def time_kernels(a_in, b_in, c_in, d_in, launches, errs, card):
                     "replaces": replaces, "launches": launches[name], "max_abs_err": err,
                     "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": None})
+    for r, ((mm, mm_tops, shapes), n_ops) in ((rec[1], (b_mm, b_ops)), (rec[3], (d_mm, d_ops))):
+        r["int_mm_ms"] = mm
+        log("9 kernel times", f"{r['name']} on the int8 tensor cores: {r['ms']:.4f} ms "
+            f"({n_ops / r['ms'] / 1e9:.1f} TOP/s on the in-grid taps); "
+            f"torch._int_mm on pre-built [M, K, N] {shapes}: {mm:.4f} ms "
+            f"({mm_tops:.1f} TOP/s); {launches[r['name'] + ' on conv_mma']} of its "
+            f"{r['launches']} launches on the tensor cores [{card}]")
     for r in rec:
         log("9 kernel times", f"{r['name']} at {TIME_ROWS} rows: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
@@ -688,7 +794,7 @@ def time_conv_stages(conv_in, card):
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     taps = {0: in_grid_taps(18, 10), 1: pad1_taps(56, 30, 4), 2: pad1_taps(55, 29, 3)}
-    phase_taps = {0: (9, 6, 6, 4), 1: (16,), 2: (9,)}
+    slabs = {0: CONV0_SLABS, 1: ((0, 16),), 2: ((0, 9),)}
     times = {}
     for conv, args in conv_in.items():
         xq, sx, kp, sk, bias = args
@@ -701,21 +807,12 @@ def time_conv_stages(conv_in, card):
                    + 4 * rows * oh * ow * cout)
         bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OPS_PER_S)
         m = rows * (h * w if conv == 0 else oh * ow)
-        mats, k0 = [], 0
-        for t in phase_taps[conv]:
-            a = torch.randint(-127, 128, (m, t * cin), generator=gen, device="cuda",
-                              dtype=torch.int8)
-            mats.append((a, kp[:, k0:k0 + t * cin].contiguous().t()))  # [K, N] column-major
-            k0 += t * cin
-        mm_ms = time_ms(lambda: [torch._int_mm(a, b) for a, b in mats], 50)
-        mm_ops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in mats)
-        shapes = [[a.shape[0], a.shape[1], b.shape[1]] for a, b in mats]
-        del mats
+        mm_ms, mm_tops, shapes = int_mm_ms(kp, cin, [(m, t0, t) for t0, t in slabs[conv]], gen)
         times[f"conv{conv}"] = ms
         log("9 conv times", f"conv{conv} {CONV_NAMES[conv]} at {rows} rows: {ms:.4f} ms "
             f"({n_ops / ms / 1e9:.1f} TOP/s on the in-grid taps), bound {bound_ms:.4f} ms "
             f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound; torch._int_mm on pre-built "
-            f"[M, K, N] {shapes}: {mm_ms:.4f} ms ({mm_ops / mm_ms / 1e9:.1f} TOP/s) [{card}]")
+            f"[M, K, N] {shapes}: {mm_ms:.4f} ms ({mm_tops:.1f} TOP/s) [{card}]")
     return times
 
 
@@ -734,12 +831,11 @@ def time_fused(p, x, front, tail, launches, errs, conv_ms, card):
     x = x[:TIME_ROWS].contiguous()
     rows, f = x.shape
     ln_s, ln_b, kp0, sk0, b0, g0s, g0b = front
-    kq0 = fdk.unpack_k_major(kp0, fdk.CONVS[0][2]).contiguous()  # kernel B's layout
     qw = quantize_weights(p, "pallas")
 
     def chain_g():
         xq, sx = dk.ln_leaky_rowquant(x, ln_s, ln_b)
-        y0 = dk.up2_conv4_int8(xq.reshape(rows, 18, 10, -1), sx, kq0, sk0, b0, torch.float32)
+        y0 = dk.up2_conv4_int8(xq.reshape(rows, 18, 10, -1), sx, kp0, sk0, b0, torch.float32)
         q, s = dk.gn_leaky_rowquant(y0, g0s, g0b)
         return fdk._gather_resize(q), s
 
@@ -938,11 +1034,10 @@ def gates(data, dev, rehearse, card):
                   (STUDENT, "int8")])
     e_launches = None
     for path, precision in runs:
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts(wrappers)
         t = time.perf_counter()
         rec = ft.run_gate(path, precision, dev, data=data, n_draws=1 if rehearse else ft.N_DRAWS)
-        counts = {name: w.launches for name, w in wrappers.items()}
+        counts = read_counts(wrappers)
         print(json.dumps(rec), flush=True)
         log("13 gate", f"{os.path.basename(path)} {precision}: {time.perf_counter() - t:.2f}s, "
             f"value {rec['value']} x floor, vs_baseline {rec['vs_baseline']}; kernel launches "
@@ -1037,29 +1132,32 @@ def main(argv=None) -> int:
         for line in build_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
-        sass = conv_sass_counts(lib_path)
-        if sass is None:
+        counts = conv_sass_counts(lib_path)
+        if counts is None:
             log("2 build", "no cuobjdump beside nvcc: SASS instruction counts not measured")
         else:
-            counts, lib_dp4a = sass
-            if not counts:
-                fail("the library's SASS holds no conv_mma_kernel")
+            n_mma = 0
             for fn, c in counts.items():
                 log("2 build", f"SASS of {fn}: IMMA {c['IMMA']}, IGMMA {c['IGMMA']}, IDP4A "
-                    f"{c['IDP4A']} (IDP4A in the whole library, kernels B and D: {lib_dp4a})")
-                if c["IMMA"] + c["IGMMA"] == 0 or c["IDP4A"]:
-                    fail(f"{fn} does not run on the int8 tensor cores alone: {c}")
+                    f"{c['IDP4A']}")
+                if fn.startswith("conv_mma_kernel"):
+                    n_mma += 1
+                    if c["IGMMA"] == 0 or c["IMMA"] or c["IDP4A"]:
+                        fail(f"{fn} does not run on wgmma alone: {c}")
+            # G's and H's source launches 2 instantiations, B's and D's 4 each
+            if n_mma < 10:
+                fail(f"the library's SASS holds {n_mma} conv_mma_kernel instantiations, not 10")
 
     rng = np.random.default_rng(args.seed)
     gp, _, rp, _ = load_serving_artifact(TEACHER)
     log("3 kernel A", "teacher artifact loaded")
     a_in = check_kernel_a(gp, rng, dev, 8 if rehearse else A_ROWS)
-    b_in = check_kernel_b(gp, rng, dev, 8 if rehearse else B_ROWS)
+    b_in = check_kernel_b(gp, rng, dev, 8 if rehearse else B_ROWS, args.seed)
     # the later checks draw from a stream of their own, so the serve's
     # conditions and router stay those that phases 3-4 leave
     rng_cd = np.random.default_rng([args.seed, 1])
     c_in = check_kernel_c(gp, rng_cd, dev, 4 if rehearse else C_ROWS)
-    d_in = check_kernel_d(gp, rng_cd, dev, 4 if rehearse else D_ROWS)
+    d_in = check_kernel_d(gp, rng_cd, dev, 4 if rehearse else D_ROWS, args.seed)
     check_conv_i8(gp, rng_cd, dev, 1 if rehearse else 2)
     gh_in = check_kernels_gh(gp, rng_cd, dev, 2 if rehearse else GH_ROWS)
     conv_in = check_conv_stages(*gh_in[1:4], dev)

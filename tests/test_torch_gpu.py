@@ -28,10 +28,6 @@ def cuda():
     return torch.device("cuda")
 
 
-def _bf16_ulp(t):
-    return torch.exp2(torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126))) - 7)
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,f", [(3, 1000), (16, 92160)])
 def test_ln_leaky_rowquant_kernel_matches_plain(cuda, dtype, b, f):
@@ -51,33 +47,38 @@ def test_ln_leaky_rowquant_kernel_matches_plain(cuda, dtype, b, f):
     assert diff.max().item() <= 1 and (diff != 0).float().mean().item() < 0.01
 
 
-@pytest.mark.parametrize("b,h,w,cin,cout", [(4, 6, 4, 16, 8), (3, 18, 10, 512, 256),
-                                            (2, 5, 3, 36, 70)])
+@pytest.mark.parametrize("b,h,w,cin,cout", [(4, 6, 4, 16, 8), (2, 5, 3, 36, 70),
+                                            (1, 18, 10, 512, 256), (7, 18, 10, 512, 256),
+                                            (64, 18, 10, 512, 256)])
 def test_up2_conv4_int8_kernel_matches_plain(cuda, b, h, w, cin, cout):
+    """Kernel B equals its plain version bit for bit in f32 and bf16: on the
+    int8 tensor cores at the teacher's 512 -> 256, on ``__dp4a`` at the
+    narrow widths."""
     rng = np.random.default_rng(cin + cout)
     xq = torch.as_tensor(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(cuda)
     sx = torch.as_tensor(np.abs(rng.standard_normal(b)).astype(np.float32) * 0.01 + 1e-3).to(cuda)
     kernel = torch.as_tensor(rng.standard_normal((4, 4, cin, cout), dtype=np.float32) * 0.1).to(cuda)
     bias = torch.as_tensor(rng.standard_normal(cout, dtype=np.float32) * 0.5).to(cuda)
     kq, sk = dk._quant_phases(kernel)
-    n0 = dk.up2_conv4_int8.launches
-    out = dk.up2_conv4_int8(xq, sx, kq, sk, bias, out_dtype=torch.float32)
-    ref = dk.up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.float32)
-    outb = dk.up2_conv4_int8(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16)
-    refb = dk.up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16)
-    torch.cuda.synchronize()
+    kp = dk.pack_k_major(kq)
+    mma = cin == 512
+    n0, m0 = dk.up2_conv4_int8.launches, dk.up2_conv4_int8.mma_launches
+    for dt in (torch.float32, torch.bfloat16):
+        out = dk.up2_conv4_int8(xq, sx, kp, sk, bias, out_dtype=dt)
+        ref = dk.up2_conv4_int8_plain(xq, sx, kp, sk, bias, out_dtype=dt)
+        torch.cuda.synchronize()
+        assert out.shape == (b, 2 * h - 1, 2 * w - 1, cout) and out.dtype == dt
+        assert torch.equal(out, ref)
     assert dk.up2_conv4_int8.launches == n0 + 2
-    assert out.shape == (b, 2 * h - 1, 2 * w - 1, cout)
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-    assert bool(((outb.float() - refb.float()).abs() <= _bf16_ulp(refb.float())).all())
+    assert dk.up2_conv4_int8.mma_launches == m0 + (2 if mma else 0)
 
 
 def test_up2_conv4_int8_rejects_cin_not_multiple_of_4(cuda):
     xq = torch.zeros((1, 4, 4, 6), dtype=torch.int8, device=cuda)
     kq = torch.zeros((25, 6, 8), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="multiple of 4"):
-        dk.up2_conv4_int8(xq, torch.ones(1, device=cuda), kq, torch.ones((4, 8), device=cuda),
-                          torch.zeros(8, device=cuda))
+        dk.up2_conv4_int8(xq, torch.ones(1, device=cuda), dk.pack_k_major(kq),
+                          torch.ones((4, 8), device=cuda), torch.zeros(8, device=cuda))
 
 
 def test_fast_generator_pallas_ab_card_matches_cpu(cuda):
@@ -116,10 +117,13 @@ def test_gn_leaky_rowquant_kernel_matches_plain(cuda, dtype, b, h, w, c):
     assert diff.max().item() <= 1 and (diff != 0).float().mean().item() < 0.01
 
 
-@pytest.mark.parametrize("b,w,cin,cout", [(2, 6, 8, 4), (65, 30, 256, 128), (3, 30, 32, 32)])
+@pytest.mark.parametrize("b,w,cin,cout", [(2, 6, 8, 4), (65, 30, 256, 128), (3, 30, 32, 32),
+                                          (1, 30, 256, 128), (7, 30, 256, 128),
+                                          (64, 30, 256, 128)])
 def test_row_resize_conv4_int8_kernel_matches_plain(cuda, b, w, cin, cout):
-    """Exact in f32 and bf16; 65 samples x 7 rows x 30 columns is not a
-    multiple of the 64-row block."""
+    """Exact in f32 and bf16: on the int8 tensor cores at the teacher's 256 ->
+    128, on ``__dp4a`` at the narrow widths; 65 samples x 7 rows x 30 columns
+    is not a multiple of a block's rows."""
     from zdcsim_torch.models.proton_fast import _row_phase_plan
 
     rng = np.random.default_rng(cin + cout + b)
@@ -128,14 +132,18 @@ def test_row_resize_conv4_int8_kernel_matches_plain(cuda, b, w, cin, cout):
     kernel = torch.as_tensor(rng.standard_normal((4, 4, cin, cout), dtype=np.float32) * 0.1).to(cuda)
     bias = torch.as_tensor(rng.standard_normal(cout, dtype=np.float32) * 0.5).to(cuda)
     kq, sk, offsets = dk._quant_row_phases(kernel, _row_phase_plan(35, 56, 4, 1)[2])
+    kp = dk.pack_k_major(kq)
+    mma = cin == 256
     n0 = dk.row_resize_conv4_int8.launches
+    m0 = dk.row_resize_conv4_int8.mma_launches
     for dt in (torch.float32, torch.bfloat16):
-        out = dk.row_resize_conv4_int8(xq, sx, kq, sk, offsets, bias, 56, out_dtype=dt)
-        ref = dk.row_resize_conv4_int8_plain(xq, sx, kq, sk, offsets, bias, 56, out_dtype=dt)
+        out = dk.row_resize_conv4_int8(xq, sx, kp, sk, offsets, bias, 56, out_dtype=dt)
+        ref = dk.row_resize_conv4_int8_plain(xq, sx, kp, sk, offsets, bias, 56, out_dtype=dt)
         torch.cuda.synchronize()
         assert out.shape == (b, 55, w, cout) and out.dtype == dt
         assert torch.equal(out, ref)
     assert dk.row_resize_conv4_int8.launches == n0 + 2
+    assert dk.row_resize_conv4_int8.mma_launches == m0 + (2 if mma else 0)
 
 
 def test_row_resize_conv4_int8_rejects_other_plans(cuda):
@@ -145,8 +153,8 @@ def test_row_resize_conv4_int8_rejects_other_plans(cuda):
                                            _row_phase_plan(35, 56, 4, 1)[2])
     xq = torch.zeros((1, 19, 30, 8), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="stride-5"):
-        dk.row_resize_conv4_int8(xq, torch.ones(1, device=cuda), kq, sk, offsets,
-                                 torch.zeros(8, device=cuda), 30)
+        dk.row_resize_conv4_int8(xq, torch.ones(1, device=cuda), dk.pack_k_major(kq), sk,
+                                 offsets, torch.zeros(8, device=cuda), 30)
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout,k", [(2, 56, 30, 256, 128, 4), (2, 55, 29, 128, 64, 3),
@@ -177,9 +185,12 @@ def test_fast_generator_pallas_card_matches_cpu(cuda):
     ref = fast_generator_apply(tree_to_torch(params), noise, cond, int8=True,
                                int8_backend="pallas").numpy()
     n0 = (dk.gn_leaky_rowquant.launches, dk.row_resize_conv4_int8.launches)
+    m0 = (dk.up2_conv4_int8.mma_launches, dk.row_resize_conv4_int8.mma_launches)
     out = fast_generator_apply(tree_to_torch(params, device=cuda), noise.to(cuda), cond.to(cuda),
                                int8=True, int8_backend="pallas").cpu().numpy()
     assert (dk.gn_leaky_rowquant.launches, dk.row_resize_conv4_int8.launches) == (n0[0] + 1, n0[1] + 1)
+    # the narrow generator's convs run the __dp4a bodies
+    assert (dk.up2_conv4_int8.mma_launches, dk.row_resize_conv4_int8.mma_launches) == m0
     # int8 bound of tests/test_pallas_decode.py:203 (rounding flips cascade)
     assert np.abs(out - ref).max() < 0.05 * np.abs(ref).max() + 0.05
 
@@ -351,7 +362,7 @@ def test_fused_conv_int8_kernel_equals_plain(cuda, conv, b):
     from zdcsim_torch.ops import fused_decode_kernels as fdk
 
     xq, kq, sx, sk, bias = (t.to(cuda) for t in conv_inputs(conv, b, 100 * conv + b))
-    args = (xq, sx, fdk.pack_k_major(kq), sk, bias)
+    args = (xq, sx, dk.pack_k_major(kq), sk, bias)
     n0 = fdk.fused_conv_int8.launches
     out = fdk.fused_conv_int8(conv, *args)
     ref = fdk.fused_conv_int8_plain(conv, *args)

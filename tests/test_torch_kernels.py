@@ -50,7 +50,7 @@ def test_up2_conv4_int8_matches_jax(out_dtype):
                              jnp.asarray(bias), out_dtype=jdt, block_rows=2, interpret=True)
     ref = np.asarray(ref.astype(jnp.float32))
     kq, sk = dk._quant_phases(torch.from_numpy(kernel))
-    out = dk.up2_conv4_int8(torch.from_numpy(xq), torch.from_numpy(sx), kq, sk,
+    out = dk.up2_conv4_int8(torch.from_numpy(xq), torch.from_numpy(sx), dk.pack_k_major(kq), sk,
                             torch.from_numpy(bias), out_dtype=out_dtype)
     assert out.shape == (b, 2 * h - 1, 2 * w - 1, cout) and out.dtype == out_dtype
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=1e-5, atol=1e-5)
@@ -63,9 +63,10 @@ def test_cpu_calls_run_the_plain_versions_and_count_no_launch():
     qp, sp = dk.ln_leaky_rowquant_plain(y, torch.ones(64), torch.zeros(64))
     assert torch.equal(q, qp) and torch.equal(s, sp)
     kq, sk = dk._quant_phases(torch.randn(4, 4, 8, 4))
+    kp = dk.pack_k_major(kq)
     xq = torch.randint(-127, 128, (1, 3, 2, 8), dtype=torch.int8)
-    out = dk.up2_conv4_int8(xq, torch.ones(1), kq, sk, torch.zeros(4))
-    assert torch.equal(out, dk.up2_conv4_int8_plain(xq, torch.ones(1), kq, sk, torch.zeros(4)))
+    out = dk.up2_conv4_int8(xq, torch.ones(1), kp, sk, torch.zeros(4))
+    assert torch.equal(out, dk.up2_conv4_int8_plain(xq, torch.ones(1), kp, sk, torch.zeros(4)))
     assert (dk.ln_leaky_rowquant.launches, dk.up2_conv4_int8.launches) == (a0, b0)
 
 
@@ -78,7 +79,8 @@ def test_wrappers_require_float32_parameters():
     kq, sk = dk._quant_phases(torch.randn(4, 4, 8, 4))
     xq = torch.zeros((1, 3, 2, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="bias must be float32"):
-        dk.up2_conv4_int8(xq, torch.ones(1), kq, sk, torch.zeros(4, dtype=torch.bfloat16))
+        dk.up2_conv4_int8(xq, torch.ones(1), dk.pack_k_major(kq), sk,
+                          torch.zeros(4, dtype=torch.bfloat16))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -101,6 +103,7 @@ def test_chip_smoke_counts_the_in_grid_taps_of_kernel_b(h, w):
     import chip_smoke
 
     kq = torch.ones((25, 1, 1), dtype=torch.int8)
-    out = dk.up2_conv4_int8_plain(torch.ones((1, h, w, 1), dtype=torch.int8), torch.ones(1), kq,
-                                  torch.ones((4, 1)), torch.zeros(1), out_dtype=torch.float32)
+    out = dk.up2_conv4_int8_plain(torch.ones((1, h, w, 1), dtype=torch.int8), torch.ones(1),
+                                  dk.pack_k_major(kq), torch.ones((4, 1)), torch.zeros(1),
+                                  out_dtype=torch.float32)
     assert chip_smoke.in_grid_taps(h, w) == int(out.sum())

@@ -109,7 +109,8 @@ def test_row_resize_conv4_int8_matches_jax(b, w, cin, cout, out_dtype):
     ref = np.asarray(ref.astype(jnp.float32))
     kq, sk, offsets = dk._quant_row_phases(torch.from_numpy(kernel),
                                            T._row_phase_plan(35, 56, 4, 1)[2])
-    out = dk.row_resize_conv4_int8(torch.from_numpy(xq), torch.from_numpy(sx), kq, sk, offsets,
+    kp = dk.pack_k_major(kq)
+    out = dk.row_resize_conv4_int8(torch.from_numpy(xq), torch.from_numpy(sx), kp, sk, offsets,
                                    torch.from_numpy(bias), 56, out_dtype=out_dtype)
     assert out.shape == (b, 55, w, cout) and out.dtype == out_dtype
     if out_dtype == torch.float32:
@@ -120,7 +121,7 @@ def test_row_resize_conv4_int8_matches_jax(b, w, cin, cout, out_dtype):
         # port then rounds twice, f32(f32(t * sx) + bias), in the written
         # order, while XLA's CPU backend fuses t * sx + bias into one FMA.
         ones, zeros = np.ones_like(sx), np.zeros_like(bias)
-        t = dk.row_resize_conv4_int8(torch.from_numpy(xq), torch.from_numpy(ones), kq, sk,
+        t = dk.row_resize_conv4_int8(torch.from_numpy(xq), torch.from_numpy(ones), kp, sk,
                                      offsets, torch.from_numpy(zeros), 56,
                                      out_dtype=torch.float32).numpy()
         t_jax = np.asarray(jpd.row_resize_conv4_int8(
@@ -143,7 +144,8 @@ def test_row_resize_conv4_int8_rejects_other_plans():
                                            T._row_phase_plan(35, 56, 4, 1)[2])
     xq = torch.zeros((1, 19, 30, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="stride-5"):
-        dk.row_resize_conv4_int8(xq, torch.ones(1), kq, sk, offsets, torch.zeros(8), 30)
+        dk.row_resize_conv4_int8(xq, torch.ones(1), dk.pack_k_major(kq), sk, offsets,
+                                 torch.zeros(8), 30)
 
 
 @pytest.mark.parametrize("fn", ["fused_row_resize_conv4", "fused_row_resize_conv4_int8"])
@@ -184,7 +186,7 @@ def test_cpu_calls_of_c_and_d_run_the_plain_versions_and_count_no_launch():
     kq, sk, offsets = dk._quant_row_phases(torch.randn(4, 4, 8, 8),
                                            T._row_phase_plan(35, 56, 4, 1)[2])
     xq = torch.randint(-127, 128, (1, 35, 4, 8), dtype=torch.int8)
-    args = (xq, torch.ones(1), kq, sk, offsets, torch.zeros(8), 56)
+    args = (xq, torch.ones(1), dk.pack_k_major(kq), sk, offsets, torch.zeros(8), 56)
     assert torch.equal(dk.row_resize_conv4_int8(*args), dk.row_resize_conv4_int8_plain(*args))
     assert (dk.gn_leaky_rowquant.launches, dk.row_resize_conv4_int8.launches) == (c0, d0)
     with pytest.raises(ValueError, match="bias must be float32"):
@@ -200,7 +202,8 @@ def test_chip_smoke_counts_the_in_grid_taps_of_kernel_d():
     kq, sk, offsets = dk._quant_row_phases(torch.ones((4, 4, 1, 1)),
                                            T._row_phase_plan(35, 56, 4, 1)[2])
     xq = torch.ones((1, 35, 30, 1), dtype=torch.int8)
-    out = dk.row_resize_conv4_int8_plain(xq, torch.ones(1), (kq != 0).to(torch.int8),
+    out = dk.row_resize_conv4_int8_plain(xq, torch.ones(1),
+                                         dk.pack_k_major((kq != 0).to(torch.int8)),
                                          torch.ones_like(sk), offsets, torch.zeros(1), 56,
                                          out_dtype=torch.float32)
     assert chip_smoke.row_resize_taps(35, 30, 56) == int(out.sum())

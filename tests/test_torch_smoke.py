@@ -4,8 +4,9 @@ matplotlib are absent (the GPU machine has none of them).
 A subprocess installs an import hook that refuses those packages and the
 JAX package ``zdcsim`` (not ``zdcsim_torch``), then imports every module of
 ``zdcsim_torch`` and ``fidelity_torch.py`` and rehearses ``chip_smoke.py`` on
-the CPU: the kernel checks of A-D, ``_conv_i8``, G and H and of G's and
-H's three int8 convs, the serves of ``int8``, ``int8_pallas_ab``,
+the CPU: the kernel checks of A-D (B and D at the teacher's widths and at a
+narrow one), ``_conv_i8``, G and H and of G's and H's three int8 convs, the
+serves of ``int8``, ``int8_pallas_ab``,
 ``int8_pallas``, ``int8_fused_front`` and ``int8_fused``, the gate's split
 with kernel E, the all-expert path with kernel F, the ``f32`` and ``bf16``
 serves, and the student's fidelity gate on part of the split.
@@ -71,7 +72,9 @@ runpy.run_path("chip_smoke.py", run_name="__main__")
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == '{"rehearsal": true}'
-    for phase in ("[5 kernel C]", "[6 kernel D]", "[7 conv_i8]", "[7b kernels G, H] t",
+    for phase in ("[4 kernel B]", "narrow [4, 5, 3, 36]", "[5 kernel C]", "[6 kernel D]",
+                  "narrow [4, 35, 30, 32]", "row phases: real groups [3, 3, 3, 3, 3, 3, 3, 2]",
+                  "up2_conv4_int8 on conv_mma", "[7 conv_i8]", "[7b kernels G, H] t",
                   "[7b conv stages] t", "conv0 Conv_0 (4 parity phases)", "conv1 Conv_1",
                   "conv2 Conv_2",
                   "int8_pallas_ab main path", "int8_pallas main path",

@@ -13,29 +13,43 @@
 //       xq[b, P*r + off[ph][l], j + t - 1, ci] * kq[ph, 4l + t, ci, co]   (int32)
 //   out[b, r*Q + ph, j, co] = float(acc) * sk[ph, co] * sx[b] + bias[co]
 // written straight into the interleaved [B, n_rows, W, Cout] output; taps
-// that fall off the source grid read zero. The zero-padded group of a
-// phase with fewer groups is summed like the others (its weights are 0).
+// that fall off the source grid read zero. A phase with fewer groups than
+// the others (phase 7 has 2 of 3) is padded with a group of zero weights.
 //
 // Bound on the H100: operations. The serving shape (64 samples of 35x30x256
 // -> 55x30x128) needs about 1.2 G int8 operations per sample for the taps
 // that read the source grid, against ~8.6 MB of traffic: roughly 38 us at
 // 1979 TOP/s (chip_smoke.py computes the exact count).
 //
-// Design: kernel B's (up2_conv4_int8.cu): a tiled GEMM per phase with
-// M = B * rows_in_phase * W output positions, N = Cout and K = groups x 4
-// column taps x Cin, on `__dp4a` (4 int8 products per instruction, int32
-// accumulate). A block of 256 threads owns a 64 x 64 output tile of one
-// phase and walks K in steps of one tap x 32 input channels; each step
-// stages the shifted, masked activations (64 rows x 32 channels) and the
-// weights (32 channels x 64 couts, packed to 4 channels per 32-bit word) in
-// shared memory, so no padded or resized copy of the input exists. The
-// epilogue rounds exactly as the plain PyTorch version does
-// (__fmul_rn/__fadd_rn, no FMA contraction). dp4a runs at a fraction of the
-// int8 tensor-core rate; mma.sync/wgmma is later work.
+// Design: a GEMM per phase with M = B * rows_in_phase * W output positions,
+// N = Cout and K = groups x 4 column taps x Cin, over the weights packed once
+// as [Cout, Q x maxL x 4 x Cin] (K-major, tap-major: phase ph's taps from slab
+// ph * maxL * 4), so no padded or resized copy of the input exists. Two
+// bodies, chosen by shape (the wrapper counts which one ran):
+//  - Cin a multiple of 128 and Cout of 64 (the full-width teacher's 256 ->
+//    128): conv_mma.cuh's implicit GEMM on the int8 tensor cores (wgmma s8,
+//    exact int32 sums), one ConvPhase per row phase. Each phase's merged row
+//    groups read consecutive source rows (offsets d0, d0 + 1, ..), so output
+//    row r of the phase reads source rows 5 r + d0 + a, a < the phase's real
+//    group count: a source-row stride of 5 and a row tap per group; the
+//    zero-padded group is skipped (its weights are 0, so this is exact).
+//  - any other Cin (a multiple of 4) and Cout (the narrow students): kernel
+//    B's first body on `__dp4a` (4 int8 products per instruction, int32
+//    accumulate). A block of 256 threads owns a 64 x 64 output tile of one
+//    phase and walks K in steps of one tap x 32 input channels; each step
+//    stages the shifted, masked activations (64 rows x 32 channels) and the
+//    weights (32 channels x 64 couts, one aligned 32-bit load per 4 channels
+//    of the packed weights) in shared memory. It sums the zero-padded group
+//    like the others.
+// Both epilogues round exactly as the plain PyTorch version does
+// (__fmul_rn/__fadd_rn, no FMA contraction), so the two bodies and the plain
+// version agree bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -45,6 +59,7 @@ constexpr int KW = 8;        // 32-bit words (4 int8 channels each) per K step
 constexpr int TM = 4, TN = 4;
 constexpr int kThreads = 256;
 constexpr int APAD = 4;      // keeps the A-tile stores free of bank conflicts
+constexpr int BPAD = 4;      // and the B-tile stores
 constexpr int kMaxPhases = 8, kMaxGroups = 4;
 
 struct RowPlan {
@@ -59,12 +74,12 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* out, size_t i, float v)
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
     row_resize_conv4_int8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-                                 const int8_t* __restrict__ kq, const float* __restrict__ sk,
+                                 const int8_t* __restrict__ kp, const float* __restrict__ sk,
                                  const float* __restrict__ bias, OutT* __restrict__ out, int nb,
                                  int h, int w, int cin, int cout, int nq, int p_num, int max_l,
                                  int n_rows, RowPlan plan) {
   __shared__ __align__(16) int As[KW][BM + APAD];
-  __shared__ __align__(16) int Bs[KW][BN];
+  __shared__ __align__(16) int Bs[KW][BN + BPAD];
 
   const int ph = blockIdx.z;
   const int n_phase = (n_rows - ph + nq - 1) / nq;  // output rows of this phase
@@ -88,8 +103,8 @@ __global__ void __launch_bounds__(kThreads)
     a_b[l] = m < m_total ? m / rw : -1;
     a_r[l] = (m / w) % n_phase;
     a_j[l] = m % w;
-    b_n[l] = idx & 63;
-    b_kw[l] = idx >> 6;
+    b_n[l] = idx >> 3;  // 8 neighbouring threads read one channel's 32 bytes
+    b_kw[l] = idx & 7;
   }
 
   int acc[TM][TN];
@@ -99,10 +114,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < TN; ++j) acc[i][j] = 0;
 
   const int* x32 = reinterpret_cast<const int*>(xq);
+  const int* k32 = reinterpret_cast<const int*>(kp);  // [cout, taps * cw] words
+  const int taps = nq * max_l * 4;
   for (int g = 0; g < max_l; ++g) {
     const int off = plan.off[ph][g];
     for (int t = 0; t < 4; ++t) {
-      const int8_t* ktap = kq + (size_t)((ph * max_l + g) * 4 + t) * cin * cout;
+      const int tap = (ph * max_l + g) * 4 + t;
       for (int w0 = 0; w0 < cw; w0 += KW) {
 #pragma unroll
         for (int l = 0; l < 2; ++l) {
@@ -112,15 +129,10 @@ __global__ void __launch_bounds__(kThreads)
             v = x32[((size_t)(a_b[l] * h + si) * w + sj) * cw + wd];
           As[a_kw[l]][a_m[l]] = v;
 
+          // channels 4 wb .. 4 wb + 3 of tap `tap`, output n: one word
           const int n = n0 + b_n[l], wb = w0 + b_kw[l];
-          int packed = 0;
-          if (n < cout && wb < cw) {
-            const int8_t* src = ktap + (size_t)(4 * wb) * cout + n;
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              packed |= ((int)(uint8_t)src[(size_t)c * cout]) << (8 * c);
-          }
-          Bs[b_kw[l]][b_n[l]] = packed;
+          Bs[b_kw[l]][b_n[l]] =
+              (n < cout && wb < cw) ? k32[((size_t)n * taps + tap) * cw + wb] : 0;
         }
         __syncthreads();
 #pragma unroll
@@ -158,36 +170,64 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// xq: [nb, h, w, cin] int8 (cin % 4 == 0); sx: [nb] f32; kq: [nq, max_l*4,
-// cin, cout] int8; sk: [nq, cout] f32; bias: [cout] f32; out: [nb, n_rows,
-// w, cout] bf16 (out_is_bf16 = 1) or f32; offsets: host array [nq][max_l] of
-// source row offsets (nq <= 8, max_l <= 4). Returns cudaGetLastError()
-// after the launch.
-extern "C" int zdc_row_resize_conv4_int8(const void* xq, const void* sx, const void* kq,
+// xq: [nb, h, w, cin] int8 (cin % 4 == 0); sx: [nb] f32; kp: [cout, nq * max_l
+// * 4 * cin] int8, the phase kernels [nq, max_l * 4, cin, cout] packed
+// K-major; sk: [nq, cout] f32; bias: [cout] f32; out: [nb, n_rows, w, cout]
+// bf16 (out_is_bf16 = 1) or f32; offsets: host array [nq][max_l] of source row
+// offsets, n_groups: host array [nq] of each phase's real group count (nq <=
+// 8, max_l <= 4); xq and kp 16-byte aligned, sk and bias 8-byte. Runs the
+// tensor-core body where conv_mma_fits(cin, cout), the __dp4a body otherwise,
+// and sets *on_mma to 1 or 0 by which one it launched. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
+// or table it does not take (the tensor-core body needs each phase's first
+// n_groups offsets consecutive).
+extern "C" int zdc_row_resize_conv4_int8(const void* xq, const void* sx, const void* kp,
                                          const void* sk, const void* bias, void* out,
                                          int out_is_bf16, int nb, int h, int w, int cin,
                                          int cout, int nq, int p_num, int max_l, int n_rows,
-                                         const void* offsets, void* stream) {
+                                         const void* offsets, const void* n_groups, int* on_mma,
+                                         void* stream) {
+  *on_mma = 0;
   if (nb <= 0 || n_rows <= 0) return (int)cudaSuccess;
   if (cin % 4 != 0 || h <= 0 || w <= 0 || cout <= 0 || nq <= 0 || nq > kMaxPhases ||
       max_l <= 0 || max_l > kMaxGroups || p_num <= 0)
     return (int)cudaErrorInvalidValue;
-  RowPlan plan = {};
   const int* offs = (const int*)offsets;
+  const int8_t* x = (const int8_t*)xq;
+  const int8_t* k = (const int8_t*)kp;
+  const float *s = (const float*)sx, *skf = (const float*)sk, *b = (const float*)bias;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (conv_mma_fits(cin, cout)) {
+    ConvPlan cp{};
+    const int* ng = (const int*)n_groups;
+    for (int p = 0; p < nq; ++p) {
+      const int kr = ng[p], d0 = offs[p * max_l];
+      if (kr <= 0 || kr > max_l) return (int)cudaErrorInvalidValue;
+      for (int g = 1; g < kr; ++g)
+        if (offs[p * max_l + g] != d0 + g) return (int)cudaErrorInvalidValue;
+      // output row r * nq + p reads source rows p_num * r + d0 + a, a < kr,
+      // and columns j - 1 .. j + 2
+      cp.ph[p] = ConvPhase{(n_rows - p + nq - 1) / nq, w, p_num, kr, 4, d0, -1,
+                           p * max_l * 4, nq, p, 1, 0, p * cout};
+    }
+    cp.h = h; cp.w = w; cp.oh = n_rows; cp.ow = w;
+    cp.taps = nq * max_l * 4;
+    *on_mma = 1;
+    if (out_is_bf16)
+      return launch_conv(x, s, k, skf, b, (__nv_bfloat16*)out, nb, cin, cout, cp, nq, st);
+    return launch_conv(x, s, k, skf, b, (float*)out, nb, cin, cout, cp, nq, st);
+  }
+  RowPlan plan = {};
   for (int p = 0; p < nq; ++p)
     for (int g = 0; g < max_l; ++g) plan.off[p][g] = offs[p * max_l + g];
   const int max_phase_rows = (n_rows + nq - 1) / nq;
   dim3 grid((nb * max_phase_rows * w + BM - 1) / BM, (cout + BN - 1) / BN, nq);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (out_is_bf16) {
+  if (out_is_bf16)
     row_resize_conv4_int8_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const int8_t*)xq, (const float*)sx, (const int8_t*)kq, (const float*)sk,
-        (const float*)bias, (__nv_bfloat16*)out, nb, h, w, cin, cout, nq, p_num, max_l,
-        n_rows, plan);
-  } else {
+        x, s, k, skf, b, (__nv_bfloat16*)out, nb, h, w, cin, cout, nq, p_num, max_l, n_rows,
+        plan);
+  else
     row_resize_conv4_int8_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const int8_t*)xq, (const float*)sx, (const int8_t*)kq, (const float*)sk,
-        (const float*)bias, (float*)out, nb, h, w, cin, cout, nq, p_num, max_l, n_rows, plan);
-  }
+        x, s, k, skf, b, (float*)out, nb, h, w, cin, cout, nq, p_num, max_l, n_rows, plan);
   return (int)cudaGetLastError();
 }

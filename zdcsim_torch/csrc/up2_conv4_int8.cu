@@ -19,20 +19,31 @@
 // operations against ~31 MB of traffic: 33.5 us at 1979 TOP/s, 9 us of
 // bytes.
 //
-// Design: a tiled GEMM per phase with M = B*H*W source positions, N = Cout
-// and K = taps * Cin, on `__dp4a` (4 int8 products per instruction, int32
-// accumulate). A block of 256 threads owns a 64 x 64 output tile of one
-// phase and walks K in steps of one tap x 32 input channels; each step
-// stages the shifted, masked activations (64 rows x 32 channels) and the
-// weights (32 channels x 64 couts, packed to 4 channels per 32-bit word) in
-// shared memory, and each thread accumulates a 4 x 4 sub-tile. The epilogue
-// rounds exactly as the plain PyTorch version does (__fmul_rn/__fadd_rn, no
-// FMA contraction). This is the simple first kernel: dp4a runs at a fraction
-// of the int8 tensor-core rate, and mma.sync/wgmma is later work.
+// Design: a GEMM per phase with M = B*H*W source positions, N = Cout and
+// K = taps * Cin, over the weights packed once as [Cout, 25 x Cin] (K-major,
+// tap-major, phase p's taps from slab {0, 9, 15, 21}[p]). Two bodies, chosen
+// by shape (the wrapper counts which one ran):
+//  - Cin a multiple of 128 and Cout of 64 (the full-width teacher's 512 ->
+//    256): conv_mma.cuh's implicit GEMM on the int8 tensor cores (wgmma s8,
+//    exact int32 sums) with conv0_plan(h, w), the plan that kernel G's
+//    Conv_0 runs;
+//  - any other Cin (a multiple of 4) and Cout (the narrow students): the
+//    first kernel, on `__dp4a` (4 int8 products per instruction, int32
+//    accumulate). A block of 256 threads owns a 64 x 64 output tile of one
+//    phase and walks K in steps of one tap x 32 input channels; each step
+//    stages the shifted, masked activations (64 rows x 32 channels) and the
+//    weights (32 channels x 64 couts, 4 channels per aligned 32-bit load of
+//    the packed weights) in shared memory, and each thread accumulates a
+//    4 x 4 sub-tile.
+// Both epilogues round exactly as the plain PyTorch version does
+// (__fmul_rn/__fadd_rn, no FMA contraction), so the two bodies and the plain
+// version agree bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -42,6 +53,7 @@ constexpr int KW = 8;        // 32-bit words (4 int8 channels each) per K step
 constexpr int TM = 4, TN = 4;
 constexpr int kThreads = 256;
 constexpr int APAD = 4;      // keeps the A-tile stores free of bank conflicts
+constexpr int BPAD = 4;      // and the B-tile stores
 
 __device__ __forceinline__ void store_out(float* out, size_t i, float v) { out[i] = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* out, size_t i, float v) {
@@ -51,11 +63,11 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* out, size_t i, float v)
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
     up2_conv4_int8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-                          const int8_t* __restrict__ kq, const float* __restrict__ sk,
+                          const int8_t* __restrict__ kp, const float* __restrict__ sk,
                           const float* __restrict__ bias, OutT* __restrict__ out, int nb,
                           int h, int w, int cin, int cout) {
   __shared__ __align__(16) int As[KW][BM + APAD];
-  __shared__ __align__(16) int Bs[KW][BN];
+  __shared__ __align__(16) int Bs[KW][BN + BPAD];
 
   const int p = blockIdx.z;  // 0 ee, 1 eo, 2 oe, 3 oo
   const int pr = p >> 1, pc = p & 1;
@@ -81,8 +93,8 @@ __global__ void __launch_bounds__(kThreads)
     a_i[l] = (m / w) % h;
     a_j[l] = m % w;
     if (m >= m_total) a_b[l] = -1;
-    b_n[l] = idx & 63;
-    b_kw[l] = idx >> 6;
+    b_n[l] = idx >> 3;  // 8 neighbouring threads read one channel's 32 bytes
+    b_kw[l] = idx & 7;
   }
 
   int acc[TM][TN];
@@ -92,10 +104,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < TN; ++j) acc[i][j] = 0;
 
   const int* x32 = reinterpret_cast<const int*>(xq);
+  const int* k32 = reinterpret_cast<const int*>(kp);  // [cout, 25 * cw] words
   for (int ta = 0; ta < lr; ++ta) {
     for (int tb = 0; tb < lc; ++tb) {
       const int dr = ta - (pr == 0), dc = tb - (pc == 0);
-      const int8_t* ktap = kq + (size_t)(tap0 + ta * lc + tb) * cin * cout;
+      const int tap = tap0 + ta * lc + tb;
       for (int w0 = 0; w0 < cw; w0 += KW) {
 #pragma unroll
         for (int l = 0; l < 2; ++l) {
@@ -105,15 +118,10 @@ __global__ void __launch_bounds__(kThreads)
             v = x32[((size_t)(a_b[l] * h + si) * w + sj) * cw + wd];
           As[a_kw[l]][a_m[l]] = v;
 
+          // channels 4 wb .. 4 wb + 3 of tap `tap`, output n: one word
           const int n = n0 + b_n[l], wb = w0 + b_kw[l];
-          int packed = 0;
-          if (n < cout && wb < cw) {
-            const int8_t* src = ktap + (size_t)(4 * wb) * cout + n;
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              packed |= ((int)(uint8_t)src[(size_t)c * cout]) << (8 * c);
-          }
-          Bs[b_kw[l]][b_n[l]] = packed;
+          Bs[b_kw[l]][b_n[l]] =
+              (n < cout && wb < cw) ? k32[((size_t)n * 25 + tap) * cw + wb] : 0;
         }
         __syncthreads();
 #pragma unroll
@@ -154,26 +162,38 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// xq: [nb, h, w, cin] int8 (cin % 4 == 0); sx: [nb] f32; kq: [25, cin, cout]
-// int8; sk: [4, cout] f32; bias: [cout] f32; out: [nb, 2h-1, 2w-1, cout]
-// bf16 (out_is_bf16 = 1) or f32. Returns cudaGetLastError() after the launch.
-extern "C" int zdc_up2_conv4_int8(const void* xq, const void* sx, const void* kq,
+// xq: [nb, h, w, cin] int8 (cin % 4 == 0; 16-byte aligned, as kp is); sx:
+// [nb] f32; kp: [cout, 25 * cin] int8, the phase taps [25, cin, cout] packed
+// K-major; sk: [4, cout] f32 and bias: [cout] f32, 8-byte aligned; out: [nb,
+// 2h-1, 2w-1, cout] bf16 (out_is_bf16 = 1) or f32. Runs the tensor-core body
+// where conv_mma_fits(cin, cout), the __dp4a body otherwise, and sets
+// *on_mma to 1 or 0 by which one it launched. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a shape it does not take.
+extern "C" int zdc_up2_conv4_int8(const void* xq, const void* sx, const void* kp,
                                   const void* sk, const void* bias, void* out,
                                   int out_is_bf16, int nb, int h, int w, int cin, int cout,
-                                  void* stream) {
+                                  int* on_mma, void* stream) {
+  *on_mma = 0;
   if (nb <= 0) return (int)cudaSuccess;
   if (cin % 4 != 0 || h <= 0 || w <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
+  const int8_t* x = (const int8_t*)xq;
+  const int8_t* k = (const int8_t*)kp;
+  const float *s = (const float*)sx, *skf = (const float*)sk, *b = (const float*)bias;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (conv_mma_fits(cin, cout)) {
+    *on_mma = 1;
+    const ConvPlan plan = conv0_plan(h, w, cout);
+    if (out_is_bf16)
+      return launch_conv(x, s, k, skf, b, (__nv_bfloat16*)out, nb, cin, cout, plan, 4, st);
+    return launch_conv(x, s, k, skf, b, (float*)out, nb, cin, cout, plan, 4, st);
+  }
   const int m_total = nb * h * w;
   dim3 grid((m_total + BM - 1) / BM, (cout + BN - 1) / BN, 4);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (out_is_bf16) {
+  if (out_is_bf16)
     up2_conv4_int8_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const int8_t*)xq, (const float*)sx, (const int8_t*)kq, (const float*)sk,
-        (const float*)bias, (__nv_bfloat16*)out, nb, h, w, cin, cout);
-  } else {
-    up2_conv4_int8_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const int8_t*)xq, (const float*)sx, (const int8_t*)kq, (const float*)sk,
-        (const float*)bias, (float*)out, nb, h, w, cin, cout);
-  }
+        x, s, k, skf, b, (__nv_bfloat16*)out, nb, h, w, cin, cout);
+  else
+    up2_conv4_int8_kernel<float><<<grid, kThreads, 0, st>>>(x, s, k, skf, b, (float*)out, nb, h,
+                                                            w, cin, cout);
   return (int)cudaGetLastError();
 }

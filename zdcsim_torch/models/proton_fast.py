@@ -271,9 +271,10 @@ _INT8_BACKENDS = ("xla", "pallas_ab", "pallas", "fused_front", "fused")
 def quantize_weights(p: Dict[str, Any], int8_backend: str = "xla") -> Dict[str, Any]:
     """One expert's int8 weights for :func:`fast_generator_apply`, computed
     once per weight set (JAX hoists the same work out of its loops). The
-    kernels take their per-channel parameters in float32, cast here once.
-    The fused backends take full-width trees only and raise ``ValueError``
-    on any other."""
+    kernels take their per-channel parameters in float32, cast here once,
+    and their int8 conv weights packed K-major (``dk.pack_k_major``). The
+    fused backends take full-width trees only and raise ``ValueError`` on
+    any other."""
     if int8_backend not in _INT8_BACKENDS:
         raise ValueError(f"int8_backend must be one of {_INT8_BACKENDS}, got {int8_backend!r}")
     if int8_backend == "fused":
@@ -287,14 +288,16 @@ def quantize_weights(p: Dict[str, Any], int8_backend: str = "xla") -> Dict[str, 
     else:
         ln = p["MLPBlock_1"]["LayerNorm_0"]
         q["ln1"] = (f32(ln["scale"]), f32(ln["bias"]))
-        q["conv0"] = dk._quant_phases(p["Conv_0"]["kernel"])
+        kq0, sk0 = dk._quant_phases(p["Conv_0"]["kernel"])
+        q["conv0"] = (dk.pack_k_major(kq0), sk0)
         q["conv0_bias"] = f32(p["Conv_0"]["bias"])
     if int8_backend == "pallas":
         gn = p["GroupNorm2d_0"]["GroupNorm_0"]
         q["gn0"] = (f32(gn["scale"]), f32(gn["bias"]))
         k1 = p["Conv_1"]["kernel"]
         _, _, plans = _row_phase_plan(35, 56, 4, 1)
-        q["conv1"] = dk._quant_row_phases(k1, plans)
+        kq1, sk1, offsets = dk._quant_row_phases(k1, plans)
+        q["conv1"] = (dk.pack_k_major(kq1), sk1, offsets)
         q["conv1_bias"] = f32(p["Conv_1"]["bias"])
         q["col_map"] = torch.from_numpy(nearest_index(30, 19)).to(k1.device)
     else:
@@ -321,9 +324,9 @@ def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights):
     c0 = p["MLPBlock_1"]["Dense_0"]["kernel"].shape[1] // (18 * 10)
     if use_ab:
         xq, sx = dk.ln_leaky_rowquant(x, *qweights["ln1"])
-        kq, sk = qweights["conv0"]
+        kp, sk = qweights["conv0"]
         x = dk.up2_conv4_int8(
-            xq.reshape(-1, 18, 10, c0), sx, kq, sk, qweights["conv0_bias"], out_dtype=dtype,
+            xq.reshape(-1, 18, 10, c0), sx, kp, sk, qweights["conv0_bias"], out_dtype=dtype,
         )
     else:
         x = leaky_relu(_layer_norm(x, p["MLPBlock_1"]["LayerNorm_0"]))
@@ -339,9 +342,9 @@ def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights):
         # then the row-phase conv with dequant and interleave (kernel D)
         xq, sx = dk.gn_leaky_rowquant(x, *qweights["gn0"],
                                       groups=group_norm_groups(x.shape[-1], 32))
-        kq, sk, offsets = qweights["conv1"]
+        kp, sk, offsets = qweights["conv1"]
         return dk.row_resize_conv4_int8(
-            xq.index_select(2, qweights["col_map"]), sx, kq, sk, offsets,
+            xq.index_select(2, qweights["col_map"]), sx, kp, sk, offsets,
             qweights["conv1_bias"], 56, out_dtype=dtype,
         )[:, :, :29]
     x = leaky_relu(_group_norm(x, p["GroupNorm2d_0"]["GroupNorm_0"]))

@@ -4,8 +4,9 @@ Every ``zdcsim_torch/csrc/*.cu`` source is compiled for ``sm_90a`` by its
 own ``nvcc -c``, all started together, and one ``nvcc -shared`` links the
 objects into one shared library with a plain C interface (no PyTorch
 headers, no ninja, no lock file), on first use, into
-``zdcsim_torch/_build/``. The library's name carries a hash of the sources
-and flags, so an edited source builds anew and an unchanged one is reused.
+``zdcsim_torch/_build/``. The library's name carries a hash of the sources,
+the headers they include (``csrc/*.cuh``) and the flags, so an edited source
+or header builds anew and an unchanged tree is reused.
 No ``--use_fast_math``: the kernels divide, take square roots and round as
 IEEE float32 does, like the kernels they replace.
 """
@@ -26,6 +27,7 @@ SOURCES = (
     "ln_leaky_rowquant.cu", "up2_conv4_int8.cu", "gn_leaky_rowquant.cu",
     "row_resize_conv4_int8.cu", "expm1_channel_sums.cu", "fused_decode.cu",
 )
+HEADERS = ("conv_mma.cuh",)  # the int8 tensor-core conv core of B, D, G and H
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,10 +38,10 @@ _I = ctypes.c_int
 # C entry point -> argtypes; every entry point returns cudaGetLastError().
 SIGNATURES = {
     "zdc_ln_leaky_rowquant": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
-    "zdc_up2_conv4_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "zdc_up2_conv4_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "zdc_gn_leaky_rowquant": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "zdc_row_resize_conv4_int8": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),
     "zdc_expm1_channel_sums": (_P, _I, _P, _I, _I, _I, _P),
     "zdc_routed_expm1_channel_sums": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
@@ -72,7 +74,7 @@ def build() -> Tuple[str, str]:
     """
     srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + [os.path.join(CSRC_DIR, s) for s in HEADERS]:
         with open(s, "rb") as f:
             h.update(f.read())
     lib_path = os.path.join(BUILD_DIR, f"libzdcsim_kernels_{h.hexdigest()[:16]}.so")

@@ -19,6 +19,16 @@ Each wrapper launches its hand-written CUDA kernel (``zdcsim_torch/csrc``)
 for a CUDA tensor, and runs the plain PyTorch version for a CPU tensor; it
 never falls back from one to the other. ``<wrapper>.launches`` counts the
 kernel's launches (plain runs and CPU calls do not count).
+
+B and D take their int8 weights packed once as ``[Cout, taps x Cin]``
+(:func:`pack_k_major`; ``proton_fast.quantize_weights`` packs them per
+expert), and each has two CUDA bodies, which the C entry point chooses by
+shape: for Cin a multiple of 128 and Cout of 64 (``conv_mma_fits``; the
+full-width teacher) the implicit GEMM on the int8 tensor cores that kernels G
+and H run (``csrc/conv_mma.cuh``), for any other width the first ``__dp4a``
+kernel. Both are exact, so both equal the plain version bit for bit.
+``<wrapper>.mma_launches`` counts the launches that the entry point reports
+on the tensor cores.
 """
 
 from __future__ import annotations
@@ -80,6 +90,43 @@ def interleave_phases(phases: torch.Tensor) -> torch.Tensor:
     _, b, h, w, c = phases.shape
     out = phases.reshape(2, 2, b, h, w, c).permute(2, 3, 0, 4, 1, 5)
     return out.reshape(b, 2 * h, 2 * w, c)[:, : 2 * h - 1, : 2 * w - 1]
+
+
+def pack_k_major(kq: torch.Tensor) -> torch.Tensor:
+    """``[taps..., Cin, Cout]`` int8 -> ``[Cout, taps x Cin]``, contiguous
+    in K, taps major: the layout the int8 convs read (each K step of the
+    tensor-core body is consecutive channels of one tap, each 32-bit word of
+    the ``__dp4a`` body 4 of them)."""
+    return kq.reshape(-1, kq.shape[-1]).t().contiguous()
+
+
+def unpack_k_major(kp: torch.Tensor, shape) -> torch.Tensor:
+    """The inverse of :func:`pack_k_major`: a view of ``kp`` in the logical
+    ``shape`` (``[taps..., Cin, Cout]``)."""
+    return kp.t().reshape(shape)
+
+
+def _check_packed(name: str, key: str, kp: torch.Tensor, taps: int, cin: int,
+                  dev: torch.device, cout: int = None) -> int:
+    """Refuse weights that are not :func:`pack_k_major`'s ``[Cout, taps x
+    Cin]`` int8 on ``dev`` (of ``cout`` channels, where given); returns
+    Cout."""
+    n = "Cout" if cout is None else cout
+    if (kp.dtype != torch.int8 or kp.ndim != 2 or kp.shape[1] != taps * cin
+            or kp.device != dev or (cout is not None and kp.shape[0] != cout)):
+        raise ValueError(f"{name}: {key} must be [{n}, {taps * cin}] int8 on {dev} (pack_k_major "
+                         f"of [{taps} taps, {cin}, {n}]), got {tuple(kp.shape)} {kp.dtype} "
+                         f"on {kp.device}")
+    return kp.shape[0]
+
+
+def _require_aligned(name, align, **params):
+    """The tensor-core convs copy int8 operands 16 bytes at a time and read
+    sk and bias as float2, from aligned addresses (a view with an offset may
+    not be)."""
+    for key, t in params.items():
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: {key} must be {align}-byte aligned on the card")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -155,17 +202,19 @@ ln_leaky_rowquant.launches = 0
 # Kernel B: all-phase int8 upsample2 + conv4, fused dequant + interleave
 # ---------------------------------------------------------------------------
 
-def up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16):
-    """Plain PyTorch version of :func:`up2_conv4_int8`: each phase's taps as
-    shifted float64 matmuls of the int8 values (exact: every partial sum is
-    an integer below 2**53), then the kernel's f32 epilogue."""
-    b, h, w, _ = xq.shape
+def up2_conv4_int8_plain(xq, sx, kp, sk, bias, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of :func:`up2_conv4_int8`: the packed weights read
+    back through :func:`unpack_k_major`, each phase's taps as shifted float64
+    matmuls of the int8 values (exact: every partial sum is an integer below
+    2**53), then the kernel's f32 epilogue."""
+    b, h, w, cin = xq.shape
+    cout = kp.shape[0]
     xp = F.pad(xq.to(torch.float64), (0, 0, 1, 1, 1, 1))  # zero halo of 1
-    k64 = kq.to(torch.float64)
+    k64 = unpack_k_major(kp, (25, cin, cout)).to(torch.float64)
     sxb = sx.reshape(b, 1, 1, 1)
     phases, tap = [], 0
     for p, name in enumerate(_PHASES):
-        acc = torch.zeros((b, h, w, kq.shape[-1]), dtype=torch.float64, device=xq.device)
+        acc = torch.zeros((b, h, w, cout), dtype=torch.float64, device=xq.device)
         for dr, dc in _PHASE_OFFSETS[name]:
             acc += xp[:, 1 + dr:1 + dr + h, 1 + dc:1 + dc + w, :] @ k64[tap]
             tap += 1
@@ -174,53 +223,53 @@ def up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16):
     return interleave_phases(torch.stack(phases))
 
 
-def up2_conv4_int8(xq, sx, kq, sk, bias, out_dtype=torch.bfloat16):
+def up2_conv4_int8(xq, sx, kp, sk, bias, out_dtype=torch.bfloat16):
     """``conv4x4(pad1, nearest_up2(x))`` on int8 data.
 
     xq: ``[B, H, W, Cin]`` int8 (Cin a multiple of 4); sx: ``[B]`` or
-    ``[B, 1]`` f32 per-sample dequant scales; kq, sk: the phase-merged int8
-    kernel and its f32 scales from :func:`_quant_phases`; bias: ``[Cout]``
-    f32.
-    Returns ``[B, 2H-1, 2W-1, Cout]`` in ``out_dtype`` (bf16 or f32). H, W,
-    Cin and Cout come from the tensors.
+    ``[B, 1]`` f32 per-sample dequant scales; kp, sk: the phase-merged int8
+    kernel of :func:`_quant_phases`, packed by :func:`pack_k_major`
+    (``[Cout, 25 x Cin]``), and its f32 scales ``[4, Cout]``; bias:
+    ``[Cout]`` f32. Returns ``[B, 2H-1, 2W-1, Cout]`` in ``out_dtype`` (bf16
+    or f32). H, W, Cin and Cout come from the tensors.
     """
-    _require_f32("up2_conv4_int8", xq.device, sx=sx, sk=sk, bias=bias)
-    if xq.device.type == "cpu":
-        return up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype)
-    _require_cuda(xq, "up2_conv4_int8")
+    name = "up2_conv4_int8"
+    _require_f32(name, xq.device, sx=sx, sk=sk, bias=bias)
     if xq.ndim != 4 or xq.dtype != torch.int8:
-        raise ValueError(f"up2_conv4_int8: xq must be [B, H, W, Cin] int8, got {tuple(xq.shape)} {xq.dtype}")
+        raise ValueError(f"{name}: xq must be [B, H, W, Cin] int8, "
+                         f"got {tuple(xq.shape)} {xq.dtype}")
     b, h, w, cin = xq.shape
-    if cin % 4 != 0:
-        raise ValueError(f"up2_conv4_int8: Cin={cin} must be a multiple of 4")
-    if kq.dtype != torch.int8 or kq.ndim != 3 or kq.shape[:2] != (25, cin):
-        raise ValueError(f"up2_conv4_int8: kq must be [25, {cin}, Cout] int8, got {tuple(kq.shape)} {kq.dtype}")
-    cout = kq.shape[2]
+    cout = _check_packed(name, "kp", kp, 25, cin, xq.device)
     if sk.shape != (4, cout) or bias.shape != (cout,) or sx.numel() != b:
-        raise ValueError("up2_conv4_int8: sk must be [4, Cout], bias [Cout], sx [B]")
+        raise ValueError(f"{name}: sk must be [4, Cout], bias [Cout], sx [B]")
     if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"up2_conv4_int8: out_dtype must be bf16 or f32, got {out_dtype}")
+        raise ValueError(f"{name}: out_dtype must be bf16 or f32, got {out_dtype}")
+    if xq.device.type == "cpu":
+        return up2_conv4_int8_plain(xq, sx, kp, sk, bias, out_dtype)
+    _require_cuda(xq, name)
+    if cin % 4 != 0:
+        raise ValueError(f"{name}: Cin={cin} must be a multiple of 4")
     dev = xq.device
-    xq = xq.contiguous()
-    if xq.data_ptr() % 4:
-        raise ValueError("up2_conv4_int8: xq must be 4-byte aligned")
-    if kq.device != dev:
-        raise ValueError(f"up2_conv4_int8: kq must be on {dev}, got {kq.device}")
-    sx, kq, sk, bias = sx.reshape(b).contiguous(), kq.contiguous(), sk.contiguous(), bias.contiguous()
+    xq, kp = xq.contiguous(), kp.contiguous()
+    sx, sk, bias = sx.reshape(b).contiguous(), sk.contiguous(), bias.contiguous()
+    _require_aligned(name, 16, xq=xq, kp=kp)
+    _require_aligned(name, 8, sk=sk, bias=bias)
     out = torch.empty((b, 2 * h - 1, 2 * w - 1, cout), dtype=out_dtype, device=dev)
+    on_mma = ctypes.c_int(0)
     lib = _build.library()
     with torch.cuda.device(dev):
         status = lib.zdc_up2_conv4_int8(
-            xq.data_ptr(), sx.data_ptr(), kq.data_ptr(), sk.data_ptr(), bias.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(), kp.data_ptr(), sk.data_ptr(), bias.data_ptr(),
             out.data_ptr(), int(out_dtype == torch.bfloat16), b, h, w, cin, cout,
-            _stream(xq),
+            ctypes.addressof(on_mma), _stream(xq),
         )
-    _build.check(status, "up2_conv4_int8")
+    _build.check(status, name)
     up2_conv4_int8.launches += 1
+    up2_conv4_int8.mma_launches += on_mma.value
     return out
 
 
-up2_conv4_int8.launches = 0
+up2_conv4_int8.launches = up2_conv4_int8.mma_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -340,22 +389,40 @@ def _row_plan_periods(h_src: int, n_resized_rows: int, name: str):
     return q, p_num
 
 
-def row_resize_conv4_int8_plain(xq, sx, kq, sk, offsets, bias, n_resized_rows,
+def row_phase_groups(offsets) -> list:
+    """The real group count of each phase of a :func:`_quant_row_phases`
+    offset table, whose groups must read consecutive source rows (``d0, d0 +
+    1, ..``; the zero-padded groups after them repeat ``d0``), as the
+    tensor-core body of kernel D reads them. Raises ``ValueError`` otherwise."""
+    groups = []
+    for p, row in enumerate(offsets):
+        d0, n = int(row[0]), 1
+        while n < len(row) and int(row[n]) == d0 + n:
+            n += 1
+        if any(int(d) != d0 for d in row[n:]):
+            raise ValueError(f"row_resize_conv4_int8: the groups of phase {p} must read "
+                             f"consecutive source rows, then pad with {d0}: got {list(row)}")
+        groups.append(n)
+    return groups
+
+
+def row_resize_conv4_int8_plain(xq, sx, kp, sk, offsets, bias, n_resized_rows,
                                 out_dtype=torch.bfloat16):
-    """Plain PyTorch version of :func:`row_resize_conv4_int8`: each phase's
-    taps as shifted float64 matmuls of the int8 values (exact), then the
-    kernel's f32 epilogue."""
-    b, h, w, _ = xq.shape
+    """Plain PyTorch version of :func:`row_resize_conv4_int8`: the packed
+    weights read back through :func:`unpack_k_major`, each phase's taps as
+    shifted float64 matmuls of the int8 values (exact), then the kernel's f32
+    epilogue."""
+    b, h, w, cin = xq.shape
     q, p_num = _row_plan_periods(h, n_resized_rows, "row_resize_conv4_int8_plain")
     n_rows = n_resized_rows - 1
-    max_l = kq.shape[1] // 4
+    max_l, cout = len(offsets[0]), kp.shape[0]
     x64 = F.pad(xq.to(torch.float64), (0, 0, 1, 2))  # column taps j-1 .. j+2
-    k64 = kq.to(torch.float64)
+    k64 = unpack_k_major(kp, (q, max_l * 4, cin, cout)).to(torch.float64)
     sxb = sx.reshape(b, 1, 1, 1)
-    out = torch.empty((b, n_rows, w, kq.shape[-1]), dtype=out_dtype, device=xq.device)
+    out = torch.empty((b, n_rows, w, cout), dtype=out_dtype, device=xq.device)
     for p in range(q):
         n_phase = (n_rows - p + q - 1) // q
-        acc = torch.zeros((b, n_phase, w, kq.shape[-1]), dtype=torch.float64, device=xq.device)
+        acc = torch.zeros((b, n_phase, w, cout), dtype=torch.float64, device=xq.device)
         for l in range(max_l):
             src = p_num * torch.arange(n_phase, device=xq.device) + offsets[p][l]
             valid = (src >= 0) & (src < h)
@@ -367,62 +434,66 @@ def row_resize_conv4_int8_plain(xq, sx, kq, sk, offsets, bias, n_resized_rows,
     return out
 
 
-def row_resize_conv4_int8(xq, sx, kq, sk, offsets, bias, n_resized_rows,
+def row_resize_conv4_int8(xq, sx, kp, sk, offsets, bias, n_resized_rows,
                           out_dtype=torch.bfloat16):
     """``conv4x4(pad1, resize_rows(x, n_resized_rows))`` on int8 data.
 
     xq: ``[B, H_src, W, Cin]`` int8 with the columns already resized (Cin a
-    multiple of 4); sx: ``[B]`` or ``[B, 1]`` f32 per-sample scales; kq, sk,
-    offsets: :func:`_quant_row_phases` of the Conv_1 kernel; bias: ``[Cout]``
-    f32. Output row ``i = r * Q + p`` sums phase ``p``'s merged row groups
-    (source row ``5 r + offsets[p][l]``), the 4 column taps ``j-1 .. j+2`` and
-    every channel; taps off the source grid read zero. Returns ``[B,
-    n_resized_rows - 1, W, Cout]`` in ``out_dtype`` (bf16 or f32); callers
-    trim to the conv-valid ``W - 1`` columns. Only the stride-5 plan of
-    35 -> 56 is supported, as in JAX.
+    multiple of 4); sx: ``[B]`` or ``[B, 1]`` f32 per-sample scales; kp, sk,
+    offsets: :func:`_quant_row_phases` of the Conv_1 kernel, its int8 kernel
+    packed by :func:`pack_k_major` (``[Cout, Q x maxL x 4 x Cin]``); bias:
+    ``[Cout]`` f32. Output row ``i = r * Q + p`` sums phase ``p``'s merged
+    row groups (source row ``5 r + offsets[p][l]``), the 4 column taps
+    ``j-1 .. j+2`` and every channel; taps off the source grid read zero.
+    Returns ``[B, n_resized_rows - 1, W, Cout]`` in ``out_dtype`` (bf16 or
+    f32); callers trim to the conv-valid ``W - 1`` columns. Only the stride-5
+    plan of 35 -> 56 is supported, as in JAX.
     """
-    _require_f32("row_resize_conv4_int8", xq.device, sx=sx, sk=sk, bias=bias)
+    name = "row_resize_conv4_int8"
+    _require_f32(name, xq.device, sx=sx, sk=sk, bias=bias)
     if xq.ndim != 4 or xq.dtype != torch.int8:
-        raise ValueError(f"row_resize_conv4_int8: xq must be [B, H, W, Cin] int8, "
+        raise ValueError(f"{name}: xq must be [B, H, W, Cin] int8, "
                          f"got {tuple(xq.shape)} {xq.dtype}")
     b, h, w, cin = xq.shape
-    q, p_num = _row_plan_periods(h, n_resized_rows, "row_resize_conv4_int8")
-    if kq.dtype != torch.int8 or kq.ndim != 4 or kq.shape[0] != q or kq.shape[1] % 4 \
-            or kq.shape[2] != cin or len(offsets) != q:
-        raise ValueError(f"row_resize_conv4_int8: kq must be [{q}, maxL*4, {cin}, Cout] int8 "
-                         f"with {q} offset rows, got {tuple(kq.shape)} {kq.dtype}")
-    cout, max_l = kq.shape[3], kq.shape[1] // 4
+    q, p_num = _row_plan_periods(h, n_resized_rows, name)
+    max_l = len(offsets[0]) if len(offsets) else 0
+    if len(offsets) != q or any(len(row) != max_l for row in offsets):
+        raise ValueError(f"{name}: offsets must be {q} rows of maxL source row offsets")
+    cout = _check_packed(name, "kp", kp, q * max_l * 4, cin, xq.device)
+    groups = row_phase_groups(offsets)
     if sk.shape != (q, cout) or bias.shape != (cout,) or sx.numel() != b:
-        raise ValueError(f"row_resize_conv4_int8: sk must be [{q}, Cout], bias [Cout], sx [B]")
+        raise ValueError(f"{name}: sk must be [{q}, Cout], bias [Cout], sx [B]")
     if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"row_resize_conv4_int8: out_dtype must be bf16 or f32, got {out_dtype}")
+        raise ValueError(f"{name}: out_dtype must be bf16 or f32, got {out_dtype}")
     if xq.device.type == "cpu":
-        return row_resize_conv4_int8_plain(xq, sx, kq, sk, offsets, bias, n_resized_rows,
+        return row_resize_conv4_int8_plain(xq, sx, kp, sk, offsets, bias, n_resized_rows,
                                            out_dtype)
-    _require_cuda(xq, "row_resize_conv4_int8")
+    _require_cuda(xq, name)
     if cin % 4 != 0:
-        raise ValueError(f"row_resize_conv4_int8: Cin={cin} must be a multiple of 4")
+        raise ValueError(f"{name}: Cin={cin} must be a multiple of 4")
     if q > 8 or max_l > 4:
-        raise ValueError(f"row_resize_conv4_int8: at most 8 phases of 4 groups, got {q} x {max_l}")
+        raise ValueError(f"{name}: at most 8 phases of 4 groups, got {q} x {max_l}")
     dev = xq.device
-    xq = xq.contiguous()
-    if xq.data_ptr() % 4:
-        raise ValueError("row_resize_conv4_int8: xq must be 4-byte aligned")
-    if kq.device != dev:
-        raise ValueError(f"row_resize_conv4_int8: kq must be on {dev}, got {kq.device}")
-    sx, kq, sk, bias = sx.reshape(b).contiguous(), kq.contiguous(), sk.contiguous(), bias.contiguous()
+    xq, kp = xq.contiguous(), kp.contiguous()
+    sx, sk, bias = sx.reshape(b).contiguous(), sk.contiguous(), bias.contiguous()
+    _require_aligned(name, 16, xq=xq, kp=kp)
+    _require_aligned(name, 8, sk=sk, bias=bias)
     offs = (ctypes.c_int * (q * max_l))(*[int(d) for row in offsets for d in row])
+    n_groups = (ctypes.c_int * q)(*groups)
     out = torch.empty((b, n_resized_rows - 1, w, cout), dtype=out_dtype, device=dev)
+    on_mma = ctypes.c_int(0)
     lib = _build.library()
     with torch.cuda.device(dev):
         status = lib.zdc_row_resize_conv4_int8(
-            xq.data_ptr(), sx.data_ptr(), kq.data_ptr(), sk.data_ptr(), bias.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(), kp.data_ptr(), sk.data_ptr(), bias.data_ptr(),
             out.data_ptr(), int(out_dtype == torch.bfloat16), b, h, w, cin, cout, q, p_num,
-            max_l, n_resized_rows - 1, ctypes.cast(offs, ctypes.c_void_p), _stream(xq),
+            max_l, n_resized_rows - 1, ctypes.cast(offs, ctypes.c_void_p),
+            ctypes.cast(n_groups, ctypes.c_void_p), ctypes.addressof(on_mma), _stream(xq),
         )
-    _build.check(status, "row_resize_conv4_int8")
+    _build.check(status, name)
     row_resize_conv4_int8.launches += 1
+    row_resize_conv4_int8.mma_launches += on_mma.value
     return out
 
 
-row_resize_conv4_int8.launches = 0
+row_resize_conv4_int8.launches = row_resize_conv4_int8.mma_launches = 0

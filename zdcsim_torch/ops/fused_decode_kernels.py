@@ -22,9 +22,9 @@ Both are full width only: C0..C3 = 512/256/128/64 are fixed, as in JAX.
 Every int8 activation scale is per sample. The GroupNorms take the IEEE
 ``1 / sqrt`` where JAX takes ``lax.rsqrt``, as kernels A and C do. The convs
 run on the int8 tensor cores, which read each weight as ``[Cout, taps x
-Cin]`` int8, contiguous in K (:func:`pack_k_major`); :func:`front_weights`
+Cin]`` int8, contiguous in K (:func:`dk.pack_k_major`); :func:`front_weights`
 and :func:`tail_weights` pack once per expert, and the plain versions read
-the logical layout back through :func:`unpack_k_major`.
+the logical layout back through :func:`dk.unpack_k_major`.
 
 Each wrapper launches its CUDA entry point (``zdcsim_torch/csrc/
 fused_decode.cu``: 3 device launches for G, 7 for H, 1 for a conv) for CUDA
@@ -61,19 +61,6 @@ CONVS = {
 }
 
 
-def pack_k_major(kq: torch.Tensor) -> torch.Tensor:
-    """``[taps..., Cin, Cout]`` int8 -> ``[Cout, taps x Cin]``, contiguous
-    in K, taps major: the layout the tensor-core convs read (each K step
-    is consecutive channels of one tap)."""
-    return kq.reshape(-1, kq.shape[-1]).t().contiguous()
-
-
-def unpack_k_major(kp: torch.Tensor, shape) -> torch.Tensor:
-    """The inverse of :func:`pack_k_major`: a view of ``kp`` in the logical
-    ``shape`` (``[taps..., Cin, Cout]``)."""
-    return kp.t().reshape(shape)
-
-
 def _quant_cout(k: torch.Tensor):
     """Per-output-channel symmetric int8 of a kernel, computed in float32:
     ``(q int8, s f32 [cout])`` (``pallas_decode_fused._quant_cout``)."""
@@ -104,21 +91,6 @@ def _require(cond: bool, name: str, what: str) -> None:
         raise ValueError(f"{name}: {what} (the fused decode is full width only)")
 
 
-def _check_packed(name, key, kp, logical, dev):
-    shape = (logical[-1], math.prod(logical[:-1]))
-    _require(kp.dtype == torch.int8 and tuple(kp.shape) == shape and kp.device == dev, name,
-             f"{key} must be {list(shape)} int8 on {dev} (pack_k_major of {list(logical)}), "
-             f"got {tuple(kp.shape)} {kp.dtype}")
-
-
-def _require_aligned(name, align, **params):
-    """The convs copy int8 operands 16 bytes at a time and read sk and bias
-    as float2, from aligned addresses (a view with an offset may not be)."""
-    for key, t in params.items():
-        if t.data_ptr() % align:
-            raise ValueError(f"{name}: {key} must be {align}-byte aligned on the card")
-
-
 def _check_front(name, x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
     dev = x.device
     _require(x.ndim == 2 and x.shape[1] == H0 * W0 * C0
@@ -126,7 +98,7 @@ def _check_front(name, x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
              f"x must be [B, {H0 * W0 * C0}] bf16/f32, got {tuple(x.shape)} {x.dtype}")
     dk._require_f32(name, dev, ln_scale=ln_scale, ln_bias=ln_bias, sk0=sk0, b0=b0,
                     gn0_scale=gn0_scale, gn0_bias=gn0_bias)
-    _check_packed(name, "kq0", kq0, CONVS[0][2], dev)
+    dk._check_packed(name, "kq0", kq0, 25, C0, dev, C1)
     _require(tuple(ln_scale.shape) == tuple(ln_bias.shape) == (H0 * W0 * C0,)
              and tuple(sk0.shape) == (4, C1)
              and tuple(b0.shape) == tuple(gn0_scale.shape) == tuple(gn0_bias.shape) == (C1,),
@@ -137,8 +109,8 @@ def _check_tail(name, dev, kq1, sk1, b1, gn1_scale, gn1_bias, kq2, sk2, b2, gn2_
                 k3, b3):
     dk._require_f32(name, dev, sk1=sk1, b1=b1, gn1_scale=gn1_scale, gn1_bias=gn1_bias, sk2=sk2,
                     b2=b2, gn2_scale=gn2_scale, gn2_bias=gn2_bias, k3=k3, b3=b3)
-    _check_packed(name, "kq1", kq1, CONVS[1][2], dev)
-    _check_packed(name, "kq2", kq2, CONVS[2][2], dev)
+    dk._check_packed(name, "kq1", kq1, 4 * 4, C1, dev, C2)
+    dk._check_packed(name, "kq2", kq2, 3 * 3, C2, dev, C3)
     _require(all(tuple(t.shape) == (C2,) for t in (sk1, b1, gn1_scale, gn1_bias))
              and all(tuple(t.shape) == (C3,) for t in (sk2, b2, gn2_scale, gn2_bias))
              and tuple(k3.shape) == (2, 2, C3, 1) and tuple(b3.shape) == (1,), name,
@@ -172,7 +144,7 @@ def fused_decode_front(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
 
     x: ``[B, 92160]`` bf16 or f32, the Dense_1 output before its LayerNorm;
     ln_scale, ln_bias: ``[92160]`` f32; kq0, sk0: ``dk._quant_phases`` of the
-    Conv_0 kernel, kq0 packed by :func:`pack_k_major` (``[256, 12800]``); b0,
+    Conv_0 kernel, kq0 packed by :func:`dk.pack_k_major` (``[256, 12800]``); b0,
     gn0_scale, gn0_bias: ``[256]`` f32. Returns ``(q int8 [B, 56, 30, 256],
     s f32 [B])``: the resized grid and its per-sample dequant scale.
     """
@@ -183,8 +155,8 @@ def fused_decode_front(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
     dk._require_cuda(x, name)
     b, dev = x.shape[0], x.device
     args = [t.contiguous() for t in (x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)]
-    _require_aligned(name, 16, kq0=args[3])
-    _require_aligned(name, 8, sk0=args[4], b0=args[5])
+    dk._require_aligned(name, 16, kq0=args[3])
+    dk._require_aligned(name, 8, sk0=args[4], b0=args[5])
     q = torch.empty((b, HG, WG, C1), dtype=torch.int8, device=dev)
     s = torch.empty((b,), dtype=torch.float32, device=dev)
     ws_i8 = torch.empty((b * H0 * W0 * C0,), dtype=torch.int8, device=dev)
@@ -235,7 +207,7 @@ def fused_decode(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
 
     The front's arguments as for :func:`fused_decode_front`; kq1, sk1:
     :func:`_quant_cout` of Conv_1 ``[4, 4, 256, 128]``; kq2, sk2: of Conv_2
-    ``[3, 3, 128, 64]``; kq1 and kq2 packed by :func:`pack_k_major`
+    ``[3, 3, 128, 64]``; kq1 and kq2 packed by :func:`dk.pack_k_major`
     (``[128, 4096]``, ``[64, 1152]``); b1, gn1_*: ``[128]`` f32; b2, gn2_*:
     ``[64]`` f32; k3: Conv_3 ``[2, 2, 64, 1]`` f32; b3: ``[1]`` f32. Returns
     ``f32 [B, 56, 30]``: ``relu(conv3(...))`` (log-space pixel intensities), or its
@@ -251,8 +223,8 @@ def fused_decode(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
     dk._require_cuda(x, name)
     b, dev = x.shape[0], x.device
     args = [t.contiguous() for t in front + tail]
-    _require_aligned(name, 16, kq0=args[3], kq1=args[8], kq2=args[13])
-    _require_aligned(name, 8, sk0=args[4], b0=args[5], sk1=args[9], b1=args[10], sk2=args[14],
+    dk._require_aligned(name, 16, kq0=args[3], kq1=args[8], kq2=args[13])
+    dk._require_aligned(name, 8, sk0=args[4], b0=args[5], sk1=args[9], b1=args[10], sk2=args[14],
                      b2=args[15])
     out = torch.empty((b, HG, WG), dtype=torch.float32, device=dev)
     ws_i8 = torch.empty((b * HG * WG * C1,), dtype=torch.int8, device=dev)
@@ -284,10 +256,9 @@ def fused_conv_int8_plain(conv, xq, sx, kp, sk, bias):
     logical weights, then the kernel's f32 epilogue ``(f32(acc) * sk) * sx +
     bias``."""
     _, (oh, ow, _), logical, _ = CONVS[conv]
-    kq = unpack_k_major(kp, logical)
     if conv == 0:
-        return dk.up2_conv4_int8_plain(xq, sx, kq, sk, bias, out_dtype=torch.float32)
-    acc = _conv_pad1_exact(xq, kq, (oh, ow)).to(torch.float32)
+        return dk.up2_conv4_int8_plain(xq, sx, kp, sk, bias, out_dtype=torch.float32)
+    acc = _conv_pad1_exact(xq, dk.unpack_k_major(kp, logical), (oh, ow)).to(torch.float32)
     return acc * sk * sx.reshape(-1, 1, 1, 1) + bias
 
 
@@ -308,7 +279,7 @@ def fused_conv_int8(conv, xq, sx, kp, sk, bias):
     _require(xq.dtype == torch.int8 and xq.ndim == 4 and tuple(xq.shape[1:]) == src, name,
              f"xq must be [B, {', '.join(map(str, src))}] int8, got {tuple(xq.shape)} {xq.dtype}")
     b, dev = xq.shape[0], xq.device
-    _check_packed(name, "kp", kp, logical, dev)
+    dk._check_packed(name, "kp", kp, math.prod(logical[:-2]), logical[-2], dev, cout)
     dk._require_f32(name, dev, sx=sx, sk=sk, bias=bias)
     _require(sx.numel() == b and tuple(sk.shape) == sk_shape and tuple(bias.shape) == (cout,),
              name, f"sx must have B values, sk be {list(sk_shape)}, bias [{cout}]")
@@ -316,8 +287,8 @@ def fused_conv_int8(conv, xq, sx, kp, sk, bias):
         return fused_conv_int8_plain(conv, xq, sx, kp, sk, bias)
     dk._require_cuda(xq, name)
     args = [t.contiguous() for t in (xq, sx, kp, sk, bias)]
-    _require_aligned(name, 16, xq=args[0], kp=args[2])
-    _require_aligned(name, 8, sk=args[3], bias=args[4])
+    dk._require_aligned(name, 16, xq=args[0], kp=args[2])
+    dk._require_aligned(name, 8, sk=args[3], bias=args[4])
     out = torch.empty((b, oh, ow, cout), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -359,7 +330,7 @@ def front_weights(p) -> tuple:
                  f"{key} kernel must be {list(shape)}, got {list(got)}")
     ln = p["MLPBlock_1"]["LayerNorm_0"]
     kq0, sk0 = dk._quant_phases(p["Conv_0"]["kernel"])
-    return (_f32(ln["scale"]), _f32(ln["bias"]), pack_k_major(kq0), sk0,
+    return (_f32(ln["scale"]), _f32(ln["bias"]), dk.pack_k_major(kq0), sk0,
             _f32(p["Conv_0"]["bias"]), *_gn(p, "GroupNorm2d_0"))
 
 
@@ -368,7 +339,7 @@ def tail_weights(p) -> tuple:
     per-cout int8, K-major, the GN1/GN2 parameters, Conv_3 in f32."""
     kq1, sk1 = _quant_cout(p["Conv_1"]["kernel"])
     kq2, sk2 = _quant_cout(p["Conv_2"]["kernel"])
-    kq1, kq2 = pack_k_major(kq1), pack_k_major(kq2)
+    kq1, kq2 = dk.pack_k_major(kq1), dk.pack_k_major(kq2)
     return (kq1, sk1, _f32(p["Conv_1"]["bias"]), *_gn(p, "GroupNorm2d_1"),
             kq2, sk2, _f32(p["Conv_2"]["bias"]), *_gn(p, "GroupNorm2d_2"),
             _f32(p["Conv_3"]["kernel"]), _f32(p["Conv_3"]["bias"]))
