@@ -16,13 +16,21 @@ Phases, each printing lines with the elapsed seconds:
    f32 and bf16 epilogues) and in B's and D's ``__dp4a`` bodies: it fails
    unless every ``conv_mma_kernel`` has ``IGMMA`` and no ``IMMA`` or
    ``IDP4A``;
-3. kernel A (LN + leaky + int8) against its plain version at [256, 92160];
+3. kernel A (LN + leaky + int8) against its plain version at [256, 92160]
+   and at the w=0.125 student's [256, 11520] (from a seeded stream of its
+   own), each launched twice: the rerun bit-identical, both launches in
+   thread-block clusters of the launch plan's k (``cluster_launches``);
+   and bit for bit equal to an IEEE float32 numpy reference at [64, 92160]
+   on inputs whose sums are exact in any order (pairs of small integers
+   +v, -v), which holds its quantise pass's division to IEEE's;
 4. kernel B (up2 + conv4 int8) against its plain version, bit for bit in f32
    and bf16, at [64, 18, 10, 512] -> 256 with the teacher's Conv_0 weights
    (on the int8 tensor cores) and at a narrow [4, 5, 3, 36] -> 70 (its
    ``__dp4a`` body);
 5. kernel C (GN + leaky + int8) against its plain version at [64, 35, 19, 256]
-   with the teacher's GroupNorm2d_0 parameters;
+   with the teacher's GroupNorm2d_0 parameters and at the student's
+   [64, 35, 19, 32] (a stream of its own), checked as A is, and bit for
+   bit on small-integer inputs at [64, 35, 19, 256];
 6. kernel D (row-resize conv4 int8) against its plain version, bit for bit
    in f32 and bf16, at [64, 35, 30, 256] -> 128 with the teacher's Conv_1
    weights (on the tensor cores) and at a narrow [4, 35, 30, 32] -> 32;
@@ -41,12 +49,17 @@ Phases, each printing lines with the elapsed seconds:
    path, ``"int8_pallas_ab"`` (kernels A, B), ``"int8_pallas"`` (A, B, C,
    D), ``"int8_fused_front"`` (G) and ``"int8_fused"`` (H): launch counts of
    each path's kernels (set to 0 just before the path runs, read just after;
-   each must be > 0, and every launch of B and D on the tensor cores),
+   each must be > 0, every launch of B and D on the tensor cores, and
+   every launch of A and C in clusters of its plan's k),
    output checks, agreement with ``"int8"``, rate and peak memory of every
    path. The teacher's router sends every condition to
    expert 1, so the serve routes with a router drawn from ``--seed`` and
    fails unless every expert decodes showers;
-9. kernel times with CUDA events at the serving tile (64 rows); B and D
+9. kernel times with CUDA events at the serving tile (64 rows); A and C
+   replayed in a CUDA graph (they take less time on the card than one
+   launch through the host), beside the host loop's time, and at
+   each cluster size k of 1, 2, 4, 8 and 1, 7 and 64 rows, beside
+   ``cudaOccupancyMaxActiveClusters`` (the sweep that chose the plan); B and D
    beside, as a yardstick the port never calls, ``torch._int_mm`` on pre-built
    [M, K] x [K, N] matrices of the same GEMM shapes (no im2col); beside G
    and H, the ported chains that compute the same functions: kernels A -> B
@@ -73,12 +86,15 @@ Phases, each printing lines with the elapsed seconds:
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
-per kernel and the device's idle share of the serve's wall time.
+of the 15 costliest kernels and of every kernel of the port below them,
+and the device's idle share of the serve's wall time.
 
 The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
 ``int8`` gate (E), of the all-expert path (F) and of the ``int8_fused_front``
-(G) and ``int8_fused`` (H) serves, B's and D's ``int_mm_ms``, and G's and H's ``conv_ms`` (their convs' times); the last
+(G) and ``int8_fused`` (H) serves, A's and C's ``k_sweep`` and
+``eager_ms`` (the host loop's time), B's and D's
+``int_mm_ms``, and G's and H's ``conv_ms`` (their convs' times); the last
 line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line is printed. Without a CUDA device the script exits with code 2
@@ -107,6 +123,8 @@ F_SHOWERS = FLOAT_SHOWERS = 4096
 EF_TIME_ROWS = 16384
 SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
 A_ROWS, B_ROWS, C_ROWS, D_ROWS, GH_ROWS, TIME_ROWS = 256, 64, 64, 64, 64, 64
+STUDENT_F, STUDENT_C = 11520, 32  # the w=0.125 student's Dense_1 and GroupNorm2d_0 widths
+SWEEP_ROWS = (1, 7, 64)  # phase 9's cluster-size sweep of A and C
 KERNEL_PATHS = {  # precision -> the kernels its decode launches
     "int8_pallas_ab": ("ln_leaky_rowquant", "up2_conv4_int8"),
     "int8_pallas": ("ln_leaky_rowquant", "up2_conv4_int8", "gn_leaky_rowquant",
@@ -154,19 +172,27 @@ def kernel_wrappers():
     }
 
 
+SUB_COUNTS = {"mma_launches": "on conv_mma", "cluster_launches": "on clusters"}
+
+
 def reset_counts(wrappers):
-    """Set every launch count to 0 (B's and D's tensor-core counts too)."""
+    """Set every launch count to 0 (B's and D's tensor-core counts and A's
+    and C's cluster counts too)."""
     for w in wrappers.values():
         w.launches = 0
-        if hasattr(w, "mma_launches"):
-            w.mma_launches = 0
+        for attr in SUB_COUNTS:
+            if hasattr(w, attr):
+                setattr(w, attr, 0)
 
 
 def read_counts(wrappers):
-    """``{name: launches}``, and ``{name + " on conv_mma": n}`` for B and D."""
+    """``{name: launches}``, with ``{name + " on conv_mma": n}`` for B and D
+    and ``{name + " on clusters": n}`` for A and C (launches in clusters of
+    the plan's k)."""
     counts = {name: w.launches for name, w in wrappers.items()}
-    counts.update({f"{name} on conv_mma": w.mma_launches for name, w in wrappers.items()
-                   if hasattr(w, "mma_launches")})
+    for attr, label in SUB_COUNTS.items():
+        counts.update({f"{name} {label}": getattr(w, attr) for name, w in wrappers.items()
+                       if hasattr(w, attr)})
     return counts
 
 
@@ -208,7 +234,109 @@ def narrow_conv_inputs(rng, rows, h, w, cin, cout, dev):
     return xq, kernel, sx, bias
 
 
-def check_kernel_a(gp, rng, dev, rows):
+def norm_sample(x):
+    """``(kind, sample)`` of :func:`norm_quant_plan` for kernel A's ``[B, F]``
+    or kernel C's ``[B, H, W, C]`` input."""
+    if x.ndim == 2:
+        return "ln", (x.shape[1],)
+    return "gn", (x.shape[1] * x.shape[2], x.shape[3])
+
+
+def check_norm_quant(phase, what, fn, plain, args, s_rtol, dev):
+    """Kernel A or C (``fn``) against its plain version on ``args``: s within
+    ``s_rtol``, |q - q_plain| <= 1 with flips under 1%; a second launch
+    bit-identical to the first; on the card, both launches in clusters of
+    the plan's k. Returns the largest |q - q_plain|."""
+    import torch
+
+    from zdcsim_torch.ops import decode_kernels as dk
+
+    n0, c0 = fn.launches, fn.cluster_launches
+    q, s = fn(*args)
+    q2, s2 = fn(*args)
+    qp, sp = plain(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    s_rel = ((s - sp).abs() / sp).max().item()
+    diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
+    q_max, flips = diff.max().item(), (diff != 0).float().mean().item()
+    rerun = torch.equal(q, q2) and torch.equal(s, s2)
+    n, nc = fn.launches - n0, fn.cluster_launches - c0
+    x = args[0]
+    kind, sample = norm_sample(x)
+    plan = dk.norm_quant_plan(kind, x.shape[0], sample, x.element_size())
+    log(phase, f"{what} {str(x.dtype)[6:]}: max s rel err {s_rel:.3e} (rtol {s_rtol:g}), "
+        f"max |q - q_plain| {q_max} (<= 1), flips {flips:.3e} (< 1%); rerun bit-identical "
+        f"{rerun}; {nc} of {n} launches in clusters of the plan's k={plan.k} ({plan.threads} "
+        f"threads, {plan.smem} B shared, share {'kept' if plan.kept else 'streamed'})")
+    if not (s_rel <= s_rtol and q_max <= 1 and flips < 0.01 and rerun):
+        fail(f"{fn.__name__} {what} disagrees with its plain version or with its rerun")
+    if dev.type == "cuda" and (n != 2 or nc != 2):
+        fail(f"{fn.__name__} {what}: {nc} of {n} launches in clusters of the plan's k")
+    return float(q_max)
+
+
+def exact_sum_inputs(rng, shape, dev):
+    """bf16 small integers, each row of A's ``[B, F]`` made of pairs +v, -v:
+    every sum of A's and C's statistics is exact in any order."""
+    import numpy as np
+    import torch
+
+    if len(shape) == 2:
+        half = rng.integers(-8, 9, size=(shape[0], shape[1] // 2))
+        vals = rng.permuted(np.concatenate([half, -half], axis=1), axis=1)
+    else:
+        vals = rng.integers(-8, 9, size=shape)
+    return torch.as_tensor(vals.astype(np.float32)).to(dev, torch.bfloat16)
+
+
+def ieee_norm_quant(kind, x, scale, bias, groups=32):
+    """Kernel A's or C's function in numpy float32, each operation rounded
+    once as IEEE says (numpy's ``sqrt`` and ``/`` are; torch's CPU ``sqrt``
+    is not always): the reference on exact-sum inputs."""
+    import numpy as np
+
+    x = x.float().cpu().numpy()
+    scale, bias = scale.cpu().numpy(), bias.cpu().numpy()
+    b = x.shape[0]
+    if kind == "ln":
+        n = np.float32(x.shape[1])
+        d = x - x.sum(1, keepdims=True, dtype=np.float32) / n
+        rstd = np.float32(1) / np.sqrt((d * d).sum(1, keepdims=True, dtype=np.float32) / n
+                                       + np.float32(1e-6))
+        z = d * rstd * scale + bias
+    else:
+        _, h, w, c = x.shape
+        xg = x.reshape(b, h * w, groups, c // groups)
+        n = np.float32(h * w * (c // groups))
+        mu = xg.sum((1, 3), dtype=np.float32) / n
+        var = np.maximum((xg * xg).sum((1, 3), dtype=np.float32) / n - mu * mu, np.float32(0))
+        rstd = np.float32(1) / np.sqrt(var + np.float32(1e-6))
+        z = ((xg - mu[:, None, :, None]) * rstd[:, None, :, None]).reshape(x.shape) * scale + bias
+    z = np.where(z >= 0, z, np.float32(0.1) * z).reshape(b, -1)
+    s = np.maximum(np.abs(z).max(1, keepdims=True) / np.float32(127), np.float32(1e-12))
+    return np.clip(np.round(z / s), -127, 127).astype(np.int8), s
+
+
+def check_exact(phase, fn, args):
+    """Kernel A or C on exact-sum inputs against :func:`ieee_norm_quant`: q
+    and s bit for bit, which holds every rounding step, the quantise pass's
+    division among them, to IEEE's."""
+    import numpy as np
+
+    x = args[0]
+    q, s = fn(*args)
+    q_ref, s_ref = ieee_norm_quant("ln" if x.ndim == 2 else "gn", *args)
+    same = (np.array_equal(q.cpu().numpy().reshape(q_ref.shape), q_ref)
+            and np.array_equal(s.cpu().numpy(), s_ref))
+    log(phase, f"exact-sum {list(x.shape)} {str(x.dtype)[6:]}: equal to the IEEE float32 "
+        f"reference bit for bit {same}")
+    if not same:
+        fail(f"{fn.__name__} differs from the IEEE float32 reference on exact-sum inputs")
+
+
+def check_kernel_a(gp, rng, dev, rows, seed):
+    import numpy as np
     import torch
 
     from zdcsim_torch.ops import decode_kernels as dk
@@ -219,18 +347,20 @@ def check_kernel_a(gp, rng, dev, rows):
     bias = torch.as_tensor(ln["bias"][0]).to(dev, torch.bfloat16).float()
     f = scale.shape[0]
     y = torch.as_tensor(rng.standard_normal((rows, f), dtype="float32") * 3.0).to(dev, torch.bfloat16)
-    q, s = dk.ln_leaky_rowquant(y, scale, bias)
-    qp, sp = dk.ln_leaky_rowquant_plain(y, scale, bias)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    s_rel = ((s - sp).abs() / sp).max().item()
-    diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
-    q_max, flips = diff.max().item(), (diff != 0).float().mean().item()
-    log("3 kernel A", f"[{rows}, {f}] bf16: max s rel err {s_rel:.3e} (rtol 1e-6), "
-        f"max |q - q_plain| {q_max} (<= 1), flips {flips:.3e} (< 1%)")
-    if not (s_rel <= 1e-6 and q_max <= 1 and flips < 0.01):
-        fail("kernel A disagrees with its plain version")
-    return y, scale, bias, float(q_max)
+    q_max = check_norm_quant("3 kernel A", f"[{rows}, {f}]", dk.ln_leaky_rowquant,
+                             dk.ln_leaky_rowquant_plain, (y, scale, bias), 1e-6, dev)
+    # the w=0.125 student's width, from a stream of its own, so that the
+    # serve's conditions and router do not change
+    srng = np.random.default_rng([seed, 3])
+    sf = STUDENT_F
+    ys = torch.as_tensor(srng.standard_normal((rows, sf), dtype="float32") * 3.0).to(dev, torch.bfloat16)
+    ss = torch.as_tensor(srng.standard_normal(sf, dtype="float32") * 0.5 + 1.0).to(dev)
+    bs = torch.as_tensor(srng.standard_normal(sf, dtype="float32") * 0.2).to(dev)
+    check_norm_quant("3 kernel A", f"student [{rows}, {sf}]", dk.ln_leaky_rowquant,
+                     dk.ln_leaky_rowquant_plain, (ys, ss, bs), 1e-6, dev)
+    check_exact("3 kernel A", dk.ln_leaky_rowquant,
+                (exact_sum_inputs(srng, (min(rows, TIME_ROWS), f), dev), scale, bias))
+    return y, scale, bias, q_max
 
 
 def check_kernel_b(gp, rng, dev, rows, seed):
@@ -259,7 +389,8 @@ def check_kernel_b(gp, rng, dev, rows, seed):
     return xq[:TIME_ROWS], sx[:TIME_ROWS], kp, sk, bias, err
 
 
-def check_kernel_c(gp, rng, dev, rows):
+def check_kernel_c(gp, rng, dev, rows, seed):
+    import numpy as np
     import torch
 
     from zdcsim_torch.ops import decode_kernels as dk
@@ -270,18 +401,20 @@ def check_kernel_c(gp, rng, dev, rows):
     c = scale.shape[0]
     x = torch.as_tensor(rng.standard_normal((rows, 35, 19, c), dtype="float32") * 2.0
                         + 0.5).to(dev, torch.bfloat16)
-    q, s = dk.gn_leaky_rowquant(x, scale, bias)
-    qp, sp = dk.gn_leaky_rowquant_plain(x, scale, bias)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    s_rel = ((s - sp).abs() / sp).max().item()
-    diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
-    q_max, flips = diff.max().item(), (diff != 0).float().mean().item()
-    log("5 kernel C", f"[{rows}, 35, 19, {c}] bf16: max s rel err {s_rel:.3e} (rtol 1e-5), "
-        f"max |q - q_plain| {q_max} (<= 1), flips {flips:.3e} (< 1%)")
-    if not (s_rel <= 1e-5 and q_max <= 1 and flips < 0.01):
-        fail("kernel C disagrees with its plain version")
-    return x[:TIME_ROWS], scale, bias, float(q_max)
+    q_max = check_norm_quant("5 kernel C", f"[{rows}, 35, 19, {c}]", dk.gn_leaky_rowquant,
+                             dk.gn_leaky_rowquant_plain, (x, scale, bias), 1e-5, dev)
+    # the w=0.125 student's GroupNorm width, from a stream of its own
+    srng = np.random.default_rng([seed, 5])
+    sc_ = STUDENT_C
+    xs = torch.as_tensor(srng.standard_normal((rows, 35, 19, sc_), dtype="float32") * 2.0
+                         + 0.5).to(dev, torch.bfloat16)
+    ss = torch.as_tensor(np.abs(srng.standard_normal(sc_, dtype="float32")) + 0.5).to(dev)
+    bs = torch.as_tensor(srng.standard_normal(sc_, dtype="float32") * 0.3).to(dev)
+    check_norm_quant("5 kernel C", f"student [{rows}, 35, 19, {sc_}]", dk.gn_leaky_rowquant,
+                     dk.gn_leaky_rowquant_plain, (xs, ss, bs), 1e-5, dev)
+    check_exact("5 kernel C", dk.gn_leaky_rowquant,
+                (exact_sum_inputs(srng, (rows, 35, 19, c), dev), scale, bias))
+    return x[:TIME_ROWS], scale, bias, q_max
 
 
 def check_kernel_d(gp, rng, dev, rows, seed):
@@ -567,6 +700,15 @@ def serve(gp, rp, rng, dev, n, batch, tile, card, seed, profile=False):
         off_mma = [k for k in names if counts.get(f"{k} on conv_mma", counts[k]) != counts[k]]
         if dev.type == "cuda" and off_mma:
             fail(f"the {precision} path ran {off_mma} off the tensor cores: {counts}")
+        # A and C: every launch in clusters of its plan's k (the tiles' k
+        # vary with their rows: 64 rows take k=2, a short last tile more)
+        for k in names:
+            if f"{k} on clusters" in counts:
+                log("8 serve", f"{precision} {k}: {counts[k + ' on clusters']} of {counts[k]} "
+                    f"launches in clusters of the plan's k")
+        off_plan = [k for k in names if counts.get(f"{k} on clusters", counts[k]) != counts[k]]
+        if dev.type == "cuda" and off_plan:
+            fail(f"the {precision} path ran {off_plan} off their plan's cluster size: {counts}")
         if min(used) <= 0:
             fail(f"the serve did not decode with every expert: {used}")
         imgs_np, ids_np = imgs.cpu().numpy(), ids.cpu().numpy()
@@ -620,8 +762,13 @@ def profile_serve(eng, cond, noise, card, precision):
     total = sum(v[1] for v in per_kernel.values())
     log("profile", f"{precision} serve of {cond.shape[0]} showers: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f} [{card}]")
-    for name, (count, us) in sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:15]:
-        print(f"  {us / 1e3:9.2f} ms {100 * us / total:5.1f}% {count:6d}x  {name[:110]}", flush=True)
+    # the 15 costliest kernels, then those in anonymous namespaces, where every
+    # kernel of the port lives (and a few of PyTorch's)
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
+    for i, (name, (count, us)) in enumerate(ranked):
+        if i < 15 or name.startswith("void (anonymous namespace)::"):
+            print(f"  {us / 1e3:9.2f} ms {100 * us / total:5.1f}% {count:6d}x  {name[:110]}",
+                  flush=True)
 
 
 def time_ms(fn, iters):
@@ -637,6 +784,32 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters):
+    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph, the graph replayed 5 times between CUDA events. A and C take
+    10-30 us on the card, less than the host takes to launch one through
+    its wrapper, so :func:`time_ms` measures the host there; replaying a
+    graph does not."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
 
 
 def in_grid_taps(h, w):
@@ -714,7 +887,8 @@ def time_kernels(a_in, b_in, c_in, d_in, launches, errs, card):
     y, scale, bias = a_in
     y = y[:TIME_ROWS].contiguous()
     rows, f = y.shape
-    a_ms = time_ms(lambda: dk.ln_leaky_rowquant(y, scale, bias), 50)
+    a_ms = graph_ms(lambda: dk.ln_leaky_rowquant(y, scale, bias), 50)
+    a_eager = time_ms(lambda: dk.ln_leaky_rowquant(y, scale, bias), 50)
     a_plain = time_ms(lambda: dk.ln_leaky_rowquant_plain(y, scale, bias), 10)
     a_bytes = rows * f * 2 + 2 * f * 4 + rows * f + rows * 4
     a_ops = rows * f * 13  # mean 1, variance 3, normalise+affine 4, leaky 1, amax 1, quantise 3
@@ -731,7 +905,8 @@ def time_kernels(a_in, b_in, c_in, d_in, launches, errs, card):
 
     x, gscale, gbias = c_in
     x = x.contiguous()
-    c_ms = time_ms(lambda: dk.gn_leaky_rowquant(x, gscale, gbias), 50)
+    c_ms = graph_ms(lambda: dk.gn_leaky_rowquant(x, gscale, gbias), 50)
+    c_eager = time_ms(lambda: dk.gn_leaky_rowquant(x, gscale, gbias), 50)
     c_plain = time_ms(lambda: dk.gn_leaky_rowquant_plain(x, gscale, gbias), 10)
     c_bytes = x.numel() * 2 + 2 * x.shape[-1] * 4 + x.numel() + x.shape[0] * 4
     c_ops = x.numel() * 13  # sums 3, normalise+affine 4, leaky 1, amax 1, quantise 3, +1 rounding
@@ -774,12 +949,44 @@ def time_kernels(a_in, b_in, c_in, d_in, launches, errs, card):
             f"torch._int_mm on pre-built [M, K, N] {shapes}: {mm:.4f} ms "
             f"({mm_tops:.1f} TOP/s); {launches[r['name'] + ' on conv_mma']} of its "
             f"{r['launches']} launches on the tensor cores [{card}]")
+    for r, eager in ((rec[0], a_eager), (rec[2], c_eager)):
+        r["eager_ms"] = eager
+        log("9 kernel times", f"{r['name']}: {r['ms']:.4f} ms a launch replayed in a CUDA "
+            f"graph, {eager:.4f} ms a launch through the wrapper's host loop [{card}]")
     for r in rec:
         log("9 kernel times", f"{r['name']} at {TIME_ROWS} rows: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, {r['launches']} launches per "
             f"{N_SHOWERS} showers on the int8_pallas path [{card}]")
     return rec
+
+
+def sweep_clusters(rec, a_in, c_in, card):
+    """Phase 9, A and C: every cluster size of ``CLUSTER_SIZES`` at
+    ``SWEEP_ROWS`` rows of the serving shapes (:func:`graph_ms`), beside how many
+    such clusters the card holds at once; the plan's k is marked. Adds the
+    sweep to A's and C's records as ``k_sweep``."""
+    from zdcsim_torch.ops import decode_kernels as dk
+
+    for r, fn, (data, *params) in ((rec[0], dk.ln_leaky_rowquant, a_in),
+                                   (rec[2], dk.gn_leaky_rowquant, c_in)):
+        kind, sample = norm_sample(data)
+        sweep = []
+        for rows in SWEEP_ROWS:
+            xs = data[:rows].contiguous()
+            plan_k = dk.norm_quant_plan(kind, rows, sample, xs.element_size()).k
+            for k in dk.CLUSTER_SIZES:
+                p = dk.norm_quant_plan(kind, rows, sample, xs.element_size(), k)
+                ms = graph_ms(lambda: fn(xs, *params, k=k), 50)
+                n = dk.norm_quant_max_clusters(kind, xs.dtype, sample, k)
+                sweep.append({"rows": rows, "k": k, "ms": ms, "max_active_clusters": n,
+                              "kept": p.kept, "plan": k == plan_k})
+                log("9 cluster sweep", f"{r['name']} [{rows}, {', '.join(map(str, sample))}] "
+                    f"{str(xs.dtype)[6:]} k={k}: {ms:.4f} ms; {n} such clusters fit at once; "
+                    f"{p.threads} threads, {p.smem} B shared, share "
+                    f"{'kept' if p.kept else 'streamed'}{'  <- plan' if k == plan_k else ''} "
+                    f"[{card}]")
+        r["k_sweep"] = sweep
 
 
 def time_conv_stages(conv_in, card):
@@ -1151,12 +1358,12 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     gp, _, rp, _ = load_serving_artifact(TEACHER)
     log("3 kernel A", "teacher artifact loaded")
-    a_in = check_kernel_a(gp, rng, dev, 8 if rehearse else A_ROWS)
+    a_in = check_kernel_a(gp, rng, dev, 8 if rehearse else A_ROWS, args.seed)
     b_in = check_kernel_b(gp, rng, dev, 8 if rehearse else B_ROWS, args.seed)
     # the later checks draw from a stream of their own, so the serve's
     # conditions and router stay those that phases 3-4 leave
     rng_cd = np.random.default_rng([args.seed, 1])
-    c_in = check_kernel_c(gp, rng_cd, dev, 4 if rehearse else C_ROWS)
+    c_in = check_kernel_c(gp, rng_cd, dev, 4 if rehearse else C_ROWS, args.seed)
     d_in = check_kernel_d(gp, rng_cd, dev, 4 if rehearse else D_ROWS, args.seed)
     check_conv_i8(gp, rng_cd, dev, 1 if rehearse else 2)
     gh_in = check_kernels_gh(gp, rng_cd, dev, 2 if rehearse else GH_ROWS)
@@ -1173,6 +1380,7 @@ def main(argv=None) -> int:
                              args.seed, args.profile)
     rec = time_kernels(a_in[:3], b_in[:5], c_in[:3], d_in[:6], launches["int8_pallas"],
                        (a_in[3], b_in[5], c_in[3], d_in[6]), card)
+    sweep_clusters(rec, a_in[:3], c_in[:3], card)
     conv_ms = time_conv_stages(conv_in, card)
     rec += time_fused(*gh_in[:4], launches, gh_in[4:], conv_ms, card)
     cond, real, e_err = gate_data(dev, rehearse)

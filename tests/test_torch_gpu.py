@@ -28,23 +28,169 @@ def cuda():
     return torch.device("cuda")
 
 
+def check_norm_quant(fn, plain, args, kind, sample, s_rtol):
+    """Kernel A or C against its plain version: s within ``s_rtol``, |q -
+    q_plain| <= 1 with flips under 1% (the sums run in another order); a
+    second launch bit-identical; both launches in clusters of the plan's k
+    with the plan's body."""
+    x = args[0]
+    plan = dk.norm_quant_plan(kind, x.shape[0], sample, x.element_size())
+    n0, c0 = fn.launches, fn.cluster_launches
+    q, s = fn(*args)
+    q2, s2 = fn(*args)
+    qp, sp = plain(*args)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.cluster_launches) == (n0 + 2, c0 + 2)
+    assert q.shape == x.shape and q.dtype == torch.int8 and s.shape == (x.shape[0], 1)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    torch.testing.assert_close(s, sp, rtol=s_rtol, atol=0)
+    # bounds of tests/test_pallas_decode.py:36-44: the sums run in another order
+    diff = (q.int() - qp.int()).abs()
+    assert diff.max().item() <= 1 and (diff != 0).float().mean().item() < 0.01
+    return plan
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,f", [(3, 1000), (16, 92160)])
+@pytest.mark.parametrize("b,f", [(b, f) for b in (1, 7, 64, 200)
+                                 for f in (1000, 1001, 11520, 92160)] + [(3, 600000)])
 def test_ln_leaky_rowquant_kernel_matches_plain(cuda, dtype, b, f):
+    """1001, not a multiple of 4, runs one element a thread; 1000 splits
+    into shares that F does not fill; 600000 does not fit a block's shared
+    memory at k = 8 and streams."""
     rng = np.random.default_rng(b + f)
     y = torch.as_tensor(rng.standard_normal((b, f), dtype=np.float32) * 3).to(cuda, dtype)
     scale = torch.as_tensor(rng.standard_normal(f, dtype=np.float32) * 0.5 + 1).to(cuda)
     bias = torch.as_tensor(rng.standard_normal(f, dtype=np.float32) * 0.2).to(cuda)
-    n0 = dk.ln_leaky_rowquant.launches
-    q, s = dk.ln_leaky_rowquant(y, scale, bias)
-    qp, sp = dk.ln_leaky_rowquant_plain(y, scale, bias)
-    torch.cuda.synchronize()
-    assert dk.ln_leaky_rowquant.launches == n0 + 1
-    assert q.shape == (b, f) and q.dtype == torch.int8 and s.shape == (b, 1)
-    torch.testing.assert_close(s, sp, rtol=1e-6, atol=0)
-    # bounds of tests/test_pallas_decode.py:36-44: the sums run in another order
-    diff = (q.int() - qp.int()).abs()
-    assert diff.max().item() <= 1 and (diff != 0).float().mean().item() < 0.01
+    plan = check_norm_quant(dk.ln_leaky_rowquant, dk.ln_leaky_rowquant_plain, (y, scale, bias),
+                            "ln", (f,), 1e-6)
+    assert plan.kept == (f != 600000)
+
+
+def exact_sum_inputs(rng, shape, dtype, cuda):
+    """Small integers, each row of A's ``[B, F]`` made of pairs +v, -v: every
+    sum of the kernels' statistics is exact in any order."""
+    if len(shape) == 2:
+        b, f = shape
+        half = rng.integers(-8, 9, size=(b, f // 2))
+        vals = rng.permuted(np.concatenate([half, -half], axis=1), axis=1)
+    else:
+        vals = rng.integers(-8, 9, size=shape)
+    return torch.as_tensor(vals.astype(np.float32)).to(cuda, dtype)
+
+
+def ieee_norm_quant(kind, x, scale, bias, groups=32):
+    """A's or C's function in numpy float32, every operation rounded once as
+    IEEE says (numpy's ``sqrt`` and ``/`` are; torch's CPU ``sqrt`` is not
+    always): the reference for inputs whose sums are exact."""
+    x = x.float().cpu().numpy()
+    scale, bias = scale.cpu().numpy(), bias.cpu().numpy()
+    b = x.shape[0]
+    if kind == "ln":
+        n = np.float32(x.shape[1])
+        d = x - x.sum(1, keepdims=True, dtype=np.float32) / n
+        rstd = np.float32(1) / np.sqrt((d * d).sum(1, keepdims=True, dtype=np.float32) / n
+                                       + np.float32(1e-6))
+        z = d * rstd * scale + bias
+        axes = (1,)
+    else:
+        _, h, w, c = x.shape
+        xg = x.reshape(b, h * w, groups, c // groups)
+        n = np.float32(h * w * (c // groups))
+        mu = xg.sum((1, 3), dtype=np.float32) / n
+        var = np.maximum((xg * xg).sum((1, 3), dtype=np.float32) / n - mu * mu, np.float32(0))
+        rstd = np.float32(1) / np.sqrt(var + np.float32(1e-6))
+        z = ((xg - mu[:, None, :, None]) * rstd[:, None, :, None]).reshape(x.shape) * scale + bias
+        axes = (1, 2, 3)
+    z = np.where(z >= 0, z, np.float32(0.1) * z)
+    s = np.maximum(np.abs(z).max(axes).reshape(b, 1) / np.float32(127), np.float32(1e-12))
+    q = np.clip(np.round(z / s.reshape((b,) + (1,) * (z.ndim - 1))), -127, 127).astype(np.int8)
+    return q, s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 7, 64])
+@pytest.mark.parametrize("kind,shape", [("ln", (92160,)), ("ln", (11520,)), ("ln", (1000,)),
+                                        ("gn", (35, 19, 256)), ("gn", (35, 19, 32))])
+def test_norm_quant_kernels_are_ieee_where_sums_are_exact(cuda, dtype, b, kind, shape):
+    """On inputs whose sums are exact in any order, A and C equal the IEEE
+    float32 reference bit for bit: this holds every rounding step, the
+    quantise pass's division (a reciprocal and one FMA correction) among
+    them, to IEEE's."""
+    rng = np.random.default_rng([b, *shape])
+    x = exact_sum_inputs(rng, (b, *shape), dtype, cuda)
+    c = shape[-1]
+    scale = torch.as_tensor(rng.standard_normal(c, dtype=np.float32) * 0.5 + 1).to(cuda)
+    bias = torch.as_tensor(rng.standard_normal(c, dtype=np.float32) * 0.2).to(cuda)
+    fn = dk.ln_leaky_rowquant if kind == "ln" else dk.gn_leaky_rowquant
+    q, s = fn(x, scale, bias)
+    q_ref, s_ref = ieee_norm_quant(kind, x, scale, bias)
+    assert np.array_equal(s.cpu().numpy(), s_ref) and np.array_equal(q.cpu().numpy(), q_ref)
+
+
+def test_ln_leaky_rowquant_kernel_takes_an_unaligned_view(cuda):
+    """A contiguous view that starts 2 bytes into its storage runs the
+    one-element path: no copy, the same bounds."""
+    b, f = 5, 11520
+    rng = np.random.default_rng(5)
+    base = torch.as_tensor(rng.standard_normal(b * f + 1, dtype=np.float32) * 3).to(cuda, torch.bfloat16)
+    y = base[1:].view(b, f)
+    assert y.data_ptr() % 16
+    scale = torch.as_tensor(rng.standard_normal(f, dtype=np.float32) * 0.5 + 1).to(cuda)
+    bias = torch.as_tensor(rng.standard_normal(f, dtype=np.float32) * 0.2).to(cuda)
+    check_norm_quant(dk.ln_leaky_rowquant, dk.ln_leaky_rowquant_plain, (y, scale, bias),
+                     "ln", (f,), 1e-6)
+
+
+@pytest.mark.parametrize("k", dk.CLUSTER_SIZES)
+def test_norm_quant_kernels_match_plain_at_every_cluster_size(cuda, k):
+    """Each cluster size of the sweep, at the serving tile of A and of C."""
+    rng = np.random.default_rng(k)
+    y = torch.as_tensor(rng.standard_normal((64, 92160), dtype=np.float32) * 3).to(cuda, torch.bfloat16)
+    x = torch.as_tensor(rng.standard_normal((64, 35, 19, 256), dtype=np.float32) * 2 + 0.5
+                        ).to(cuda, torch.bfloat16)
+    for fn, plain, inp, rtol in ((dk.ln_leaky_rowquant, dk.ln_leaky_rowquant_plain, y, 1e-6),
+                                 (dk.gn_leaky_rowquant, dk.gn_leaky_rowquant_plain, x, 1e-5)):
+        c = inp.shape[-1]
+        scale = torch.as_tensor(np.abs(rng.standard_normal(c, dtype=np.float32)) + 0.5).to(cuda)
+        bias = torch.as_tensor(rng.standard_normal(c, dtype=np.float32) * 0.3).to(cuda)
+        q, s = fn(inp, scale, bias, k=k)
+        q2, s2 = fn(inp, scale, bias, k=k)
+        qp, sp = plain(inp, scale, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q2) and torch.equal(s, s2)
+        torch.testing.assert_close(s, sp, rtol=rtol, atol=0)
+        diff = (q.int() - qp.int()).abs()
+        assert diff.max().item() <= 1 and (diff != 0).float().mean().item() < 0.01
+
+
+def test_norm_quant_entry_points_refuse_other_cluster_sizes(cuda):
+    """The C entry points refuse a k outside 1, 2, 4, 8 with
+    cudaErrorInvalidValue (1) and launch nothing; the card holds clusters
+    of every plan at the serving shapes."""
+    import ctypes
+
+    from zdcsim_torch.ops import _build
+
+    lib = _build.library()
+    y = torch.zeros((2, 64), dtype=torch.bfloat16, device=cuda)
+    x = torch.zeros((2, 5, 3, 64), dtype=torch.bfloat16, device=cuda)
+    par = torch.ones(64, device=cuda)
+    q = torch.empty((2, 64), dtype=torch.int8, device=cuda)
+    s = torch.empty(2, device=cuda)
+    ck, kept = ctypes.c_int(-1), ctypes.c_int(-1)
+    for k in (0, 3, 16):
+        st = lib.zdc_ln_leaky_rowquant(y.data_ptr(), 1, par.data_ptr(), par.data_ptr(),
+                                       q.data_ptr(), s.data_ptr(), 2, 64, k, 32,
+                                       ctypes.addressof(ck), ctypes.addressof(kept), 0)
+        assert (st, ck.value) == (1, 0)
+        st = lib.zdc_gn_leaky_rowquant(x.data_ptr(), 1, par.data_ptr(), par.data_ptr(),
+                                       q.data_ptr(), s.data_ptr(), 2, 15, 64, 32, k, 512,
+                                       ctypes.addressof(ck), ctypes.addressof(kept), 0)
+        assert (st, ck.value) == (1, 0)
+    for kind, sample in (("ln", (92160,)), ("ln", (11520,)), ("gn", (665, 256)), ("gn", (665, 32))):
+        for b in (1, 7, 64):
+            k = dk.norm_quant_plan(kind, b, sample, 2).k
+            assert dk.norm_quant_max_clusters(kind, torch.bfloat16, sample, k) > 0
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout", [(4, 6, 4, 16, 8), (2, 5, 3, 36, 70),
@@ -97,24 +243,20 @@ def test_fast_generator_pallas_ab_card_matches_cpu(cuda):
     assert np.abs(out - ref).max() < 0.05 * np.abs(ref).max() + 0.05
 
 
-@pytest.mark.parametrize("dtype,b,h,w,c", [(torch.float32, 3, 5, 3, 64),
-                                           (torch.bfloat16, 16, 35, 19, 256),
-                                           (torch.bfloat16, 5, 35, 19, 32)])
+@pytest.mark.parametrize("b", [1, 7, 64, 200])
+@pytest.mark.parametrize("dtype,h,w,c", [(torch.bfloat16, 35, 19, 256), (torch.float32, 35, 19, 256),
+                                         (torch.bfloat16, 35, 19, 32), (torch.float32, 5, 3, 64),
+                                         (torch.float32, 64, 56, 128)])
 def test_gn_leaky_rowquant_kernel_matches_plain(cuda, dtype, b, h, w, c):
+    """A 64x56x128 f32 sample (1.8 MB) does not fit a block's shared memory
+    at k = 8 and streams."""
     rng = np.random.default_rng(b + c)
     x = torch.as_tensor(rng.standard_normal((b, h, w, c), dtype=np.float32) * 2 + 0.5).to(cuda, dtype)
     scale = torch.as_tensor(np.abs(rng.standard_normal(c, dtype=np.float32)) + 0.5).to(cuda)
     bias = torch.as_tensor(rng.standard_normal(c, dtype=np.float32) * 0.3).to(cuda)
-    n0 = dk.gn_leaky_rowquant.launches
-    q, s = dk.gn_leaky_rowquant(x, scale, bias)
-    qp, sp = dk.gn_leaky_rowquant_plain(x, scale, bias)
-    torch.cuda.synchronize()
-    assert dk.gn_leaky_rowquant.launches == n0 + 1
-    assert q.shape == (b, h, w, c) and q.dtype == torch.int8 and s.shape == (b, 1)
-    torch.testing.assert_close(s, sp, rtol=1e-5, atol=0)
-    # the statistics are summed in another order: at most round-boundary flips
-    diff = (q.int() - qp.int()).abs()
-    assert diff.max().item() <= 1 and (diff != 0).float().mean().item() < 0.01
+    plan = check_norm_quant(dk.gn_leaky_rowquant, dk.gn_leaky_rowquant_plain, (x, scale, bias),
+                            "gn", (h * w, c), 1e-5)
+    assert plan.kept == (h * w * c * x.element_size() < 1 << 20)
 
 
 @pytest.mark.parametrize("b,w,cin,cout", [(2, 6, 8, 4), (65, 30, 256, 128), (3, 30, 32, 32),

@@ -17,37 +17,62 @@
 // samples of 35x19x256 bf16) the kernel must read 21.8 MB and write
 // 10.9 MB: about 9.8 us at 3.35 TB/s.
 //
-// Design: one block of 512 threads per sample. A sample (340 KB of bf16) is
-// larger than an SM's shared memory, so it is read three times (group sums;
-// y and its max; quantise, recomputing y); the 21.8 MB tile stays in the
-// 50 MB L2, so only the first pass goes to device memory. Each thread owns
-// one block of 8 consecutive channels (one 16-byte bf16 load) and a fixed
-// stride of pixels, so it keeps 8 per-channel sums in registers; the block
-// reduces them per channel in shared memory in a fixed order (no atomics:
-// the result does not vary from run to run), then per group. The
-// elementwise transform uses __fmul_rn/__fadd_rn/__fsub_rn so the compiler
-// does not contract it into FMAs: it rounds exactly as the plain version.
-// A first, simple kernel: with 64 samples only 64 of 132 SMs work.
+// Design: a thread-block cluster of k blocks serves each sample (grid b * k;
+// k from the launch plan, zdcsim_torch/ops/decode_kernels.py
+// norm_quant_plan: at the serving tile k = 2, 128 blocks of 512 threads, one
+// wave). Each block takes a contiguous range of ceil(HW / k) pixels and
+// copies it from device memory once, as it lies (bf16 or f32), into its
+// shared memory with 16-byte cp.async copies, all in flight at once: at the
+// serving tile 333 pixels x 256 channels, 170 KB of bf16. Each thread owns
+// one block of 8 consecutive channels and a fixed stride of pixels, so the
+// threads of a warp touch consecutive 16-byte chunks, and keeps 8
+// per-channel sums of x and x^2, minima and maxima in registers. The block
+// reduces them per channel in shared memory in a fixed order; the cluster
+// exchanges the per-channel partials through distributed shared memory and
+// every block adds them in rank order (cluster_norm.cuh), then forms the
+// same group mu and 1/sigma, bit for bit. max|y| needs no second pass and
+// no second exchange: y is monotone in x within a channel, so |y| peaks at
+// the channel's least or greatest x. Then the quantise pass from the kept
+// copy, 8 int8 (one 8-byte store) a thread at a time. A share that does not
+// fit in 227 KB (a sample above about 1.6 MB at k = 8) is streamed from
+// device memory in each pass instead. No atomics: a rerun is bit-identical.
+// The elementwise transform uses __fmul_rn/__fadd_rn/__fsub_rn so the
+// compiler does not contract it into FMAs: it rounds exactly as the plain
+// version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_norm.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kMaxC = 1024;  // C / 8 must divide 128
+constexpr int kMaxThreads = 1024;
 
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+// 8 channels of one pixel as they lie in memory: 16 bytes of bf16, 32 of f32.
+template <typename T>
+struct Pix8 {
+  uint4 w[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ Pix8<T> load_pix(const T* p) {
+  Pix8<T> v;
+  const uint4* p4 = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i) v.w[i] = p4[i];
+  return v;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+__device__ __forceinline__ void to_f32(const Pix8<float>& p, float v[8]) {
+  const float4* f4 = reinterpret_cast<const float4*>(p.w);
+  v[0] = f4[0].x; v[1] = f4[0].y; v[2] = f4[0].z; v[3] = f4[0].w;
+  v[4] = f4[1].x; v[5] = f4[1].y; v[6] = f4[1].z; v[7] = f4[1].w;
+}
+
+__device__ __forceinline__ void to_f32(const Pix8<__nv_bfloat16>& p, float v[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p.w);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
@@ -59,66 +84,131 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
 __device__ __forceinline__ float transform(float x, float mu, float rstd, float sc, float bi) {
   float y = __fmul_rn(__fsub_rn(x, mu), rstd);
   y = __fadd_rn(__fmul_rn(y, sc), bi);
-  return y >= 0.0f ? y : __fmul_rn(0.1f, y);
+  return leaky(y);
 }
 
-// Per-channel column sums of red[rows][c] for c < c_total, into out[c].
-__device__ void column_sums(const float* red, int rows, int c_total, float* out) {
-  for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
-    float acc = 0.0f;
-    for (int k = 0; k < rows; ++k) acc += red[k * c_total + c];
-    out[c] = acc;
+enum class Op { kSum, kMin, kMax };
+
+template <Op op>
+__device__ __forceinline__ float combine(float a, float b) {
+  return op == Op::kSum ? a + b : op == Op::kMin ? fminf(a, b) : fmaxf(a, b);
+}
+
+// Each thread's 8 per-channel values v into red[p0][cb * 8 + i], then their
+// per-channel column reduction over the ps rows, in row order, into out[c].
+template <Op op>
+__device__ void column_reduce(const float v[8], float* red, int p0, int cb, int ps, int c,
+                              float* out) {
+  __syncthreads();  // red[] may still be read by the previous reduction
+  float4* row = reinterpret_cast<float4*>(red + p0 * c + cb * 8);  // 32-byte aligned
+  row[0] = make_float4(v[0], v[1], v[2], v[3]);
+  row[1] = make_float4(v[4], v[5], v[6], v[7]);
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+    float acc = red[ch];
+    for (int k = 1; k < ps; ++k) acc = combine<op>(acc, red[k * c + ch]);
+    out[ch] = acc;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// 16 bytes from device memory into shared memory, without registers.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+// Shared memory of a block: the kept pixels (kKeep), then the floats
+// red[threads * 8]; part[4][c], this block's per-channel sum x, sum x^2,
+// min x and max x, which the cluster reads; tot[4][c], the sample's; gmu,
+// grs ([c] each, groups <= c).
+inline int fixed_smem(int c, int threads) { return 4 * (threads * 8 + 10 * c); }
+
+// One block of the cluster that serves sample blockIdx.x / k: pixels
+// [rank * share, rank * share + np).
+template <typename T, bool kKeep>
+__global__ void __launch_bounds__(kMaxThreads, 1)
     gn_leaky_rowquant_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                              const float* __restrict__ bias, int8_t* __restrict__ q,
-                             float* __restrict__ s, int hw, int c, int groups) {
-  __shared__ float red[kThreads * 8];
-  __shared__ float cs1[kMaxC], cs2[kMaxC];
-  __shared__ float gmu[kMaxC], grs[kMaxC];
-  __shared__ float wmax[kThreads / 32];
+                             float* __restrict__ s, int hw, int c, int groups, int share) {
+  extern __shared__ uint4 smem4[];
+  T* keep = reinterpret_cast<T*>(smem4);
+  float* red = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(smem4) + (kKeep ? (size_t)share * c * sizeof(T) : 0));
+  float* part = red + blockDim.x * 8;  // [4][c]: sum, sum of squares, min, max
+  float* tot = part + 4 * c;         // [4][c]
+  float* gmu = tot + 4 * c;
+  float* grs = gmu + c;
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int sample = blockIdx.x / (int)cluster.num_blocks();
+  const int pbeg = (int)cluster.block_rank() * share;
+  const int np = max(0, min(share, hw - pbeg));
   const int ncb = c >> 3;              // channel blocks of 8
   const int cb = threadIdx.x % ncb;    // this thread's channel block
   const int p0 = threadIdx.x / ncb;    // first pixel
-  const int ps = kThreads / ncb;       // pixel stride
-  const T* xs = x + (size_t)blockIdx.x * hw * c + cb * 8;
-  int8_t* qs = q + (size_t)blockIdx.x * hw * c + cb * 8;
+  const int ps = blockDim.x / ncb;     // pixel stride
+  const size_t base = ((size_t)sample * hw + pbeg) * c + cb * 8;
+  const T* xs = x + base;
+  int8_t* qs = q + base;
+  T* ks = keep + cb * 8;
 
-  // pass 1: per-channel sums of x and x^2
-  float s1[8], s2[8], v[8];
+  // the one read of device memory: each thread copies its pixels into
+  // shared memory with every copy in flight at once, then reads them back
+  if (kKeep) {
+    constexpr int kChunk = 16 / sizeof(T);  // elements a 16-byte copy moves
+    for (int p = p0; p < np; p += ps)
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s1[i] = s2[i] = 0.0f;
-  for (int p = p0; p < hw; p += ps) {
-    load8(xs + (size_t)p * c, v);
+      for (int i = 0; i < 8; i += kChunk)
+        cp_async16(ks + (size_t)p * c + i, xs + (size_t)p * c + i);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // this thread's own copies
+  }
+  // per-channel sum x, sum x^2, min x and max x
+  float s1[8], s2[8], mn[8], mx[8], v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    s1[i] = s2[i] = 0.0f;
+    mn[i] = INFINITY;
+    mx[i] = -INFINITY;
+  }
+  for (int p = p0; p < np; p += ps) {
+    to_f32(load_pix(kKeep ? ks + (size_t)p * c : xs + (size_t)p * c), v);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       s1[i] += v[i];
       s2[i] = fmaf(v[i], v[i], s2[i]);
+      mn[i] = fminf(mn[i], v[i]);
+      mx[i] = fmaxf(mx[i], v[i]);
     }
   }
-  // red[p0][cb*8 + i]: ps rows of c channels, kThreads * 8 slots in all
+  column_reduce<Op::kSum>(s1, red, p0, cb, ps, c, part);
+  column_reduce<Op::kSum>(s2, red, p0, cb, ps, c, part + c);
+  column_reduce<Op::kMin>(mn, red, p0, cb, ps, c, part + 2 * c);
+  column_reduce<Op::kMax>(mx, red, p0, cb, ps, c, part + 3 * c);
+  cluster.sync();  // every block's partials are written
+  // each of the 4c totals from the k ranks' partials, their reads in flight
+  // at once, added in rank order
+  const int k = (int)cluster.num_blocks();
+  for (int i = threadIdx.x; i < 4 * c; i += blockDim.x) {
+    float u[kMaxCluster];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) red[p0 * c + cb * 8 + i] = s1[i];
-  __syncthreads();
-  column_sums(red, ps, c, cs1);
-  __syncthreads();
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < k) u[r] = cluster.map_shared_rank(part, r)[i];
+    const int j = i / c;  // 0 sum x, 1 sum x^2, 2 min x, 3 max x
+    float a = u[0];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) red[p0 * c + cb * 8 + i] = s2[i];
-  __syncthreads();
-  column_sums(red, ps, c, cs2);
+    for (int r = 1; r < kMaxCluster; ++r)
+      if (r < k) a = j < 2 ? a + u[r] : j == 2 ? fminf(a, u[r]) : fmaxf(a, u[r]);
+    tot[i] = a;
+  }
   __syncthreads();
 
-  const int cg = c / groups;
-  const float n = (float)hw * (float)cg;
+  const int cg_ = c / groups;
+  const float n = (float)hw * (float)cg_;
   for (int g = threadIdx.x; g < groups; g += blockDim.x) {
     float a1 = 0.0f, a2 = 0.0f;
-    for (int k = 0; k < cg; ++k) {
-      a1 += cs1[g * cg + k];
-      a2 += cs2[g * cg + k];
+    for (int i = 0; i < cg_; ++i) {
+      a1 += tot[g * cg_ + i];
+      a2 += tot[c + g * cg_ + i];
     }
     const float mu = __fdiv_rn(a1, n);
     const float var = fmaxf(__fsub_rn(__fdiv_rn(a2, n), __fmul_rn(mu, mu)), 0.0f);
@@ -127,72 +217,108 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
+  // max |y| over the sample from each channel's least and greatest x: y is
+  // monotone in x within a channel (every rounding step is), so |y| peaks at
+  // one of the two, and this max equals the max over every element bit for
+  // bit. Every block holds the same totals, so no exchange is needed.
+  float amax = 0.0f;
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+    const int g = ch / cg_;
+    const float lo = transform(tot[2 * c + ch], gmu[g], grs[g], scale[ch], bias[ch]);
+    const float hi = transform(tot[3 * c + ch], gmu[g], grs[g], scale[ch], bias[ch]);
+    amax = fmaxf(amax, fmaxf(fabsf(lo), fabsf(hi)));
+  }
+  amax = block_reduce(amax, true, red);
+  const float sc = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
+  const Divisor d = divisor(sc);
+
   float mu_r[8], rs_r[8], sc_r[8], bi_r[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int ch = cb * 8 + i;
-    mu_r[i] = gmu[ch / cg];
-    rs_r[i] = grs[ch / cg];
+    mu_r[i] = gmu[ch / cg_];
+    rs_r[i] = grs[ch / cg_];
     sc_r[i] = scale[ch];
     bi_r[i] = bias[ch];
   }
 
-  // pass 2: max |y| over the sample
-  float amax = 0.0f;
-  for (int p = p0; p < hw; p += ps) {
-    load8(xs + (size_t)p * c, v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      amax = fmaxf(amax, fabsf(transform(v[i], mu_r[i], rs_r[i], sc_r[i], bi_r[i])));
-  }
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    amax = threadIdx.x < kThreads / 32 ? wmax[threadIdx.x] : 0.0f;  // 0 is neutral: |y| >= 0
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    if (threadIdx.x == 0) wmax[0] = amax;
-  }
-  __syncthreads();
-  const float sc = fmaxf(__fdiv_rn(wmax[0], 127.0f), 1e-12f);
-
-  // pass 3: quantise, 8 int8 values (one 8-byte store) per load
-  for (int p = p0; p < hw; p += ps) {
-    load8(xs + (size_t)p * c, v);
+  // quantise, 8 int8 values (one 8-byte store) per pixel
+  for (int p = p0; p < np; p += ps) {
+    to_f32(load_pix(kKeep ? ks + (size_t)p * c : xs + (size_t)p * c), v);
     uint32_t lo = 0, hi = 0;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float r = rintf(__fdiv_rn(transform(v[i], mu_r[i], rs_r[i], sc_r[i], bi_r[i]), sc));
-      r = fminf(fmaxf(r, -127.0f), 127.0f);
-      const uint32_t b = (uint32_t)(uint8_t)(int8_t)r;
+      const uint32_t b = quant(transform(v[i], mu_r[i], rs_r[i], sc_r[i], bi_r[i]), d);
       if (i < 4) lo |= b << (8 * i); else hi |= b << (8 * (i - 4));
     }
     *reinterpret_cast<uint2*>(qs + (size_t)p * c) = make_uint2(lo, hi);
   }
-  if (threadIdx.x == 0) s[blockIdx.x] = sc;
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) s[sample] = sc;
+  cluster.sync();  // no block exits while a peer may still read its partials
+}
+
+template <typename T>
+int dispatch(const void* x, const void* scale, const void* bias, void* q, void* s, int b, int hw,
+             int c, int groups, int k, int threads, int* kept, cudaStream_t st,
+             int* max_clusters) {
+  const int share = ceil_div(hw, k);
+  const long long keep_bytes = (long long)share * c * sizeof(T);
+  const int fixed = fixed_smem(c, threads);
+  *kept = keep_bytes + fixed <= kMaxDynSmem;
+  const T* xt = (const T*)x;
+  const float *sc = (const float*)scale, *bi = (const float*)bias;
+  if (*kept)
+    return launch_cluster<gn_leaky_rowquant_kernel<T, true>>(
+        b * k, threads, (int)keep_bytes + fixed, k, st, max_clusters, xt, sc, bi, (int8_t*)q,
+        (float*)s, hw, c, groups, share);
+  return launch_cluster<gn_leaky_rowquant_kernel<T, false>>(
+      b * k, threads, fixed, k, st, max_clusters, xt, sc, bi, (int8_t*)q, (float*)s, hw, c,
+      groups, share);
+}
+
+// c a multiple of 8 with c / 8 dividing 128, groups dividing c, and a whole
+// number of pixels for the threads: 128, 256, .. 1024 of them.
+bool valid_plan(int c, int groups, int k, int threads) {
+  return c > 0 && c % 8 == 0 && 128 % (c / 8) == 0 && groups > 0 && c % groups == 0 &&
+         portable_cluster(k) && threads % 128 == 0 && threads >= 128 && threads <= kMaxThreads;
 }
 
 }  // namespace
 
 // x: [b, hw, c] bf16 (x_is_bf16 = 1) or f32, 16-byte aligned; scale, bias:
 // [c] f32; q: [b, hw, c] int8; s: [b] f32. c must be a multiple of 8 with
-// c / 8 dividing 128, and groups must divide c. Returns cudaGetLastError()
-// after the launch.
+// c / 8 dividing 128, and groups must divide c. k blocks per sample (1, 2, 4
+// or 8) of `threads` threads (a multiple of 128, at most 1024); any other
+// plan is refused with cudaErrorInvalidValue. On success
+// *cluster_k is the cluster size launched and *kept is 1 when each block
+// kept its pixels in shared memory (0: it streamed them). Returns
+// cudaGetLastError() after the launch.
 extern "C" int zdc_gn_leaky_rowquant(const void* x, int x_is_bf16, const void* scale,
                                      const void* bias, void* q, void* s, int b, int hw, int c,
-                                     int groups, void* stream) {
+                                     int groups, int k, int threads, int* cluster_k, int* kept,
+                                     void* stream) {
+  *cluster_k = 0;
+  *kept = 0;
+  if (!valid_plan(c, groups, k, threads)) return (int)cudaErrorInvalidValue;
   if (b <= 0 || hw <= 0) return (int)cudaSuccess;
-  if (c <= 0 || c % 8 != 0 || 128 % (c / 8) != 0 || groups <= 0 || c % groups != 0)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (x_is_bf16) {
-    gn_leaky_rowquant_kernel<__nv_bfloat16><<<b, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)x, (const float*)scale, (const float*)bias, (int8_t*)q,
-        (float*)s, hw, c, groups);
-  } else {
-    gn_leaky_rowquant_kernel<float><<<b, kThreads, 0, st>>>(
-        (const float*)x, (const float*)scale, (const float*)bias, (int8_t*)q, (float*)s, hw,
-        c, groups);
-  }
-  return (int)cudaGetLastError();
+  const int err = x_is_bf16 ? dispatch<__nv_bfloat16>(x, scale, bias, q, s, b, hw, c, groups, k,
+                                                      threads, kept, st, nullptr)
+                            : dispatch<float>(x, scale, bias, q, s, b, hw, c, groups, k,
+                                              threads, kept, st, nullptr);
+  if (err == 0) *cluster_k = k;
+  return err;
+}
+
+// How many clusters of this plan the card holds at once
+// (cudaOccupancyMaxActiveClusters).
+extern "C" int zdc_gn_leaky_rowquant_max_clusters(int x_is_bf16, int hw, int c, int k,
+                                                  int threads, int* max_clusters) {
+  *max_clusters = 0;
+  if (!valid_plan(c, 1, k, threads) || hw <= 0) return (int)cudaErrorInvalidValue;
+  int kept = 0;
+  return x_is_bf16 ? dispatch<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, 1, hw,
+                                             c, 1, k, threads, &kept, nullptr, max_clusters)
+                   : dispatch<float>(nullptr, nullptr, nullptr, nullptr, nullptr, 1, hw, c, 1, k,
+                                     threads, &kept, nullptr, max_clusters);
 }

@@ -27,7 +27,10 @@ SOURCES = (
     "ln_leaky_rowquant.cu", "up2_conv4_int8.cu", "gn_leaky_rowquant.cu",
     "row_resize_conv4_int8.cu", "expm1_channel_sums.cu", "fused_decode.cu",
 )
-HEADERS = ("conv_mma.cuh",)  # the int8 tensor-core conv core of B, D, G and H
+HEADERS = (
+    "conv_mma.cuh",      # the int8 tensor-core conv core of B, D, G and H
+    "cluster_norm.cuh",  # the thread-block-cluster launch and exchange of A and C
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,9 +40,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argtypes; every entry point returns cudaGetLastError().
 SIGNATURES = {
-    "zdc_ln_leaky_rowquant": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
+    "zdc_ln_leaky_rowquant": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "zdc_ln_leaky_rowquant_max_clusters": (_I, _I, _I, _I, _P),
     "zdc_up2_conv4_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
-    "zdc_gn_leaky_rowquant": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "zdc_gn_leaky_rowquant": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "zdc_gn_leaky_rowquant_max_clusters": (_I, _I, _I, _I, _I, _P),
     "zdc_row_resize_conv4_int8": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),

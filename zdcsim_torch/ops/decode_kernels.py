@@ -20,6 +20,13 @@ for a CUDA tensor, and runs the plain PyTorch version for a CPU tensor; it
 never falls back from one to the other. ``<wrapper>.launches`` counts the
 kernel's launches (plain runs and CPU calls do not count).
 
+A and C run as thread-block clusters: k blocks on neighbouring SMs share
+each sample and exchange partial sums through distributed shared memory.
+:func:`norm_quant_plan` chooses k, the threads and the shared memory of a
+block; ``<wrapper>.cluster_launches`` counts the launches that the C entry
+point reports in clusters of the plan's k with the plan's body (the share
+kept in shared memory, or streamed where it does not fit).
+
 B and D take their int8 weights packed once as ``[Cout, taps x Cin]``
 (:func:`pack_k_major`; ``proton_fast.quantize_weights`` packs them per
 expert), and each has two CUDA bodies, which the C entry point chooses by
@@ -35,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -147,6 +155,117 @@ def _require_f32(name: str, dev: torch.device, **params: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The launch plan of kernels A and C: thread-block clusters
+# ---------------------------------------------------------------------------
+
+CLUSTER_SIZES = (1, 2, 4, 8)  # the portable cluster sizes
+N_SMS = 132  # streaming multiprocessors of the H100 SXM
+# Clusters of k blocks the H100 SXM holds at once at one block an SM
+# (cudaOccupancyMaxActiveClusters, chip_smoke.py phase 9): a cluster lives in
+# one GPC, and the GPCs' SM counts leave 12 SMs unused at k = 4 and 8.
+ONE_WAVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+SMEM_PER_BLOCK = 232448  # 227 KB, the most shared memory one block may use
+# csrc/cluster_norm.cuh kMaxDynSmem: 1 KB is left for static shared memory
+MAX_DYN_SMEM = SMEM_PER_BLOCK - 1024
+LN_UNIT = 4  # elements a thread of A takes at a time on aligned rows
+LN_SHARE = 16  # A's share of a row is a multiple of 16 elements
+LN_MAX_THREADS = 1024
+GN_THREADS = 512
+
+
+class NormQuantPlan(NamedTuple):
+    """A launch of kernel A or C: ``k`` blocks, one cluster, per sample, of
+    ``threads`` threads and ``smem`` bytes of dynamic shared memory each;
+    ``kept``: each block keeps its share of the sample in shared memory
+    (else it streams it from device memory in every pass)."""
+
+    k: int
+    threads: int
+    smem: int
+    kept: bool
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _block_plan(kind: str, sample, elem_bytes: int, k: int) -> NormQuantPlan:
+    """One block's share at cluster size ``k``, as the C entry points lay it
+    out. A keeps its share of the row as f32 (z is written over it), one
+    4-element unit a thread at a time; C keeps ``ceil(HW / k)`` pixels as
+    they lie, beside its fixed reduction space."""
+    if kind == "ln":
+        (f,) = sample
+        share = _ceil_div(_ceil_div(f, k), LN_SHARE) * LN_SHARE
+        keep, fixed = share * 4, 0
+        threads = min(LN_MAX_THREADS, _ceil_div(share // LN_UNIT, 32) * 32)
+    else:
+        hw, c = sample
+        threads = GN_THREADS
+        keep = _ceil_div(hw, k) * c * elem_bytes
+        fixed = 4 * (threads * 8 + 10 * c)
+    kept = keep + fixed <= MAX_DYN_SMEM
+    return NormQuantPlan(k, threads, (keep if kept else 0) + fixed, kept)
+
+
+def gn_channels_ok(c: int) -> bool:
+    """Kernel C takes C a multiple of 8 with C / 8 dividing 128 (one
+    channel block of 8 a thread, a whole number of pixels a pass)."""
+    return c > 0 and c % 8 == 0 and 128 % (c // 8) == 0
+
+
+def norm_quant_plan(kind: str, b: int, sample, elem_bytes: int,
+                    k: Optional[int] = None) -> NormQuantPlan:
+    """The launch of kernel A (``kind="ln"``, ``sample=(F,)``) or C
+    (``"gn"``, ``sample=(HW, C)``) on ``b`` samples of ``elem_bytes``-byte
+    elements. Among the cluster sizes of :data:`CLUSTER_SIZES` at which a
+    block's share fits in shared memory: the largest whose ``b`` clusters
+    the card holds in one wave (:data:`ONE_WAVE_CLUSTERS`), which spreads
+    each sample over the most SMs; where none does, the smallest, whose
+    waves are fullest; where no share fits, k = 8, which streams the
+    smallest share. ``k`` sets the cluster size instead. Raises
+    ``ValueError`` on a C that kernel C refuses and on any other ``k``."""
+    if kind not in ("ln", "gn"):
+        raise ValueError(f"norm_quant_plan: kind must be 'ln' or 'gn', got {kind!r}")
+    if kind == "gn" and not gn_channels_ok(sample[1]):
+        raise ValueError(f"gn_leaky_rowquant: C={sample[1]} must be a multiple of 8 with C/8 "
+                         "dividing 128")
+    if k is not None:
+        if k not in CLUSTER_SIZES:
+            raise ValueError(f"norm_quant_plan: k must be one of {CLUSTER_SIZES}, got {k}")
+        return _block_plan(kind, sample, elem_bytes, k)
+    plans = [_block_plan(kind, sample, elem_bytes, kk) for kk in CLUSTER_SIZES]
+    kept = [p for p in plans if p.kept]
+    if not kept:
+        return plans[-1]
+    one_wave = [p for p in kept if b <= ONE_WAVE_CLUSTERS[p.k]]
+    return one_wave[-1] if one_wave else kept[0]
+
+
+def norm_quant_max_clusters(kind: str, dtype: torch.dtype, sample, k: int) -> int:
+    """How many clusters of kernel A's or C's launch at cluster size ``k``
+    the current card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    bf16 = int(dtype == torch.bfloat16)
+    plan = norm_quant_plan(kind, 1, sample, 2 if bf16 else 4, k)
+    n = ctypes.c_int(0)
+    lib = _build.library()
+    if kind == "ln":
+        status = lib.zdc_ln_leaky_rowquant_max_clusters(bf16, sample[0], k, plan.threads,
+                                                        ctypes.addressof(n))
+    else:
+        status = lib.zdc_gn_leaky_rowquant_max_clusters(bf16, *sample, k, plan.threads,
+                                                        ctypes.addressof(n))
+    _build.check(status, f"norm_quant_max_clusters({kind!r})")
+    return n.value
+
+
+def _count_cluster_launch(wrapper, plan: NormQuantPlan, cluster_k: ctypes.c_int,
+                          kept: ctypes.c_int) -> None:
+    wrapper.launches += 1
+    wrapper.cluster_launches += int(cluster_k.value == plan.k and bool(kept.value) == plan.kept)
+
+
+# ---------------------------------------------------------------------------
 # Kernel A: LayerNorm + LeakyReLU + per-row int8
 # ---------------------------------------------------------------------------
 
@@ -166,11 +285,13 @@ def ln_leaky_rowquant_plain(y: torch.Tensor, scale: torch.Tensor, bias: torch.Te
     return q, s
 
 
-def ln_leaky_rowquant(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+def ln_leaky_rowquant(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                      k: Optional[int] = None):
     """``LayerNorm(y) * scale + bias -> LeakyReLU(0.1) -> per-row int8``.
 
     y: ``[B, F]`` bf16 or f32; scale, bias: ``[F]`` f32. Returns ``(q [B, F] int8, s [B, 1] f32)`` with row ``i``
-    ``~= q[i] * s[i]``.
+    ``~= q[i] * s[i]``. On the card each row runs on a cluster of
+    :func:`norm_quant_plan`'s k blocks; ``k`` sets another cluster size.
     """
     _require_f32("ln_leaky_rowquant", y.device, scale=scale, bias=bias)
     if y.device.type == "cpu":
@@ -184,18 +305,21 @@ def ln_leaky_rowquant(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
     y, scale, bias = y.contiguous(), scale.contiguous(), bias.contiguous()
     q = torch.empty((b, f), dtype=torch.int8, device=y.device)
     s = torch.empty((b, 1), dtype=torch.float32, device=y.device)
+    plan = norm_quant_plan("ln", b, (f,), y.element_size(), k)
+    cluster_k, kept = ctypes.c_int(0), ctypes.c_int(0)
     lib = _build.library()
     with torch.cuda.device(y.device):
         status = lib.zdc_ln_leaky_rowquant(
             y.data_ptr(), int(y.dtype == torch.bfloat16), scale.data_ptr(),
-            bias.data_ptr(), q.data_ptr(), s.data_ptr(), b, f, _stream(y),
+            bias.data_ptr(), q.data_ptr(), s.data_ptr(), b, f, plan.k, plan.threads,
+            ctypes.addressof(cluster_k), ctypes.addressof(kept), _stream(y),
         )
     _build.check(status, "ln_leaky_rowquant")
-    ln_leaky_rowquant.launches += 1
+    _count_cluster_launch(ln_leaky_rowquant, plan, cluster_k, kept)
     return q, s
 
 
-ln_leaky_rowquant.launches = 0
+ln_leaky_rowquant.launches = ln_leaky_rowquant.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -307,14 +431,16 @@ def gn_leaky_rowquant_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
 
 
 def gn_leaky_rowquant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                      groups: int = 32):
+                      groups: int = 32, *, k: Optional[int] = None):
     """``GroupNorm(x) * scale + bias -> LeakyReLU(0.1) -> per-sample int8``.
 
     x: ``[B, H, W, C]`` bf16 or f32, NHWC; statistics per sample and group of
     ``C / groups`` consecutive channels over H, W and the group's channels,
     one pass in f32 (``var = max(E[x^2] - E[x]^2, 0)``), eps 1e-6. scale,
     bias: ``[C]`` f32. Returns ``(q [B, H, W, C] int8, s [B, 1] f32)`` with
-    sample ``i`` ``~= q[i] * s[i]``.
+    sample ``i`` ``~= q[i] * s[i]``. On the card each sample runs on a
+    cluster of :func:`norm_quant_plan`'s k blocks; ``k`` sets another
+    cluster size.
     """
     _require_f32("gn_leaky_rowquant", x.device, scale=scale, bias=bias)
     if x.ndim != 4 or x.shape[-1] % groups:
@@ -326,8 +452,7 @@ def gn_leaky_rowquant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"gn_leaky_rowquant: x must be bf16/f32, got {x.dtype}")
     b, h, w, c = x.shape
-    if c % 8 or 128 % (c // 8):
-        raise ValueError(f"gn_leaky_rowquant: C={c} must be a multiple of 8 with C/8 dividing 128")
+    plan = norm_quant_plan("gn", b, (h * w, c), x.element_size(), k)
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError("gn_leaky_rowquant: scale and bias must be [C]")
     x, scale, bias = x.contiguous(), scale.contiguous(), bias.contiguous()
@@ -335,18 +460,20 @@ def gn_leaky_rowquant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError("gn_leaky_rowquant: x must be 16-byte aligned")
     q = torch.empty((b, h, w, c), dtype=torch.int8, device=x.device)
     s = torch.empty((b, 1), dtype=torch.float32, device=x.device)
+    cluster_k, kept = ctypes.c_int(0), ctypes.c_int(0)
     lib = _build.library()
     with torch.cuda.device(x.device):
         status = lib.zdc_gn_leaky_rowquant(
             x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(), bias.data_ptr(),
-            q.data_ptr(), s.data_ptr(), b, h * w, c, groups, _stream(x),
+            q.data_ptr(), s.data_ptr(), b, h * w, c, groups, plan.k, plan.threads,
+            ctypes.addressof(cluster_k), ctypes.addressof(kept), _stream(x),
         )
     _build.check(status, "gn_leaky_rowquant")
-    gn_leaky_rowquant.launches += 1
+    _count_cluster_launch(gn_leaky_rowquant, plan, cluster_k, kept)
     return q, s
 
 
-gn_leaky_rowquant.launches = 0
+gn_leaky_rowquant.launches = gn_leaky_rowquant.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------
