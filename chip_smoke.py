@@ -67,22 +67,31 @@ Phases, each printing lines with the elapsed seconds:
    the MLP; each of G's and H's three convs beside its int8 bound and
    ``torch._int_mm`` likewise;
 10. the fidelity gate's test split (25600 synthetic events, seed 7, numpy),
-    and kernel E (expm1 + channel sums) against its plain version on its
-    5120 real showers [5120, 56, 30] and on a [37, 44, 44] batch;
+    and kernel E (expm1 + channel sums) against its plain version (rtol
+    1e-5) on its 5120 real showers [5120, 56, 30] in f32 and in bf16 and on
+    a [37, 44, 44] f32 batch, each launch on the bulk ring
+    (``bulk_launches``);
 11. kernel F (routed expm1 + channel sums) on the teacher's all-expert
     log-space decode of 4096 showers [3, 4096, 56, 30], routed by phase 8's
     seeded router (launches counted over this path): against its plain
-    version, and bit-equal to kernel E on the routed rows;
+    version (rtol 1e-5), bit-equal to kernel E on the routed rows, both on
+    the bulk ring;
 12. ``f32`` and ``bf16`` serves of 4096 teacher showers against ``int8`` on
     the same inputs (routing identical, per-shower log1p sums within rtol
     0.15), with rate and peak memory;
 13. the fidelity gate (``fidelity_torch.run_gate``, three noise draws) on
     the teacher at ``int8``, ``int8_pallas`` and ``int8_fused`` and on the
     w=0.125 student at ``int8``: each record, its kernel launches (counts set to 0 just
-    before each gate), and a failure unless its value is finite and
-    ``vs_baseline >= 1.0``; the floor is printed beside the CPU tests' anchor;
-14. kernels E and F timed with CUDA events at 16384 showers, beside their
-    plain versions and PyTorch's ``expm1`` then the channel-basis matmul.
+    before each gate), and a failure unless its value is finite,
+    ``vs_baseline >= 1.0`` and every launch of E on the bulk ring; the
+    floor is printed beside the CPU tests' anchor;
+14. kernels E and F at [16384, 56, 30] in f32 and bf16 (E also at the
+    gate's 5120 showers): replayed in a CUDA graph, beside the host loop's
+    time, the direct body (one warp a shower reading device memory itself)
+    forced on the same input (``_direct_body``, graph replayed), their
+    plain versions, PyTorch's ``expm1`` then the channel-basis matmul, and
+    the bound; each graph's replays, the ``GRAPH_WARM`` untimed ones first,
+    and E at f32 timed again after the other cases.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
@@ -94,14 +103,22 @@ the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
 ``int8`` gate (E), of the all-expert path (F) and of the ``int8_fused_front``
 (G) and ``int8_fused`` (H) serves, A's and C's ``k_sweep`` and
 ``eager_ms`` (the host loop's time), B's and D's
-``int_mm_ms``, and G's and H's ``conv_ms`` (their convs' times); the last
-line is
+``int_mm_ms``, G's and H's ``conv_ms`` (their convs' times), and E's and
+F's ``body``, ``bulk_launches``, ``graph_ms``, ``old_body_ms`` and
+``cases`` (every shape and dtype of phase 14; ``ms`` is ``graph_ms``); the
+last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line is printed. Without a CUDA device the script exits with code 2
-and prints no result; ``--rehearse-cpu`` runs G and H at [2, 92160], E and
-F at [8, 56, 30] (F's path decodes 32 showers, so that the seeded router
-reads every expert), serves of 8 showers, and the student's gate on the
-first 512 test conditions with one draw, and ends with
+and prints no result. ``--rehearse-cpu`` runs at the sizes of
+``REHEARSE_*`` below, each cut to what its phase needs to check what it
+checks: D at 2 rows, G and H at [1, 92160], a serve of 7 showers in one
+batch of 8 at tile 2 (the router drawn after their conditions sends them to
+every expert; at 6 it leaves one out), the gate's split of 2560 synthetic
+events with E at [8, 56, 30], F's all-expert decode of 7 showers (the first
+count at which that router reads every expert), float serves of 2
+showers, and the student's gate on the first 128 test conditions in one
+chunk with one draw. Both modes print each phase's seconds on one line
+before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
 """
 
@@ -121,6 +138,14 @@ FLOOR_ANCHOR = 457.4265  # the floor of the full split on the CPU (tests/test_to
 N_SHOWERS = 16384
 F_SHOWERS = FLOAT_SHOWERS = 4096
 EF_TIME_ROWS = 16384
+GRAPH_WARM = 5  # untimed replays of a timed graph: at least so many
+GRAPH_WARM_MS = 100  # and at least so much card time
+# --rehearse-cpu sizes (see the module doc)
+REHEARSE_SERVE = (7, 8, 2)  # showers, batch, tile
+REHEARSE_SPLIT = 2560  # synthetic events of the gate's split: 512 test showers
+REHEARSE_F = 7
+REHEARSE_FLOAT = (2, 2, 2)
+REHEARSE_GATE = 128  # test conditions, one chunk
 SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
 A_ROWS, B_ROWS, C_ROWS, D_ROWS, GH_ROWS, TIME_ROWS = 256, 64, 64, 64, 64, 64
 STUDENT_F, STUDENT_C = 11520, 32  # the w=0.125 student's Dense_1 and GroupNorm2d_0 widths
@@ -138,6 +163,21 @@ INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 
 T0 = time.perf_counter()
+PHASE_S = {}  # phase -> seconds, printed on one line at the end
+
+
+def timed(phase: str, fn, *args, **kwargs):
+    """Run one phase, adding its wall time to :data:`PHASE_S`."""
+    t = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_S[phase] = PHASE_S.get(phase, 0.0) + time.perf_counter() - t
+
+
+def log_phase_times() -> None:
+    log("phase times", ", ".join(f"{k} {v:.2f}s" for k, v in PHASE_S.items())
+        + f"; wall {time.perf_counter() - T0:.2f}s")
 
 
 def log(phase: str, msg: str) -> None:
@@ -148,9 +188,10 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
+    """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     if not out:
@@ -172,12 +213,13 @@ def kernel_wrappers():
     }
 
 
-SUB_COUNTS = {"mma_launches": "on conv_mma", "cluster_launches": "on clusters"}
+SUB_COUNTS = {"mma_launches": "on conv_mma", "cluster_launches": "on clusters",
+              "bulk_launches": "on the bulk ring"}
 
 
 def reset_counts(wrappers):
-    """Set every launch count to 0 (B's and D's tensor-core counts and A's
-    and C's cluster counts too)."""
+    """Set every launch count to 0 (B's and D's tensor-core counts, A's and
+    C's cluster counts and E's and F's bulk-ring counts too)."""
     for w in wrappers.values():
         w.launches = 0
         for attr in SUB_COUNTS:
@@ -186,9 +228,9 @@ def reset_counts(wrappers):
 
 
 def read_counts(wrappers):
-    """``{name: launches}``, with ``{name + " on conv_mma": n}`` for B and D
-    and ``{name + " on clusters": n}`` for A and C (launches in clusters of
-    the plan's k)."""
+    """``{name: launches}``, with ``{name + " on conv_mma": n}`` for B and D,
+    ``{name + " on clusters": n}`` for A and C (launches in clusters of the
+    plan's k) and ``{name + " on the bulk ring": n}`` for E and F."""
     counts = {name: w.launches for name, w in wrappers.items()}
     for attr, label in SUB_COUNTS.items():
         counts.update({f"{name} {label}": getattr(w, attr) for name, w in wrappers.items()
@@ -551,21 +593,25 @@ def sass_label(name, index):
     return next((f"{b}<{out}>" for b in DP4A_BODIES if b in name), None)
 
 
-def conv_sass_counts(lib_path):
-    """Phase 2: ``{label: {op: count}}`` of the int8 tensor-core (``IMMA``,
-    ``IGMMA``) and ``IDP4A`` instructions in each instantiation of the shared
-    ``conv_mma_kernel`` and of B's and D's ``__dp4a`` bodies, from
-    ``cuobjdump -sass`` of the built library; ``None`` where the toolkit has
-    no ``cuobjdump``."""
-    import re
-
+def library_sass(lib_path):
+    """``cuobjdump -sass`` of the built library; ``None`` where the toolkit
+    has no ``cuobjdump``."""
     from zdcsim_torch.ops import _build
 
     exe = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.isfile(exe):
         return None
-    sass = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True, timeout=300,
+    return subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True, timeout=300,
                           check=True).stdout
+
+
+def conv_sass_counts(sass):
+    """Phase 2: ``{label: {op: count}}`` of the int8 tensor-core (``IMMA``,
+    ``IGMMA``) and ``IDP4A`` instructions in each instantiation of the shared
+    ``conv_mma_kernel`` and of B's and D's ``__dp4a`` bodies, from the
+    library's SASS."""
+    import re
+
     counts, fn, n_elf = {}, None, 0
     for line in sass.splitlines():
         if "Fatbin elf code" in line:
@@ -581,6 +627,30 @@ def conv_sass_counts(lib_path):
             # opcodes as SASS spells them: IMMA.16832..., IGMMA.64x..., IDP.4A...
             for op in re.findall(r"\b(IMMA|IGMMA|IDP)(?=[.\s])", line):
                 counts[fn]["IDP4A" if op == "IDP" else op] += 1
+    return counts
+
+
+def bulk_sass_counts(sass):
+    """Phase 2: ``{label: Counter(opcode)}`` of every instruction in each
+    instantiation of E's and F's bulk body (``expm1_sums_bulk_kernel<dtype,
+    shape>``, ``any`` for the generic one), from the library's SASS."""
+    import collections
+    import re
+
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = None
+            if "expm1_sums_bulk_kernel" in name:
+                h, w = re.search(r"Li(\d+)ELi(\d+)E", name).groups()
+                fn = (f"expm1_sums_bulk_kernel<{'bf16' if 'nv_bfloat16' in name else 'f32'}, "
+                      f"{f'{h}x{w}' if h != '0' else 'any'}>")
+                counts[fn] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if fn and m:
+            counts[fn][m.group(1)] += 1
     return counts
 
 
@@ -786,12 +856,17 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters):
+def graph_ms(fn, iters, replays=None):
     """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
-    graph, the graph replayed 5 times between CUDA events. A and C take
-    10-30 us on the card, less than the host takes to launch one through
-    its wrapper, so :func:`time_ms` measures the host there; replaying a
-    graph does not."""
+    graph, replayed untimed for at least ``GRAPH_WARM`` replays and
+    ``GRAPH_WARM_MS`` of card time, then 5 times, each replay between its
+    own CUDA events; the mean call of the 5 is the time. A and C take 10-30
+    us on the card, less than the host takes to launch one through its
+    wrapper, so :func:`time_ms` measures the host there; replaying a graph
+    does not. A card that comes from host-bound work runs the first tens of
+    ms of load slower, so the untimed replays last that long.
+    ``replays``, a list where given, receives every replay's ms a call, the
+    untimed ones first."""
     import torch
 
     for _ in range(3):
@@ -801,15 +876,22 @@ def graph_ms(fn, iters):
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    start, first = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(5):
+    graph.replay()
+    first.record()
+    first.synchronize()
+    one_ms = start.elapsed_time(first)
+    n_warm = max(GRAPH_WARM, -(-GRAPH_WARM_MS // one_ms))
+    events = [first] + [torch.cuda.Event(enable_timing=True) for _ in range(int(n_warm) + 4)]
+    for ev in events[1:]:
         graph.replay()
-    end.record()
+        ev.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (5 * iters)
+    per_call = [one_ms / iters] + [a.elapsed_time(b) / iters for a, b in zip(events, events[1:])]
+    if replays is not None:
+        replays.extend(per_call)
+    return events[-6].elapsed_time(events[-1]) / (5 * iters)
 
 
 def in_grid_taps(h, w):
@@ -1102,7 +1184,8 @@ def within_rtol(out, ref, rtol):
 
 def gate_data(dev, rehearse):
     """Phase 10: the gate's test split (numpy), and kernel E against its plain
-    version on its real showers and on a neutron-sized batch."""
+    version on its real showers (f32 and bf16) and on a neutron-sized batch,
+    each launch on the bulk ring."""
     import numpy as np
     import torch
 
@@ -1111,24 +1194,34 @@ def gate_data(dev, rehearse):
     from zdcsim_torch.ops import epilogue_kernels as ek
 
     t = time.perf_counter()
-    cond, real = ft.gate_split(load_config(list(ft.GATE_OVERRIDES)))
+    overrides = [*ft.GATE_OVERRIDES]
+    if rehearse:
+        overrides.append(f"dataset.synthetic_n_samples={REHEARSE_SPLIT}")
+    cond, real = ft.gate_split(load_config(overrides))
     log("10 kernel E", f"gate split in {time.perf_counter() - t:.2f}s: test cond {cond.shape}, "
         f"real {real.shape}, first test showers' photon sums "
         f"{np.expm1(real[:3]).sum(axis=(1, 2)).round(1).tolist()}")
     rng = np.random.default_rng(10)
+    shown = real[:8] if rehearse else real
     errs = []
-    for x in (real[:8] if rehearse else real,
-              rng.random((37, 44, 44), dtype=np.float32) * 3):
-        xt = torch.as_tensor(x).to(dev)
+    for x, dt in ((shown, torch.float32), (shown, torch.bfloat16),
+                  (rng.random((37, 44, 44), dtype=np.float32) * 3, torch.float32)):
+        xt = torch.as_tensor(x).to(dev, dt)
+        k0 = ek.expm1_channel_sums.bulk_launches
         out, ref = ek.expm1_channel_sums(xt), ek.expm1_channel_sums_plain(xt)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         rel, ok = within_rtol(out, ref, 1e-5)
         errs.append((out - ref).abs().max().item())
-        log("10 kernel E", f"{list(x.shape)} f32 -> {list(out.shape)}: max rel err {rel:.3e} "
-            f"(rtol 1e-5: {ok}), max abs err {errs[-1]:.3e}")
+        on_bulk = ek.expm1_channel_sums.bulk_launches == k0 + 1
+        ran = (f"on the bulk ring {on_bulk}" if dev.type == "cuda"
+               else "plain version on the CPU; the card runs the bulk ring")
+        log("10 kernel E", f"{list(x.shape)} {str(dt)[6:]} -> {list(out.shape)}: max rel err "
+            f"{rel:.3e} (rtol 1e-5: {ok}), max abs err {errs[-1]:.3e} ({ran})")
         if not ok or not torch.isfinite(out).all():
             fail("kernel E disagrees with its plain version")
+        if dev.type == "cuda" and not on_bulk:
+            fail(f"kernel E on {list(x.shape)} {dt} did not run on the bulk ring")
     return cond, real, max(errs)
 
 
@@ -1136,7 +1229,8 @@ def kernel_f_path(gp, router, dev, n, card):
     """Phase 11: the teacher's all-expert log-space decode of ``n`` showers
     (each expert decodes every shower), routed by phase 8's seeded router,
     into kernel F; F against its plain version, and bit-equal to kernel E
-    on the routed rows. Returns ``(launches of F, max abs err)``."""
+    on the routed rows, both on the bulk ring. Returns ``(launches of F,
+    its bulk-ring launches, max abs err)``."""
     import numpy as np
     import torch
 
@@ -1150,7 +1244,8 @@ def kernel_f_path(gp, router, dev, n, card):
     eng = FastSim(gp, router, batch_size=n, precision="int8", device=dev)
     with torch.no_grad():
         ids = eng.router(cond)[1].argmax(-1)
-        ek.expm1_channel_sums.launches = ek.routed_expm1_channel_sums.launches = 0
+        for fn in (ek.expm1_channel_sums, ek.routed_expm1_channel_sums):
+            fn.launches = fn.bulk_launches = 0
         imgs = torch.stack([
             fast_generator_apply(p, noise.to(torch.bfloat16), cond.to(torch.bfloat16), int8=True,
                                  qweights=q)[..., 0].to(torch.float32)
@@ -1159,17 +1254,21 @@ def kernel_f_path(gp, router, dev, n, card):
         if dev.type == "cuda":
             torch.cuda.synchronize()
     launches = ek.routed_expm1_channel_sums.launches
+    bulk = ek.routed_expm1_channel_sums.bulk_launches
     used = torch.bincount(ids, minlength=3).tolist()
     log("11 kernel F", f"all-expert decode {list(imgs.shape)} f32 (log space) -> F: {launches} "
-        f"launch(es); showers per expert {used} [{card}]")
-    if dev.type == "cuda" and launches <= 0:
-        fail("the all-expert path did not launch kernel F")
+        f"launch(es), {bulk} on the bulk ring; showers per expert {used} [{card}]")
+    if dev.type == "cuda" and (launches <= 0 or bulk != launches):
+        fail("the all-expert path did not launch kernel F on the bulk ring")
     if min(used) <= 0:
         fail(f"the seeded router left an expert unread: {used}")
     ref = ek.routed_expm1_channel_sums_plain(imgs, ids)
+    e_bulk = ek.expm1_channel_sums.bulk_launches
     rows = ek.expm1_channel_sums(imgs[ids, torch.arange(n, device=dev)].contiguous())
     if dev.type == "cuda":
         torch.cuda.synchronize()
+        if ek.expm1_channel_sums.bulk_launches != e_bulk + 1:
+            fail("kernel E on the routed rows did not run on the bulk ring")
     rel, ok = within_rtol(out, ref, 1e-5)
     same = torch.equal(out, rows)
     err = (out - ref).abs().max().item()
@@ -1177,7 +1276,7 @@ def kernel_f_path(gp, router, dev, n, card):
         f"{err:.3e}; F bit-equal to E on the routed rows: {same}")
     if not (ok and same and torch.isfinite(out).all()):
         fail("kernel F disagrees with its plain version or with kernel E")
-    return launches, err
+    return launches, bulk, err
 
 
 def float_serves(gp, router, dev, n, batch, tile, card, seed):
@@ -1223,7 +1322,9 @@ def gates(data, dev, rehearse, card):
     """Phase 13: the fidelity gate (``fidelity_torch.run_gate``) on the
     teacher at ``int8``, ``int8_pallas`` and ``int8_fused`` and on the w=0.125 student at
     ``int8``; every kernel count is set to 0 just before each gate and read
-    just after. Returns kernel E's launches of the teacher's ``int8`` gate."""
+    just after; every launch of E must be on the bulk ring. Returns kernel
+    E's launches and bulk-ring launches of the first gate (the teacher's
+    ``int8``)."""
     import numpy as np
     import torch
 
@@ -1253,54 +1354,110 @@ def gates(data, dev, rehearse, card):
                                            else ())
         if dev.type == "cuda" and min(counts[k] for k in needs) <= 0:
             fail(f"the {precision} gate did not launch each of its kernels {needs}: {counts}")
+        e_bulk = counts["expm1_channel_sums on the bulk ring"]
+        if dev.type == "cuda" and e_bulk != counts["expm1_channel_sums"]:
+            fail(f"the {precision} gate ran kernel E off the bulk ring: {counts}")
         if not (np.isfinite(rec["value"]) and rec["vs_baseline"] >= 1.0):
             fail(f"the gate of {os.path.basename(path)} at {precision} did not pass: {rec}")
         if e_launches is None:
-            e_launches = counts["expm1_channel_sums"]
+            e_launches = (counts["expm1_channel_sums"], e_bulk)
     return e_launches
 
 
-def time_epilogues(e_launches, f_launches, errs, card):
-    """Phase 14: kernels E and F with CUDA events at ``EF_TIME_ROWS`` showers,
-    beside their plain versions and the library's ``expm1`` then the
-    channel-basis matmul (F: the routed gather first)."""
+def time_epilogues(e_counts, f_counts, errs, card):
+    """Phase 14: kernels E and F at ``EF_TIME_ROWS`` showers of 56x30 in f32
+    and bf16 (E also at the gate's 5120 in f32), replayed in a CUDA graph
+    (a launch through the wrapper takes the host about as long as the bulk
+    body takes the card), beside the host loop's time, the direct body
+    forced on the same input (graph-replayed), their plain versions, the
+    library's ``expm1``
+    then the channel-basis matmul (F: the routed gather first) and the
+    bound. ``e_counts``/``f_counts``: ``(launches, bulk-ring launches)`` of
+    their main paths."""
     import torch
 
     from zdcsim_torch.ops import epilogue_kernels as ek
     from zdcsim_torch.ops.channels import channel_basis
 
-    b, h, w = EF_TIME_ROWS, 56, 30
+    h, w = 56, 30
     gen = torch.Generator(device="cuda").manual_seed(14)
-    x = torch.rand((b, h, w), generator=gen, device="cuda") * 5
-    imgs = torch.rand((3, b, h, w), generator=gen, device="cuda") * 5
-    ids = torch.randint(0, 3, (b,), generator=gen, device="cuda")
-    rows = torch.arange(b, device="cuda")
+    x = torch.rand((EF_TIME_ROWS, h, w), generator=gen, device="cuda") * 5
+    imgs = torch.rand((3, EF_TIME_ROWS, h, w), generator=gen, device="cuda") * 5
+    ids = torch.randint(0, 3, (EF_TIME_ROWS,), generator=gen, device="cuda")
     basis = torch.as_tensor(channel_basis((h, w)), device="cuda")
-    e_ms = time_ms(lambda: ek.expm1_channel_sums(x), 50)
-    e_plain = time_ms(lambda: ek.expm1_channel_sums_plain(x), 20)
-    e_lib = time_ms(lambda: torch.expm1(x).reshape(b, h * w) @ basis, 20)
-    f_ms = time_ms(lambda: ek.routed_expm1_channel_sums(imgs, ids), 50)
-    f_plain = time_ms(lambda: ek.routed_expm1_channel_sums_plain(imgs, ids), 20)
-    f_lib = time_ms(lambda: torch.expm1(imgs[ids, rows]).reshape(b, h * w) @ basis, 20)
-    # each routed row read once, ids read once, sums written once; expm1 and
-    # one add per pixel (the 0-adds of the other channels are not the work)
-    e_bytes, f_bytes = b * h * w * 4 + b * 5 * 4, b * h * w * 4 + b * 8 + b * 5 * 4
+
+    def e_case(xd):
+        b = xd.shape[0]
+        return (lambda **kw: ek.expm1_channel_sums(xd, **kw),
+                lambda: ek.expm1_channel_sums_plain(xd),
+                lambda: torch.expm1(xd.float()).reshape(b, h * w) @ basis,
+                b * h * w * xd.element_size() + b * 5 * 4, b)
+
+    def f_case(imd):
+        b = imd.shape[1]
+        rows = torch.arange(b, device="cuda")
+        return (lambda **kw: ek.routed_expm1_channel_sums(imd, ids, **kw),
+                lambda: ek.routed_expm1_channel_sums_plain(imd, ids),
+                lambda: torch.expm1(imd[ids, rows].float()).reshape(b, h * w) @ basis,
+                # each routed row read once, ids once, sums written once
+                b * h * w * imd.element_size() + b * 8 + b * 5 * 4, b)
+
+    cases = {"expm1_channel_sums": [], "routed_expm1_channel_sums": []}
+    for dt in (torch.float32, torch.bfloat16):
+        cases["expm1_channel_sums"].append((dt, e_case(x.to(dt))))
+        cases["routed_expm1_channel_sums"].append((dt, f_case(imgs.to(dt))))
+    cases["expm1_channel_sums"].append((torch.float32, e_case(x[:5120].contiguous())))
+    clocks = "clocks.sm,clocks.mem,power.draw"
+    log("14 epilogue times", f"{clocks} before the first case: {card_line(clocks)} [{card}]")
     rec = []
-    for name, replaces, ms, plain, lib, n_bytes, launches, err in (
-        ("expm1_channel_sums", "zdcsim/ops/pallas_kernels.py:103", e_ms, e_plain, e_lib,
-         e_bytes, e_launches, errs[0]),
-        ("routed_expm1_channel_sums", "zdcsim/ops/pallas_kernels.py:62", f_ms, f_plain, f_lib,
-         f_bytes, f_launches, errs[1]),
+    for name, replaces, (launches, bulk), err in (
+        ("expm1_channel_sums", "zdcsim/ops/pallas_kernels.py:103", e_counts, errs[0]),
+        ("routed_expm1_channel_sums", "zdcsim/ops/pallas_kernels.py:62", f_counts, errs[1]),
     ):
-        bound_ms, bound_by = bound(n_bytes, 2 * b * h * w, F32_OPS_PER_S)
+        timed_cases = []
+        for dt, (fn, plain, lib, n_bytes, b) in cases[name]:
+            # expm1 and one add per pixel (the other channels' sums are not the work)
+            bound_ms, bound_by = bound(n_bytes, 2 * b * h * w, F32_OPS_PER_S)
+            reps = []
+            c = {"showers": b, "dtype": str(dt)[6:], "graph_ms": graph_ms(fn, 50, reps),
+                 "replays_ms": reps, "eager_ms": time_ms(fn, 50),
+                 "old_body_ms": graph_ms(lambda: fn(_direct_body=True), 50),
+                 "plain_ms": time_ms(plain, 20), "library_ms": time_ms(lib, 20),
+                 "bound_ms": bound_ms, "bound_by": bound_by}
+            timed_cases.append(c)
+            log("14 epilogue times", f"{name} [{b}, {h}, {w}] {c['dtype']}: {c['graph_ms']:.4f} ms "
+                f"replayed in a CUDA graph, {100 * bound_ms / c['graph_ms']:.1f}% of its bound "
+                f"{bound_ms:.4f} ms ({bound_by}); host loop {c['eager_ms']:.4f} ms; direct body "
+                f"{c['old_body_ms']:.4f} ms; plain {c['plain_ms']:.4f} ms; library "
+                f"{c['library_ms']:.4f} ms; a call in each replay {fmt_replays(reps)} [{card}]")
+        main = timed_cases[0]
         rec.append({"name": name, "route": "cuda",
                     "source": "zdcsim_torch/csrc/expm1_channel_sums.cu", "replaces": replaces,
-                    "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib})
-        log("14 epilogue times", f"{name} at {b} showers: {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"library {lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+                    "launches": launches, "max_abs_err": err, "ms": main["graph_ms"],
+                    "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+                    "body": "bulk ring" if bulk == launches else "direct",
+                    "bulk_launches": bulk, "graph_ms": main["graph_ms"],
+                    "eager_ms": main["eager_ms"], "old_body_ms": main["old_body_ms"],
+                    "cases": timed_cases})
+    # the first case again, last: a reading that depends on its place in the
+    # phase shows here
+    fn, b = cases["expm1_channel_sums"][0][1][0], EF_TIME_ROWS
+    reps = []
+    again = rec[0]["cases"][0]["graph_ms_again"] = graph_ms(fn, 50, reps)
+    log("14 epilogue times", f"expm1_channel_sums [{b}, {h}, {w}] float32 again after the other "
+        f"cases: {again:.4f} ms replayed in a CUDA graph; a call in each replay "
+        f"{fmt_replays(reps)} [{card}]")
+    log("14 epilogue times", f"{clocks} after: {card_line(clocks)} [{card}]")
     return rec
+
+
+def fmt_replays(reps):
+    """``graph_ms``'s replays as ms a call: the untimed ones (their count,
+    the first 3 and the last) | the 5 timed ones."""
+    warm, timed = reps[:-5], reps[-5:]
+    return (f"{len(warm)} untimed " + " ".join(f"{r:.4f}" for r in warm[:3])
+            + f" .. {warm[-1]:.4f} | " + " ".join(f"{r:.4f}" for r in timed))
 
 
 def main(argv=None) -> int:
@@ -1339,10 +1496,16 @@ def main(argv=None) -> int:
         for line in build_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
-        counts = conv_sass_counts(lib_path)
-        if counts is None:
+        sass = library_sass(lib_path)
+        if sass is None:
             log("2 build", "no cuobjdump beside nvcc: SASS instruction counts not measured")
         else:
+            for fn, c in bulk_sass_counts(sass).items():
+                ops = ", ".join(f"{op} {c[op]}" for op in ("MUFU", "LDS", "FFMA", "FADD", "FMUL",
+                                                          "FSETP", "FSEL", "FRND"))
+                log("2 build", f"SASS of {fn}: {sum(c.values())} instructions ({ops}); a lane "
+                    f"sums 52.5 pixels of a 56x30 shower, 60.5 of 44x44")
+            counts = conv_sass_counts(sass)
             n_mma = 0
             for fn, c in counts.items():
                 log("2 build", f"SASS of {fn}: IMMA {c['IMMA']}, IGMMA {c['IGMMA']}, IDP4A "
@@ -1358,36 +1521,42 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     gp, _, rp, _ = load_serving_artifact(TEACHER)
     log("3 kernel A", "teacher artifact loaded")
-    a_in = check_kernel_a(gp, rng, dev, 8 if rehearse else A_ROWS, args.seed)
-    b_in = check_kernel_b(gp, rng, dev, 8 if rehearse else B_ROWS, args.seed)
+    PHASE_S["setup"] = time.perf_counter() - T0  # imports, card, build, artifact
+    a_in = timed("3 A", check_kernel_a, gp, rng, dev, 8 if rehearse else A_ROWS, args.seed)
+    b_in = timed("4 B", check_kernel_b, gp, rng, dev, 8 if rehearse else B_ROWS, args.seed)
     # the later checks draw from a stream of their own, so the serve's
     # conditions and router stay those that phases 3-4 leave
     rng_cd = np.random.default_rng([args.seed, 1])
-    c_in = check_kernel_c(gp, rng_cd, dev, 4 if rehearse else C_ROWS, args.seed)
-    d_in = check_kernel_d(gp, rng_cd, dev, 4 if rehearse else D_ROWS, args.seed)
-    check_conv_i8(gp, rng_cd, dev, 1 if rehearse else 2)
-    gh_in = check_kernels_gh(gp, rng_cd, dev, 2 if rehearse else GH_ROWS)
-    conv_in = check_conv_stages(*gh_in[1:4], dev)
+    c_in = timed("5 C", check_kernel_c, gp, rng_cd, dev, 4 if rehearse else C_ROWS, args.seed)
+    d_in = timed("6 D", check_kernel_d, gp, rng_cd, dev, 2 if rehearse else D_ROWS, args.seed)
+    timed("7 conv_i8", check_conv_i8, gp, rng_cd, dev, 1 if rehearse else 2)
+    gh_in = timed("7b G, H", check_kernels_gh, gp, rng_cd, dev, 1 if rehearse else GH_ROWS)
+    conv_in = timed("7b G, H", check_conv_stages, *gh_in[1:4], dev)
     if rehearse:
-        _, router = serve(gp, rp, rng, dev, 24, 8, 2, card, args.seed)
-        cond, real, _ = gate_data(dev, rehearse)
-        kernel_f_path(gp, router, dev, 32, card)
-        float_serves(gp, router, dev, 8, 8, 2, card, args.seed)
-        gates((cond[:512], real[:512]), dev, rehearse, card)
+        _, router = timed("8 serve", serve, gp, rp, rng, dev, *REHEARSE_SERVE, card, args.seed)
+        cond, real, _ = timed("10 E", gate_data, dev, rehearse)
+        timed("11 F", kernel_f_path, gp, router, dev, REHEARSE_F, card)
+        timed("12 float serves", float_serves, gp, router, dev, *REHEARSE_FLOAT, card, args.seed)
+        timed("13 gate", gates, (cond[:REHEARSE_GATE], real[:REHEARSE_GATE]), dev, rehearse,
+              card)
+        log_phase_times()
         print(json.dumps({"rehearsal": True}), flush=True)
         return 0
-    launches, router = serve(gp, rp, rng, dev, N_SHOWERS, SERVE_BATCH, SERVE_TILE, card,
-                             args.seed, args.profile)
-    rec = time_kernels(a_in[:3], b_in[:5], c_in[:3], d_in[:6], launches["int8_pallas"],
-                       (a_in[3], b_in[5], c_in[3], d_in[6]), card)
-    sweep_clusters(rec, a_in[:3], c_in[:3], card)
-    conv_ms = time_conv_stages(conv_in, card)
-    rec += time_fused(*gh_in[:4], launches, gh_in[4:], conv_ms, card)
-    cond, real, e_err = gate_data(dev, rehearse)
-    f_launches, f_err = kernel_f_path(gp, router, dev, F_SHOWERS, card)
-    float_serves(gp, router, dev, FLOAT_SHOWERS, SERVE_BATCH, SERVE_TILE, card, args.seed)
-    e_launches = gates((cond, real), dev, rehearse, card)
-    rec += time_epilogues(e_launches, f_launches, (e_err, f_err), card)
+    launches, router = timed("8 serve", serve, gp, rp, rng, dev, N_SHOWERS, SERVE_BATCH,
+                             SERVE_TILE, card, args.seed, args.profile)
+    rec = timed("9 kernel times", time_kernels, a_in[:3], b_in[:5], c_in[:3], d_in[:6],
+                launches["int8_pallas"], (a_in[3], b_in[5], c_in[3], d_in[6]), card)
+    timed("9 kernel times", sweep_clusters, rec, a_in[:3], c_in[:3], card)
+    conv_ms = timed("9 kernel times", time_conv_stages, conv_in, card)
+    rec += timed("9 kernel times", time_fused, *gh_in[:4], launches, gh_in[4:], conv_ms, card)
+    cond, real, e_err = timed("10 E", gate_data, dev, rehearse)
+    f_launches, f_bulk, f_err = timed("11 F", kernel_f_path, gp, router, dev, F_SHOWERS, card)
+    timed("12 float serves", float_serves, gp, router, dev, FLOAT_SHOWERS, SERVE_BATCH,
+          SERVE_TILE, card, args.seed)
+    e_counts = timed("13 gate", gates, (cond, real), dev, rehearse, card)
+    rec += timed("14 epilogue times", time_epilogues, e_counts, (f_launches, f_bulk),
+                 (e_err, f_err), card)
+    log_phase_times()
     log("done", f"wall {time.perf_counter() - T0:.2f}s [{card}]")
     print(json.dumps({"kernels": rec}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

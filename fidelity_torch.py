@@ -147,6 +147,7 @@ def run_gate(target: Optional[str] = None, precision: str = "int8", device=None,
 
     ``data`` is ``(cond, real)`` as :func:`gate_split` returns it, to gate
     several artifacts on one split (or on part of it); ``None`` builds it.
+    The engine runs chunks of 2048 conditions, or one chunk of fewer.
     """
     import torch
 
@@ -170,7 +171,8 @@ def run_gate(target: Optional[str] = None, precision: str = "int8", device=None,
     dev = default_device(device)
 
     ch_real = expm1_channel_sums(torch.as_tensor(real).to(dev))
-    engine = FastSim(gp, rp, batch_size=2048, precision=precision, device=dev, cfg=cfg)
+    engine = FastSim(gp, rp, batch_size=min(2048, len(cond)), precision=precision, device=dev,
+                     cfg=cfg)
     ch_gens = []
     for d in range(n_draws):
         gen = torch.Generator(device=dev).manual_seed(100 + d)

@@ -340,17 +340,19 @@ def test_fast_generator_pallas_card_matches_cpu(cuda):
 @pytest.mark.parametrize("dtype,b,h,w", [(torch.float32, 10, 8, 6), (torch.float32, 37, 44, 44),
                                          (torch.bfloat16, 9, 7, 5)])
 def test_expm1_channel_sums_kernel_matches_plain(cuda, dtype, b, h, w):
-    """Kernel E; 7x5 has odd sides and 35 pixels (the scalar-load path), 37
-    showers are not a multiple of a block's 8 warps."""
+    """Kernel E; 7x5 has odd sides and 35 pixels (the scalar-load path of
+    the direct body: 70 bytes of bf16 are no multiple of 16), 8x6 and 44x44 f32
+    take the bulk body."""
     from zdcsim_torch.ops import epilogue_kernels as ek
 
     rng = np.random.default_rng(b + h + w)
     x = torch.as_tensor(rng.random((b, h, w), dtype=np.float32) * 3).to(cuda, dtype)
-    n0 = ek.expm1_channel_sums.launches
+    n0, k0 = ek.expm1_channel_sums.launches, ek.expm1_channel_sums.bulk_launches
     out = ek.expm1_channel_sums(x)
     ref = ek.expm1_channel_sums_plain(x)
     torch.cuda.synchronize()
     assert ek.expm1_channel_sums.launches == n0 + 1
+    assert ek.expm1_channel_sums.bulk_launches == k0 + ek.bulk_fits(h, w, dtype, x.data_ptr())
     assert out.shape == (b, 5) and out.dtype == torch.float32
     # tolerance of tests/test_pallas_kernels.py (sums taken in another order)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=0)
@@ -376,18 +378,117 @@ def test_routed_expm1_channel_sums_kernel_matches_plain_and_e(cuda, e, b, h, w):
 
 
 def test_routed_expm1_channel_sums_writes_nan_for_a_bad_id(cuda):
+    """On the bulk body: a bad id issues no copy and gets NaN sums."""
     from zdcsim_torch.ops import epilogue_kernels as ek
 
     rng = np.random.default_rng(5)
     imgs = torch.as_tensor(rng.random((3, 6, 56, 30), dtype=np.float32)).to(cuda)
     idx = torch.tensor([0, -1, 2, 3, 1, 1 << 40], device=cuda)
+    k0 = ek.routed_expm1_channel_sums.bulk_launches
     out = ek.routed_expm1_channel_sums(imgs, idx)
+    assert ek.routed_expm1_channel_sums.bulk_launches == k0 + 1
     ref = ek.routed_expm1_channel_sums_plain(imgs, idx)
     torch.cuda.synchronize()
     bad = torch.tensor([False, True, False, True, False, True], device=cuda)
     assert torch.isnan(out[bad]).all() and torch.isnan(ref[bad]).all()
     assert torch.isfinite(out[~bad]).all()
     torch.testing.assert_close(out[~bad], ref[~bad], rtol=1e-5, atol=0)
+
+
+BULK_SHAPES = [(56, 30), (44, 44)]  # the proton and the neutron showers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", BULK_SHAPES)
+@pytest.mark.parametrize("b", [1, 7, 9, 5120, 16387])
+def test_expm1_bulk_body_matches_plain_and_its_rerun(cuda, b, h, w, dtype):
+    """Kernel E's bulk body: 1, 7 and 9 showers run fewer blocks than a
+    wave, 5120 and 16387 more showers than blocks, so every block's ring of
+    16 slots wraps (16387 leaves the blocks uneven shares); a rerun gives
+    the same bits."""
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    rng = np.random.default_rng(b + h)
+    x = torch.as_tensor(rng.random((b, h, w), dtype=np.float32) * 4 - 0.5).to(cuda, dtype)
+    assert ek.bulk_fits(h, w, dtype, x.data_ptr())
+    n0, k0 = ek.expm1_channel_sums.launches, ek.expm1_channel_sums.bulk_launches
+    out = ek.expm1_channel_sums(x)
+    again = ek.expm1_channel_sums(x)
+    ref = ek.expm1_channel_sums_plain(x)
+    torch.cuda.synchronize()
+    assert ek.expm1_channel_sums.launches == n0 + 2
+    assert ek.expm1_channel_sums.bulk_launches == k0 + 2
+    assert torch.equal(out, again)
+    # tolerance of tests/test_pallas_kernels.py (sums taken in another order)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expm1_offset_view_takes_the_direct_body(cuda, dtype):
+    """A view 1 element past an aligned base cannot be bulk-copied: it takes
+    the direct body and is still right; so does the debug switch to that body."""
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    b, h, w = 37, 56, 30
+    rng = np.random.default_rng(3)
+    flat = torch.as_tensor(rng.random(b * h * w + 1, dtype=np.float32) * 3).to(cuda, dtype)
+    x = flat[1:].view(b, h, w)
+    assert not ek.bulk_fits(h, w, dtype, x.data_ptr())
+    k0 = ek.expm1_channel_sums.bulk_launches
+    out = ek.expm1_channel_sums(x)
+    old = ek.expm1_channel_sums(x.clone(), _direct_body=True)
+    ref = ek.expm1_channel_sums_plain(x)
+    torch.cuda.synchronize()
+    assert ek.expm1_channel_sums.bulk_launches == k0
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=0)
+    torch.testing.assert_close(old, ref, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [9, 5120])
+def test_routed_bulk_body_equals_e_on_routed_rows(cuda, b, dtype):
+    """Kernel F's bulk body against its plain version and bit-equal to E's on
+    the routed rows; its bad ids (every 7th shower) give NaN."""
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    rng = np.random.default_rng(b)
+    imgs = torch.as_tensor(rng.random((3, b, 56, 30), dtype=np.float32) * 4 - 0.5).to(cuda, dtype)
+    ids = rng.integers(0, 3, b)
+    ids[::7] = -1
+    idx = torch.as_tensor(ids).to(cuda)
+    bad = idx < 0
+    f0, e0 = ek.routed_expm1_channel_sums.bulk_launches, ek.expm1_channel_sums.bulk_launches
+    out = ek.routed_expm1_channel_sums(imgs, idx)
+    ref = ek.routed_expm1_channel_sums_plain(imgs, idx)
+    rows = ek.expm1_channel_sums(imgs[idx.clamp(min=0), torch.arange(b, device=cuda)].contiguous())
+    torch.cuda.synchronize()
+    assert ek.routed_expm1_channel_sums.bulk_launches == f0 + 1
+    assert ek.expm1_channel_sums.bulk_launches == e0 + 1
+    assert torch.isnan(out[bad]).all() and torch.isfinite(out[~bad]).all()
+    torch.testing.assert_close(out[~bad], ref[~bad], rtol=1e-5, atol=0)
+    assert torch.equal(out[~bad], rows[~bad])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", BULK_SHAPES)
+def test_bulk_grid_on_the_card_is_one_wave(cuda, h, w, dtype):
+    """The grid that E's C entry reports for the bulk body: one block a
+    shower below a wave, and one wave (a whole number of blocks on each SM,
+    at least one) at 16384 showers, the same on a rerun."""
+    from zdcsim_torch.ops import _build
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    def grid(b):
+        x = torch.zeros((b, h, w), dtype=dtype, device=cuda)
+        out = torch.empty((b, 5), device=cuda)
+        return ek._launch(_build.library().zdc_expm1_channel_sums, x, (out.data_ptr(), b, h, w),
+                          False, "expm1_channel_sums")
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    wave = grid(16384)
+    torch.cuda.synchronize()
+    assert wave >= sms and wave % sms == 0 and grid(16384) == wave
+    assert [grid(b) for b in (1, 7, 9)] == [1, 7, 9]
 
 
 def test_fastsim_f32_is_float32_on_the_card(cuda):

@@ -48,8 +48,8 @@ SIGNATURES = {
     "zdc_row_resize_conv4_int8": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),
-    "zdc_expm1_channel_sums": (_P, _I, _P, _I, _I, _I, _P),
-    "zdc_routed_expm1_channel_sums": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    "zdc_expm1_channel_sums": (_P, _I, _P, _I, _I, _I, _I, _P, _P),
+    "zdc_routed_expm1_channel_sums": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "zdc_fused_decode_front": (_P, _I) + (_P,) * 12 + (_I, _P),
     "zdc_fused_decode": (_P, _I) + (_P,) * 23 + (_I, _I, _P),
     "zdc_fused_conv_int8": (_I,) + (_P,) * 6 + (_I, _P),
