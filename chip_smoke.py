@@ -2,7 +2,7 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15 on the CPU at small sizes
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
 Phases, each printing lines with the elapsed seconds:
@@ -91,12 +91,29 @@ Phases, each printing lines with the elapsed seconds:
     forced on the same input (``_direct_body``, graph replayed), their
     plain versions, PyTorch's ``expm1`` then the channel-basis matmul, and
     the bound; each graph's replays, the ``GRAPH_WARM`` untimed ones first,
-    and E at f32 timed again after the other cases.
+    and E at f32 timed again after the other cases;
+15. the engine API on the teacher behind phase 8's router: 8192 showers
+    (chunks of 4096, tile 64) on ``int8_pallas`` and ``int8_fused`` through
+    ``dyn_dispatch``, ``torch.equal`` to the switch path on the same noise
+    and launching the path's kernels; then ``simulate_bulk`` replayed as a
+    CUDA graph, ``torch.equal`` to the eager dyn loop on the same
+    generator seed, both timed, beside the per-tile weight gather's device
+    time in a replayed chunk; the dense ``simulate`` of 4096 showers on
+    ``int8`` and ``int8_fused`` (kernel H) and its ``throughput``;
+    ``static_act_quant`` on ``int8`` (its headroom and scales; within rel
+    0.15 of the dynamic serve; x ``dyn_dispatch`` equal to x switch);
+    ``simulate_grouped`` and ``simulate_stream``; each serve routed as the
+    ``int8`` switch serve and within rtol 0.15 of its per-shower log1p
+    sums; and ``bench_torch.py``'s first rung at ``BENCH_SHOWERS``.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
 of the 15 costliest kernels and of every kernel of the port below them,
-and the device's idle share of the serve's wall time.
+and the device's idle share of the serve's wall time; and in phase 15 the
+same of the eager dyn serve and the graph-replayed one on ``int8_pallas``
+and ``int8_fused`` (with the share of ``index_select``, the weight
+gather), and of one chunk of ``bench_torch.py``'s first rung, eager and
+replayed.
 
 The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
@@ -112,13 +129,18 @@ that line is printed. Without a CUDA device the script exits with code 2
 and prints no result. ``--rehearse-cpu`` runs at the sizes of
 ``REHEARSE_*`` below, each cut to what its phase needs to check what it
 checks: D at 2 rows, G and H at [1, 92160], a serve of 7 showers in one
-batch of 8 at tile 2 (the router drawn after their conditions sends them to
-every expert; at 6 it leaves one out), the gate's split of 2560 synthetic
-events with E at [8, 56, 30], F's all-expert decode of 7 showers (the first
-count at which that router reads every expert), float serves of 2
-showers, and the student's gate on the first 128 test conditions in one
-chunk with one draw. Both modes print each phase's seconds on one line
-before the last; the rehearsal ends with
+batch of 8 at tile 2 (the router drawn after their conditions sends them
+to every expert; at 6 it leaves one out), the gate's split of 2560
+synthetic events with E at [8, 56, 30], F's all-expert decode of 7
+showers (the first count at which that router reads every expert), float
+serves of 2 showers, the student's gate on the first 128 test conditions
+in one chunk with one draw, and phase 15 on one shower an expert at batch
+3, tile 1 (``int8_pallas``'s dyn check, grouped and stream dispatch on
+the w=0.125 student; no ``int8_fused`` dyn check, which
+``tests/test_torch_engine_api.py`` holds on the CPU; a dense serve of 1
+shower; a calibration of 1 + 4 rows; one grouped bucket;
+``bench_torch.py``'s first rung at 2 showers). Both modes print each
+phase's seconds on one line before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
 """
 
@@ -146,6 +168,12 @@ REHEARSE_SPLIT = 2560  # synthetic events of the gate's split: 512 test showers
 REHEARSE_F = 7
 REHEARSE_FLOAT = (2, 2, 2)
 REHEARSE_GATE = 128  # test conditions, one chunk
+REHEARSE_ENGINE = (None, 3, 1)  # phase 15: one shower an expert, batch 3, tile 1
+REHEARSE_DENSE = (1, 1)  # phase 15's dense showers and batch
+REHEARSE_BENCH = {"batch_size": 2, "tile": 2, "n_showers": 2}
+ENGINE_SERVE = (8192, 4096, 64)  # phase 15: showers, batch, tile
+ENGINE_DENSE = (4096, 2048)  # phase 15's dense showers and batch (DENSE_SAFE_BATCH)
+BENCH_SHOWERS = 65536  # phase 15: bench_torch.py's first rung, cut from 262144
 SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
 A_ROWS, B_ROWS, C_ROWS, D_ROWS, GH_ROWS, TIME_ROWS = 256, 64, 64, 64, 64, 64
 STUDENT_F, STUDENT_C = 11520, 32  # the w=0.125 student's Dense_1 and GroupNorm2d_0 widths
@@ -798,21 +826,23 @@ def serve(gp, rp, rng, dev, n, batch, tile, card, seed, profile=False):
         if dev.type == "cuda":
             serve_rate(eng, dev, n, batch, tile, card, seed, precision)
             if profile:
-                profile_serve(eng, cond, noise, card, precision)
+                profile_serve(lambda: eng.simulate_bulk(cond, noise=noise),
+                              f"{precision} serve of {n} showers", card)
         del eng
     return launches, router
 
 
-def profile_serve(eng, cond, noise, card, precision):
-    """One serve under ``torch.profiler``: device time per kernel, and the
-    share of the serve's wall time in which no kernel ran."""
+def profile_serve(run, what, card, phase="profile"):
+    """``run()`` (one serve) under ``torch.profiler``: device time per kernel,
+    and the share of the serve's wall time in which no kernel ran. Returns
+    ``{kernel name: [launches, us]}``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        eng.simulate_bulk(cond, noise=noise)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     spans, per_kernel = [], {}
@@ -830,7 +860,7 @@ def profile_serve(eng, cond, noise, card, precision):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     total = sum(v[1] for v in per_kernel.values())
-    log("profile", f"{precision} serve of {cond.shape[0]} showers: wall {wall_us / 1e3:.1f} ms, device busy "
+    log(phase, f"{what}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f} [{card}]")
     # the 15 costliest kernels, then those in anonymous namespaces, where every
     # kernel of the port lives (and a few of PyTorch's)
@@ -839,6 +869,7 @@ def profile_serve(eng, cond, noise, card, precision):
         if i < 15 or name.startswith("void (anonymous namespace)::"):
             print(f"  {us / 1e3:9.2f} ms {100 * us / total:5.1f}% {count:6d}x  {name[:110]}",
                   flush=True)
+    return per_kernel
 
 
 def time_ms(fn, iters):
@@ -1364,6 +1395,277 @@ def gates(data, dev, rehearse, card):
     return e_launches
 
 
+def log1p_sums(imgs):
+    """Per-shower ``log1p`` of the photon sum, numpy."""
+    import numpy as np
+
+    return np.log1p(imgs.sum(dim=(1, 2)).cpu().numpy())
+
+
+def check_agrees(phase, what, imgs, ids, ref_sums, ref_ids, ref_name="the int8 switch serve"):
+    """The phase 8 rule: routing identical to the reference serve and
+    per-shower log1p sums within rtol 0.15 of it; showers finite and >= 0."""
+    import numpy as np
+
+    imgs_np = imgs.cpu().numpy()
+    if not np.isfinite(imgs_np).all() or imgs_np.min() < 0:
+        fail(f"{what}: served showers not finite and non-negative")
+    a = log1p_sums(imgs)
+    rel = float((np.abs(a - ref_sums) / np.abs(ref_sums)).max())
+    same_ids = bool((ids.cpu().numpy() == ref_ids).all())
+    log(phase, f"{what} vs {ref_name}: routing identical {same_ids}; max rel diff of "
+        f"per-shower log1p sums {rel:.4f} (rtol 0.15)")
+    if not same_ids or rel > 0.15:
+        fail(f"{what} and {ref_name} disagree")
+
+
+def engine_conditions(rng, eng, n, rehearse):
+    """Phase 15's conditions and noise: ``n`` N(0, 1) rows; in the rehearsal
+    the first of 64 seeded candidates that ``eng``'s router sends to each
+    expert (one shower per expert, the fewest that read them all)."""
+    import numpy as np
+    import torch
+
+    cond = rng.standard_normal((64 if rehearse else n, 9), dtype="float32")
+    noise = rng.standard_normal((len(cond), 10), dtype="float32")
+    if rehearse:
+        ids = eng._route(torch.as_tensor(cond).to(eng.device)).cpu().numpy()
+        pick = [int(np.flatnonzero(ids == e)[0]) for e in range(eng.n_experts)]
+        cond, noise = cond[pick], noise[pick]
+    return cond, noise
+
+
+def dyn_serves(trees, router, dev, cond, noise, batch, tile, ref, card, seed, profile):
+    """Phase 15, the kernel paths through ``dyn_dispatch``: equal to the
+    switch path on the same noise; on the card the CUDA graph of
+    ``simulate_bulk`` equal to the eager dyn loop, both timed, and the
+    per-tile weight gather's device time against a replayed chunk's.
+    ``trees``: ``{precision: (generator tree, cfg)}``; a serve of the
+    teacher is held to ``ref`` as well."""
+    import torch
+
+    from zdcsim_torch.inference.engine import FastSim, _take
+
+    phase = "15 engine API"
+    every = kernel_wrappers()
+    n = len(cond)
+    for precision, (gp, cfg) in trees.items():
+        names = KERNEL_PATHS[precision]
+        wrappers = {k: every[k] for k in names}
+        eng = FastSim(gp, router, batch_size=batch, precision=precision, device=dev, cfg=cfg)
+        eng._build_switch(tile=tile)
+        sw, sw_ids = eng.simulate_switch(cond, noise=noise, return_experts=True)
+        eng._build_switch(tile=tile, dyn_dispatch=True)
+        reset_counts(wrappers)
+        dyn, dyn_ids = eng.simulate_switch(cond, noise=noise, return_experts=True)
+        counts = read_counts(wrappers)
+        same = torch.equal(dyn, sw) and torch.equal(dyn_ids, sw_ids)
+        k_tiles = batch // tile + eng.n_experts
+        log(phase, f"{precision} dyn_dispatch{' (w=0.125 student)' if cfg else ''}, {n} showers, "
+            f"batch {batch}, tile {tile} ({k_tiles} tiles a chunk): equal to the switch path "
+            f"{same}; kernel launches {counts}")
+        if not same:
+            fail(f"{precision}: dyn_dispatch differs from the switch path")
+        if dev.type == "cuda" and min(counts[k] for k in names) <= 0:
+            fail(f"the {precision} dyn serve did not launch each of its kernels {names}")
+        if cfg is None:
+            check_agrees(phase, f"{precision} dyn", dyn, dyn_ids, *ref)
+        if dev.type != "cuda":
+            log(phase, f"{precision}: on the CPU simulate_bulk is the eager loop (the card "
+                f"replays a CUDA graph)")
+            continue
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(seed + 15)
+
+        walls = {}
+        for what, run in (("eager", lambda: eng.simulate_switch(cond, generator=gen())),
+                          ("capture", lambda: eng.simulate_bulk(cond, generator=gen())),
+                          ("graph", lambda: eng.simulate_bulk(cond, generator=gen()))):
+            t = time.perf_counter()
+            walls[what] = (run(), None)[0]
+            torch.cuda.synchronize()
+            walls[what + "_s"] = time.perf_counter() - t
+        same = (torch.equal(walls["graph"], walls["eager"])
+                and torch.equal(walls["capture"], walls["eager"]))
+        graph = eng._graphs[(batch, tile)][0]
+        chunk_ms = time_ms(graph.replay, 5)
+        es = [torch.tensor(k % eng.n_experts, device=dev) for k in range(k_tiles)]
+        gather_ms = graph_ms(lambda: [_take(eng._stacked, e) for e in es], 1)
+        log(phase, f"{precision} simulate_bulk as a CUDA graph: equal to the eager dyn loop "
+            f"{same}; {n} showers in {walls['graph_s']:.3f}s replayed ({n / walls['graph_s']:.1f} "
+            f"showers/s; {walls['capture_s']:.3f}s with the warm-up and capture), "
+            f"{walls['eager_s']:.3f}s eager ({n / walls['eager_s']:.1f} showers/s); a replayed "
+            f"chunk {chunk_ms:.3f} ms on the card, of which the per-tile weight gather "
+            f"({k_tiles} tiles, replayed alone) {gather_ms:.3f} ms ({100 * gather_ms / chunk_ms:.1f}%) "
+            f"[{card}]")
+        if not same:
+            fail(f"{precision}: the CUDA graph of simulate_bulk differs from the eager dyn loop")
+        if profile:
+            for what, run in ((f"{precision} eager dyn serve of {n} showers",
+                               lambda: eng.simulate_switch(cond, generator=gen())),
+                              (f"{precision} graph-replayed serve of {n} showers",
+                               lambda: eng.simulate_bulk(cond, generator=gen()))):
+                per_kernel = profile_serve(run, what, card, phase)
+                total = sum(v[1] for v in per_kernel.values())
+                sel = sum(v[1] for k, v in per_kernel.items() if "indexSelect" in k)
+                log(phase, f"{what}: index_select kernels (the weight gather"
+                    f"{', and the column gather of kernel D' if precision == 'int8_pallas' else ''}) "
+                    f"{100 * sel / total:.1f}% of device time [{card}]")
+        del eng
+
+
+def engine_api(gp, router, dev, rehearse, card, seed, profile=False):
+    """Phase 15: the serving API beyond the switch path, on the teacher behind
+    phase 8's seeded router (``dyn_serves``; the dense ``simulate`` on
+    ``int8`` and ``int8_fused``; ``static_act_quant``; ``simulate_grouped``
+    and ``simulate_stream``); then ``bench_torch.py``'s first rung at
+    ``BENCH_SHOWERS``. The rehearsal serves the w=0.125 student on
+    ``int8_pallas``'s dyn check and on grouped and stream dispatch."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.inference.engine import FastSim
+    from zdcsim_torch.utils.artifact import load_serving_artifact
+
+    phase = "15 engine API"
+    n, batch, tile = REHEARSE_ENGINE if rehearse else ENGINE_SERVE
+    eng8 = FastSim(gp, router, batch_size=batch, precision="int8", device=dev)
+    eng8._build_switch(tile=tile)
+    cond, noise = engine_conditions(np.random.default_rng([seed, 15]), eng8, n, rehearse)
+    n = len(cond)
+    ref8, ref_ids = eng8.simulate_switch(cond, noise=noise, return_experts=True)
+    ref = (log1p_sums(ref8), ref_ids.cpu().numpy())
+    log(phase, f"int8 switch serve (the reference): {n} showers, showers per expert "
+        f"{np.bincount(ref[1], minlength=3).tolist()}")
+    if np.bincount(ref[1], minlength=3).min() <= 0:
+        fail("phase 15's conditions leave an expert unread")
+    if rehearse:
+        # the w=0.125 student where the teacher's width is not needed: the
+        # CPU decodes the teacher at about 0.1 s a row
+        gp_s, _, _, meta = load_serving_artifact(STUDENT)
+        student = (gp_s, load_config([f"model.generator.width={float(meta['width'])}"]))
+    # the rehearsal leaves out int8_fused (the teacher's width, about 1.2 s on
+    # two threads), which tests/test_torch_engine_api.py holds on the CPU
+    dyn_serves({"int8_pallas": student} if rehearse
+               else {"int8_pallas": (gp, None), "int8_fused": (gp, None)},
+               router, dev, cond, noise, batch, tile, ref, card, seed, profile)
+
+    nd, dense_batch = REHEARSE_DENSE if rehearse else ENGINE_DENSE
+    h = kernel_wrappers()["fused_decode"]
+    for precision in ("int8", "int8_fused"):
+        eng = FastSim(gp, router, batch_size=dense_batch, precision=precision, device=dev)
+        h.launches = 0
+        t = time.perf_counter()
+        imgs, ids = eng.simulate(cond[:nd], noise=noise[:nd], return_experts=True)
+        log(phase, f"{precision} dense simulate: {nd} showers in chunks of {dense_batch}, every "
+            f"expert decoding each, in {time.perf_counter() - t:.3f}s; kernel H launches "
+            f"{h.launches}")
+        if dev.type == "cuda" and precision == "int8_fused" and h.launches <= 0:
+            fail("the int8_fused dense path did not launch kernel H")
+        check_agrees(phase, f"{precision} dense", imgs, ids, ref[0][:nd], ref[1][:nd])
+        if dev.type == "cuda":
+            stats = eng.throughput(n_batches=5, warmup=2,
+                                   generator=torch.Generator(device=dev).manual_seed(seed))
+            log(phase, f"{precision} dense throughput: {stats['showers_per_sec']:.1f} showers/s "
+                f"(batch {dense_batch}, 5 batches) [{card}]")
+        del eng
+
+    # the calibration batch is cut to 1 row in the rehearsal (the CPU decodes
+    # the full width at about 0.1 s a row)
+    static_cls = type("FastSimSmallCal", (FastSim,), {"CAL_BATCH": 1}) if rehearse else FastSim
+    t = time.perf_counter()
+    eng_s = static_cls(gp, router, batch_size=batch, precision="int8", device=dev,
+                       static_act_quant=True)
+    eng_s._build_switch(tile=tile)
+    scales = [{k: round(float(v), 6) for k, v in sc.items()} for sc in eng_s._act_scales]
+    log(phase, f"static_act_quant on int8: calibrated on {eng_s.CAL_BATCH} + "
+        f"{4 * eng_s.CAL_BATCH} rows an expert in {time.perf_counter() - t:.2f}s; "
+        f"act_scale_headroom {eng_s.act_scale_headroom:.4f}; scales {scales}")
+    stat = eng_s.simulate_switch(cond, noise=noise)
+    rel = float(torch.linalg.norm(stat - ref8) / torch.linalg.norm(ref8).clamp(min=1e-6))
+    log(phase, f"static serve vs the dynamic int8 serve: rel {rel:.4f} (< 0.15)")
+    if rel >= 0.15:
+        fail("the static-quant serve disagrees with the dynamic serve")
+    if not rehearse:  # the CPU tests hold it (tests/test_torch_static_quant.py)
+        eng_s._build_switch(tile=tile, dyn_dispatch=True)
+        same = torch.equal(eng_s.simulate_switch(cond, noise=noise), stat)
+        log(phase, f"static x dyn_dispatch equal to static x switch: {same}")
+        if not same:
+            fail("static x dyn_dispatch differs from static x switch")
+    del eng_s
+
+    if rehearse:
+        # the student, and stream chunks of 1 row: the grouped buckets alone
+        # hold 256 rows an expert
+        (gp_g, cfg), g_batch = student, 1
+    else:
+        gp_g, cfg, g_batch = gp, None, batch
+    eng_g = FastSim(gp_g, router, batch_size=g_batch, precision="int8", device=dev, cfg=cfg)
+    # the rehearsal groups one shower: a bucket holds at least 256 rows
+    ng = 1 if rehearse else n
+    t = time.perf_counter()
+    grouped, g_ids = eng_g.simulate_grouped(cond[:ng], noise=noise[:ng], return_experts=True)
+    t_g = time.perf_counter() - t
+    t = time.perf_counter()
+    stream, s_ids = eng_g.simulate_stream(cond, noise=noise, return_experts=True)
+    t_s = time.perf_counter() - t
+    same_ids = bool((g_ids.numpy() == ref[1][:ng]).all() and (s_ids.numpy() == ref[1]).all())
+    log(phase, f"simulate_grouped {t_g:.3f}s ({ng} showers), simulate_stream {t_s:.3f}s ({n} "
+        f"showers; the float "
+        f"Generator in bf16{', w=0.125 student' if rehearse else ''}): routing identical to the "
+        f"switch serve {same_ids}")
+    if not same_ids:
+        fail("grouped or stream dispatch routed otherwise than the switch serve")
+    if rehearse:
+        check_agrees(phase, "simulate_stream", stream[:ng], s_ids[:ng], log1p_sums(grouped),
+                     ref[1][:ng], "simulate_grouped")
+    else:
+        check_agrees(phase, "simulate_grouped", grouped, g_ids, *ref)
+        check_agrees(phase, "simulate_stream", stream, s_ids, *ref)
+    del eng_g
+
+    rung = dict(bench_torch.ladder()[0])
+    rung.update(REHEARSE_BENCH if rehearse else {"n_showers": BENCH_SHOWERS})
+    res = bench_torch.run_rung(rung, dev, repeats=1 if rehearse else 3, seed=seed)
+    peak = res["peak_bytes"]
+    log(phase, f"bench_torch first rung {bench_torch.describe(rung)}: showers/s "
+        + " ".join(f"{r:.1f}" for r in res["rates"]) + f", median {res['median']:.1f}; routing "
+        f"{res['routing']}; peak device memory "
+        + (f"{peak} bytes ({peak / 2**30:.3f} GiB)" if peak is not None else "not measured")
+        + f" [{card}]")
+    if profile and dev.type == "cuda":
+        profile_bench_rung(rung, dev, card, seed)
+
+
+def profile_bench_rung(rung, dev, card, seed):
+    """Phase 15 with ``--profile``: one chunk of ``bench_torch.py``'s first
+    rung (the w=0.125 student on ``int8``) eager through the dyn tile loop,
+    then replayed from its CUDA graph, each under ``torch.profiler``."""
+    import torch
+
+    import bench_torch
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.inference.engine import FastSim
+    from zdcsim_torch.utils.artifact import load_serving_artifact
+
+    gp_s, _, rp_s, meta = load_serving_artifact(os.path.join(HERE, rung["artifact"]))
+    eng = FastSim(gp_s, rp_s, batch_size=rung["batch_size"], precision="int8", device=dev,
+                  cfg=load_config([f"model.generator.width={float(meta['width'])}"]))
+    eng._build_switch(tile=rung["tile"], dyn_dispatch=True)
+    cond = torch.randn((rung["batch_size"], eng.cond_dim),
+                       generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    gen = torch.Generator(device=dev)
+    eng.simulate_bulk(cond, generator=gen)  # warm-up and capture
+    what = f"bench_torch {bench_torch.describe(rung)}: one chunk of {rung['batch_size']} showers"
+    profile_serve(lambda: eng.simulate_switch(cond, generator=gen), what + " eager",
+                  card, "15 engine API")
+    profile_serve(lambda: eng.simulate_bulk(cond, generator=gen), what + " replayed",
+                  card, "15 engine API")
+
+
 def time_epilogues(e_counts, f_counts, errs, card):
     """Phase 14: kernels E and F at ``EF_TIME_ROWS`` showers of 56x30 in f32
     and bf16 (E also at the gate's 5120 in f32), replayed in a CUDA graph
@@ -1464,7 +1766,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-13 on the CPU at small sizes with the plain versions")
+                    help="run phases 3-13 and 15 on the CPU at small sizes with the plain "
+                         "versions")
     ap.add_argument("--profile", action="store_true",
                     help="profile one serve of each kernel path with torch.profiler")
     args = ap.parse_args(argv)
@@ -1539,6 +1842,7 @@ def main(argv=None) -> int:
         timed("12 float serves", float_serves, gp, router, dev, *REHEARSE_FLOAT, card, args.seed)
         timed("13 gate", gates, (cond[:REHEARSE_GATE], real[:REHEARSE_GATE]), dev, rehearse,
               card)
+        timed("15 engine API", engine_api, gp, router, dev, rehearse, card, args.seed)
         log_phase_times()
         print(json.dumps({"rehearsal": True}), flush=True)
         return 0
@@ -1556,6 +1860,7 @@ def main(argv=None) -> int:
     e_counts = timed("13 gate", gates, (cond, real), dev, rehearse, card)
     rec += timed("14 epilogue times", time_epilogues, e_counts, (f_launches, f_bulk),
                  (e_err, f_err), card)
+    timed("15 engine API", engine_api, gp, router, dev, rehearse, card, args.seed, args.profile)
     log_phase_times()
     log("done", f"wall {time.perf_counter() - T0:.2f}s [{card}]")
     print(json.dumps({"kernels": rec}), flush=True)

@@ -613,3 +613,103 @@ def test_fused_conv_int8_kernel_equals_plain(cuda, conv, b):
     assert fdk.fused_conv_int8.launches == n0 + 1
     assert out.shape == ref.shape == (b, *fdk.CONVS[conv][1]) and out.dtype == torch.float32
     assert torch.equal(out, ref)
+
+
+def _router(seed=40):
+    """A router in the Flax layout drawn from a seed, so that every expert
+    decodes showers (the teacher's own sends every condition to expert 1)."""
+    rng = np.random.default_rng(seed)
+    dims = [9, 128, 64, 32, 3]
+    return {f"Dense_{i}": {"kernel": (rng.standard_normal((dims[i], dims[i + 1]))
+                                      / np.sqrt(dims[i])).astype(np.float32),
+                           "bias": np.zeros(dims[i + 1], np.float32)} for i in range(4)}
+
+
+@pytest.fixture(scope="module")
+def serving_trees():
+    """The teacher's and the w=0.125 student's generator trees (numpy)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from zdcsim_torch.utils.artifact import load_serving_artifact
+
+    art = os.path.join(os.path.dirname(__file__), "..", "artifacts", "gate")
+    return {"teacher": load_serving_artifact(os.path.join(art, "gate_serving_weights.npz"))[0],
+            "student": load_serving_artifact(
+                os.path.join(art, "student_w0.125_serving_weights.npz"))[0]}
+
+
+def _engine(trees, which, precision, batch):
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.inference.engine import FastSim
+
+    cfg = load_config(["model.generator.width=0.125"] if which == "student" else [])
+    return FastSim(trees[which], _router(), batch_size=batch, precision=precision,
+                   device="cuda", cfg=cfg)
+
+
+@pytest.mark.parametrize("which,precision", [("teacher", "int8_pallas"),
+                                             ("teacher", "int8_fused"),
+                                             ("student", "int8")])
+def test_dyn_dispatch_equals_switch_on_the_card(serving_trees, which, precision):
+    """The kernels on weights gathered per tile decode as on each expert's
+    own weights, bit for bit; the kernels launch in both."""
+    rng = np.random.default_rng(3)
+    cond = rng.standard_normal((200, 9), dtype=np.float32)  # 2 chunks, the last padded
+    noise = rng.standard_normal((200, 10), dtype=np.float32)
+    eng = _engine(serving_trees, which, precision, 128)
+    eng._build_switch(tile=32)
+    a, ia = eng.simulate_switch(cond, noise=noise, return_experts=True)
+    assert torch.bincount(ia, minlength=3).min() > 0
+    eng._build_switch(tile=32, dyn_dispatch=True)
+    n0 = dk.ln_leaky_rowquant.launches
+    b, ib = eng.simulate_switch(cond, noise=noise, return_experts=True)
+    assert torch.equal(a, b) and torch.equal(ia, ib)
+    if precision == "int8_pallas":
+        assert dk.ln_leaky_rowquant.launches == n0 + 2 * (128 // 32 + 3)
+
+
+@pytest.mark.parametrize("which,precision", [("teacher", "int8_pallas"),
+                                             ("teacher", "int8_fused"),
+                                             ("student", "int8")])
+def test_bulk_graph_replay_equals_the_eager_dyn_loop(serving_trees, which, precision):
+    """``simulate_bulk`` replays one CUDA graph per chunk: its output for a
+    generator seed equals the eager dyn loop's on the same seed, on the
+    first call (which captures) and on the next; a replay launches no kernel
+    through the wrappers."""
+    cond = np.random.default_rng(4).standard_normal((300, 9), dtype=np.float32)
+    eng = _engine(serving_trees, which, precision, 128)
+    eng._build_switch(tile=32, dyn_dispatch=True)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(7)
+
+    eager, ids = eng.simulate_switch(cond, generator=gen(), return_experts=True)
+    first, ids1 = eng.simulate_bulk(cond, generator=gen(), return_experts=True)
+    n0 = dk.ln_leaky_rowquant.launches
+    again = eng.simulate_bulk(cond, generator=gen())
+    torch.cuda.synchronize()
+    assert list(eng._graphs) == [(128, 32)]
+    assert torch.equal(first, eager) and torch.equal(again, eager) and torch.equal(ids1, ids)
+    assert dk.ln_leaky_rowquant.launches == n0
+    assert torch.isfinite(eager).all() and eager.shape == (300, 56, 30)
+
+
+def test_a_capture_survives_garbage_engines_with_graphs(serving_trees):
+    """Engines with captured graphs left in a reference cycle: the next
+    capture collects them first and keeps the collector off while it
+    captures, so freeing their graphs cannot invalidate it."""
+    cond = np.random.default_rng(5).standard_normal((300, 9), dtype=np.float32)
+    for _ in range(3):
+        old = _engine(serving_trees, "teacher", "int8_fused", 128)
+        old._build_switch(tile=32, dyn_dispatch=True)
+        old.simulate_bulk(cond, generator=torch.Generator(device="cuda").manual_seed(1))
+        cycle = [old]
+        cycle.append(cycle)
+        del old, cycle
+    eng = _engine(serving_trees, "teacher", "int8_pallas", 128)
+    eng._build_switch(tile=32, dyn_dispatch=True)
+    out = eng.simulate_bulk(cond, generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()

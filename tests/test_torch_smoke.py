@@ -3,13 +3,15 @@ matplotlib are absent (the GPU machine has none of them).
 
 A subprocess installs an import hook that refuses those packages and the
 JAX package ``zdcsim`` (not ``zdcsim_torch``), then imports every module of
-``zdcsim_torch`` and ``fidelity_torch.py`` and rehearses ``chip_smoke.py`` on
+``zdcsim_torch``, ``fidelity_torch.py`` and ``bench_torch.py`` and rehearses ``chip_smoke.py`` on
 the CPU: the kernel checks of A-D (B and D at the teacher's widths and at a
 narrow one), ``_conv_i8``, G and H and of G's and H's three int8 convs, the
 serves of ``int8``, ``int8_pallas_ab``,
 ``int8_pallas``, ``int8_fused_front`` and ``int8_fused``, the gate's split
 with kernel E, the all-expert path with kernel F, the ``f32`` and ``bf16``
-serves, and the student's fidelity gate on part of the split.
+serves, the student's fidelity gate on part of the split, and the engine
+API of phase 15 (``dyn_dispatch``, the dense path, static activation quant,
+grouped and stream dispatch, ``bench_torch.py``'s first rung).
 """
 
 import os
@@ -49,6 +51,7 @@ assert "zdcsim_torch.ops.fused_decode_kernels" in names, names
 for n in names:
     importlib.import_module(n)
 import fidelity_torch
+import bench_torch
 bad = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 assert not bad, bad
 print(len(names), "modules")
@@ -81,5 +84,8 @@ runpy.run_path("chip_smoke.py", run_name="__main__")
                   "int8_fused_front main path", "int8_fused main path",
                   "[10 kernel E]", "[11 kernel F]",
                   "[12 float serves] t", "f32:", "bf16:", "[13 gate]",
-                  '"metric": "fastsim_fidelity"'):
+                  '"metric": "fastsim_fidelity"', "int8_pallas dyn_dispatch",
+                  "int8_fused dense simulate",
+                  "static_act_quant on int8", "simulate_stream vs simulate_grouped",
+                  "bench_torch first rung", " 15 engine API "):
         assert phase in proc.stdout, phase

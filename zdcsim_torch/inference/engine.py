@@ -1,9 +1,8 @@
 """The fast-sim serving path (counterpart of ``zdcsim/inference/engine.py``).
 
 Route each conditioning vector with the router (float32, argmax), draw or
-take the noise, decode every sample with its routed expert through the
-tiled-switch dispatch and the fast proton decode (float or int8), and
-invert the log transform with ``expm1``.
+take the noise, decode every sample with its routed expert, and invert the
+log transform with ``expm1``.
 
 Precisions (the JAX names, so one maps onto the other):
 
@@ -12,7 +11,8 @@ Precisions (the JAX names, so one maps onto the other):
   the card;
 - ``"bf16"``: the float fast decode in bf16;
 - ``"int8"``: bf16 weights and activations, int8 Conv_0/Conv_1/Conv_2, every
-  stage plain PyTorch (the JAX XLA int8 backend);
+  stage plain PyTorch (the JAX XLA int8 backend); the only precision that
+  takes static activation scales (``static_act_quant``);
 - ``"int8_pallas_ab"``: as ``"int8"``, with the MLP's LayerNorm + quant and
   Conv_0 on the two CUDA kernels that replace Pallas kernels A and B
   (``zdcsim_torch/ops/decode_kernels.py``);
@@ -31,30 +31,103 @@ width raises ``ValueError`` when the engine is built.
 
 On a CPU device the kernels' plain versions run instead.
 
-PyTorch runs eagerly, so the JAX engine's one-program forms become Python
-loops over batch chunks and dispatch tiles; capturing them as CUDA graphs
-is later work.
+The serving paths, as in JAX:
+
+- :meth:`FastSim.simulate` / :meth:`FastSim.throughput`: dense, every
+  expert decodes every sample, then the routed gather;
+- :meth:`FastSim.simulate_switch` / :meth:`FastSim.throughput_switch`:
+  tiled-switch dispatch (``inference/switch_dispatch.py``), single-expert
+  work; :meth:`FastSim._build_switch` sets the tile and, with
+  ``dyn_dispatch``, the branchless form that decodes all ``B/T + E`` tiles
+  without a host read;
+- :meth:`FastSim.simulate_bulk` / :meth:`FastSim.throughput_bulk`: the
+  switch dispatch over every chunk. JAX compiles it into one ``lax.scan``
+  program; here, on the card with ``dyn_dispatch``, one chunk's route ->
+  dispatch -> decode -> scatter is captured once per ``(batch_size, tile)``
+  as a CUDA graph and replayed per chunk (otherwise the eager chunk loop);
+- :meth:`FastSim.simulate_grouped` / :meth:`FastSim.simulate_stream` (and
+  their ``throughput_*``): host-side buckets per expert through the float
+  ``Generator`` module in the compute dtype, as JAX's ``decode_one``.
+
+PyTorch runs eagerly, so the JAX engine's other one-program forms are
+Python loops over chunks and tiles.
 """
 
 from __future__ import annotations
 
+import functools
+import gc
 import math
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from zdcsim_torch.config import Config, load_config
-from zdcsim_torch.convert import expert, from_jax_params, tree_to_torch
+from zdcsim_torch.convert import expert, from_jax_params, to_state_dict, tree_to_torch
 from zdcsim_torch.device import default_device
 from zdcsim_torch.inference.switch_dispatch import tiled_switch_decode
+from zdcsim_torch.models.proton import Generator
 from zdcsim_torch.models.proton_fast import fast_generator_apply, quantize_weights
 from zdcsim_torch.models.router import RouterNetwork
 
 # precision -> int8 backend of fast_generator_apply (None: the float decode)
 _BACKENDS = {"f32": None, "bf16": None, "int8": "xla", "int8_pallas_ab": "pallas_ab",
              "int8_pallas": "pallas", "int8_fused_front": "fused_front", "int8_fused": "fused"}
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Per-expert trees -> one tree with every tensor stacked on a leading
+    ``[E, ...]`` axis; other leaves (the row-phase offsets) must agree."""
+    first = trees[0]
+    if torch.is_tensor(first):
+        return torch.stack(trees)
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack(list(xs)) for xs in zip(*trees))
+    if any(t != first for t in trees):
+        raise ValueError(f"per-expert leaves differ: {trees}")
+    return first
+
+
+def _decode(dtype: torch.dtype, int8_backend: Optional[str], params, qweights, scales,
+            z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """One expert's fast decode of ``[T]`` samples, then ``expm1`` in f32:
+    ``[T, H, W]`` (``int8_backend`` ``None``: the float decode)."""
+    # cuDNN runs float32 convs in TF32 unless told not to (a bf16 conv is
+    # unaffected); the context restores the caller's flags
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        img = fast_generator_apply(
+            params, z, c.to(dtype), int8=int8_backend is not None,
+            int8_backend=int8_backend or "xla", qweights=qweights, act_scales=scales,
+        )
+    return torch.expm1(img[..., 0].to(torch.float32))
+
+
+def _decode_dyn(dtype: torch.dtype, int8_backend: Optional[str], stacked,
+                e_k: torch.Tensor, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """:func:`_decode` on the weights of expert ``e_k`` (a 0-d device tensor)
+    gathered from the :func:`_stack` tree ``stacked``."""
+    return _decode(dtype, int8_backend, *_take(stacked, e_k), z, c)
+
+
+def _pad(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` with zero rows appended up to ``n`` rows."""
+    return t if t.shape[0] == n else torch.cat([t, t.new_zeros((n - t.shape[0], *t.shape[1:]))])
+
+
+def _take(tree: Any, e: torch.Tensor) -> Any:
+    """Expert ``e``'s slice (``e`` a 0-d device tensor) of a :func:`_stack`
+    tree, each tensor gathered into a fresh contiguous one."""
+    if torch.is_tensor(tree):
+        return tree.index_select(0, e.reshape(1))[0]
+    if isinstance(tree, dict):
+        return {k: _take(v, e) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_take(v, e) for v in tree)
+    return tree
 
 
 class FastSim:
@@ -65,22 +138,50 @@ class FastSim:
             ``zdcsim_torch.utils.artifact.load_serving_artifact`` returns
             them (generator experts stacked on the leading axis).
         batch_size: the chunk size inputs are split into and padded to.
+            ``None``: 8192 for the switch, bulk, grouped and stream paths and
+            ``DENSE_SAFE_BATCH`` for the dense all-expert path; a given size
+            applies to every path.
         precision: ``"f32"``, ``"bf16"``, ``"int8"``, ``"int8_pallas_ab"``,
             ``"int8_pallas"``, ``"int8_fused_front"`` or ``"int8_fused"`` (see
             the module doc).
         device: ``None`` for CUDA (raises without a card), or ``"cpu"``.
         cfg: model geometry; defaults to ``load_config()``.
+        scaler_cond: optional ``zdcsim_torch.data.scalers.StandardScaler`` of
+            the raw kinematics (:meth:`standardize`).
+        static_act_quant: on ``"int8"``, quantise activations with static
+            per-expert scales calibrated once at build time
+            (:meth:`_calibrate_act_scales`) instead of one max per call;
+            values beyond a scale's range clip at +-127. The kernel
+            precisions quantise per sample inside their kernels, so they
+            refuse it (``ValueError``); the float precisions ignore it.
     """
 
+    DENSE_SAFE_BATCH = 2048
+    # Static-quant calibration: max-abs over CAL_BATCH standard-normal
+    # samples, inflated by ACT_SCALE_MARGIN to cover serving-batch tails.
+    CAL_BATCH = 1024
+    ACT_SCALE_MARGIN = 1.25
+
     def __init__(self, gen_params: Any, router_params: Any, batch_size: Optional[int] = None,
-                 precision: str = "f32", device=None, cfg: Optional[Config] = None):
+                 precision: str = "f32", device=None, cfg: Optional[Config] = None,
+                 scaler_cond=None, static_act_quant: bool = False):
         if precision not in _BACKENDS:
             raise ValueError(
                 f"precision must be one of {sorted(_BACKENDS)} in this port, got {precision!r}"
             )
+        if static_act_quant and _BACKENDS[precision] not in (None, "xla"):
+            # the kernels quantise per sample and ignore the scales, so a
+            # calibration would apply to only part of the decode
+            raise ValueError(
+                "static_act_quant requires the XLA int8 backend "
+                f"(precision='int8'), got backend {_BACKENDS[precision]!r}"
+            )
         cfg = cfg or load_config()
         self.device = default_device(device)
         self.batch_size = int(batch_size) if batch_size is not None else 8192
+        self.dense_batch_size = (int(batch_size) if batch_size is not None
+                                 else min(self.DENSE_SAFE_BATCH, self.batch_size))
+        self.scaler_cond = scaler_cond
         self.noise_dim = int(cfg.model.noise_dim)
         self.cond_dim = int(cfg.model.cond_dim)
         self.n_experts = int(cfg.model.n_experts)
@@ -88,9 +189,6 @@ class FastSim:
         self.precision = precision
         self._dtype = torch.float32 if precision == "f32" else torch.bfloat16
         self._int8_backend = _BACKENDS[precision]
-        # Set by a static-activation-quant calibration, which this port does
-        # not have yet; kept so callers can read it unconditionally.
-        self.act_scale_headroom = None
 
         gen, router_sd = from_jax_params(gen_params, router_params)
         n_stacked = gen["Conv_0"]["kernel"].shape[0]
@@ -110,37 +208,123 @@ class FastSim:
         ).to(self.device)
         self.router.load_state_dict(router_sd)
         self.router.eval()
-        self._decoders = [self._decoder(e) for e in range(self.n_experts)]
-        self._tile = 128
 
-    def _build_switch(self, tile: int = 128) -> None:
-        """Set the dispatch tile of :meth:`simulate_switch` (JAX default 128)."""
+        # Static activation scales: per expert {site: f32 scalar}, or None.
+        self._act_scales: Optional[List[Dict[str, torch.Tensor]]] = None
+        # min over sites and experts of (margined calibration amax) /
+        # (validation amax): above 1, no clipping seen at 4x the batch
+        self.act_scale_headroom: Optional[float] = None
+        if static_act_quant and self._int8_backend == "xla":
+            self._act_scales = self._calibrate_act_scales()
+        self._build_switch()
+
+    # -- the decode of one expert ------------------------------------------
+
+    def _expert_args(self, e: int):
+        scales = self._act_scales[e] if self._act_scales is not None else None
+        return self._experts[e], self._qweights[e], scales
+
+    def _calibrate_act_scales(self) -> List[Dict[str, torch.Tensor]]:
+        """Per-expert static int8 activation scales (JAX's
+        ``_calibrate_act_scales``): each expert's ``"int8"`` forward on a
+        standard-normal batch of ``CAL_BATCH`` captures each quant site's
+        max|x| (``amax_out``); its scale is ``max(amax * ACT_SCALE_MARGIN,
+        1e-12) / 127``. A validation batch of ``4 * CAL_BATCH`` sets
+        :attr:`act_scale_headroom`. Conditions enter the engine standardised,
+        so N(0, 1) is the representative calibration distribution.
+
+        The batches come from CPU ``torch.Generator``s seeded 0 and 1 (noise,
+        then conditions), so the card and the CPU calibrate on the same
+        numbers. They are not JAX's ``jax.random`` draws, which torch cannot
+        reproduce: the two packages' scales agree in distribution, not bit
+        for bit."""
+        def amax(n: int, seed: int) -> List[Dict[str, torch.Tensor]]:
+            gen = torch.Generator().manual_seed(seed)
+            z = torch.randn((n, self.noise_dim), generator=gen)
+            c = torch.randn((n, self.cond_dim), generator=gen)
+            z, c = (t.to(self.device, self._dtype) for t in (z, c))
+            out = []
+            with torch.no_grad():
+                for p, q in zip(self._experts, self._qweights):
+                    d: Dict[str, torch.Tensor] = {}
+                    fast_generator_apply(p, z, c, int8=True, int8_backend="xla", qweights=q,
+                                         amax_out=d)
+                    out.append(d)
+            return out
+
+        m = float(self.ACT_SCALE_MARGIN)
+        cal, val = amax(self.CAL_BATCH, 0), amax(4 * self.CAL_BATCH, 1)
+        ratios = [(a[k] * m) / torch.clamp(v[k], min=1e-12)
+                  for a, v in zip(cal, val) for k in a]
+        self.act_scale_headroom = float(torch.stack(ratios).min())
+        return [{k: torch.clamp(a_k * m, min=1e-12) / 127.0 for k, a_k in a.items()} for a in cal]
+
+    # -- switch dispatch -------------------------------------------------------
+
+    def _build_switch(self, tile: int = 128, dyn_dispatch: bool = False) -> None:
+        """Set the dispatch tile of the switch and bulk paths (JAX default
+        128) and their form.
+
+        ``dyn_dispatch=True`` decodes each tile branchlessly: the tile's
+        expert weights (parameters, the kernel precisions' packed int8
+        weights and the static scales, stacked on a leading ``[E, ...]`` axis
+        once here) are gathered by the tile's expert index on the device and
+        run through one decode body, for all ``B/T + E`` tiles; nothing is
+        read to the host, and on the card :meth:`simulate_bulk` replays it as
+        a CUDA graph. Value-identical to the per-expert form. A rebuild drops
+        the captured graphs, which hold the previous form.
+        """
         self._tile = int(tile)
+        self._dyn = bool(dyn_dispatch)
+        self._graphs: Dict[Tuple[int, int], Any] = {}
+        # partials of module-level functions, not closures over self: an
+        # engine must leave no reference cycle, or the garbage collector may
+        # free it (and destroy its graphs) in the middle of another capture
+        how = (self._dtype, self._int8_backend)
+        self._decoders = [functools.partial(_decode, *how, *self._expert_args(e))
+                          for e in range(self.n_experts)]
+        # the stacked [E, ...] weights the dyn decoder gathers from
+        self._stacked = None
+        self._decode_dyn = None
+        if self._dyn:
+            self._stacked = _stack([list(self._expert_args(e)) for e in range(self.n_experts)])
+            self._decode_dyn = functools.partial(_decode_dyn, *how, self._stacked)
 
-    def _decoder(self, e: int):
-        params, q = self._experts[e], self._qweights[e]
-        int8 = self._int8_backend is not None
-
-        def decode(z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-            # cuDNN runs float32 convs in TF32 unless told not to (a bf16
-            # conv is unaffected); the context restores the caller's flags
-            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-                img = fast_generator_apply(
-                    params, z, c.to(self._dtype), int8=int8,
-                    int8_backend=self._int8_backend or "xla", qweights=q,
-                )
-            return torch.expm1(img[..., 0].to(torch.float32))
-
-        return decode
+    @torch.no_grad()
+    def _route(self, cond: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(self.router(cond)[1], dim=-1)
 
     @torch.no_grad()
     def _sim_switch(self, cond: torch.Tensor, noise: torch.Tensor):
-        _, logits = self.router(cond)
-        idx = torch.argmax(logits, dim=-1)
+        idx = self._route(cond)
         # the tile must divide the batch: fall back to their largest common divisor
         tile = math.gcd(cond.shape[0], self._tile)
-        imgs = tiled_switch_decode(self._decoders, idx, cond, noise, self.image_shape, tile=tile)
+        imgs = tiled_switch_decode(self._decoders, idx, cond, noise, self.image_shape,
+                                   tile=tile, decode_dyn=self._decode_dyn)
         return imgs, idx
+
+    def _inputs(self, cond, noise):
+        """cond as f32 and noise (where given) in the compute dtype, on the
+        engine's device."""
+        cond = self._as_tensor(cond, torch.float32)
+        if noise is not None:
+            noise = self._as_tensor(noise, self._dtype)
+            if noise.shape != (cond.shape[0], self.noise_dim):
+                raise ValueError(f"noise must be [{cond.shape[0]}, {self.noise_dim}]")
+        return cond, noise
+
+    def _chunks(self, cond, noise, generator, bs: int) -> Iterator[Tuple[torch.Tensor, torch.Tensor, int]]:
+        """``(cond [bs, C], noise [bs, Z], m)`` per chunk of ``bs`` rows, the
+        last padded with zero rows (``m`` real): the given noise's rows, or
+        ``[bs, Z]`` drawn in the compute dtype from ``generator``."""
+        cond, noise = self._inputs(cond, noise)
+        for start in range(0, cond.shape[0], bs):
+            c = _pad(cond[start:start + bs], bs)
+            if noise is None:
+                z = self._draw((bs, self.noise_dim), generator)
+            else:
+                z = _pad(noise[start:start + bs], bs)
+            yield c, z, min(bs, cond.shape[0] - start)
 
     def simulate_switch(self, cond, noise=None, generator: Optional[torch.Generator] = None,
                         return_experts: bool = False):
@@ -152,41 +336,73 @@ class FastSim:
         ``None`` uses the default one). Returns ``[N, H, W]`` float32 images
         (and the ``[N]`` expert ids with ``return_experts``).
         """
-        cond = self._as_tensor(cond, torch.float32)
-        if noise is not None:
-            noise = self._as_tensor(noise, self._dtype)
-            if noise.shape != (cond.shape[0], self.noise_dim):
-                raise ValueError(f"noise must be [{cond.shape[0]}, {self.noise_dim}]")
-        n, bs = cond.shape[0], self.batch_size
         outs, idxs = [], []
-        for start in range(0, n, bs):
-            chunk = cond[start:start + bs]
-            m = chunk.shape[0]
-            if noise is None:
-                z = torch.randn((bs, self.noise_dim), generator=generator,
-                                device=self.device, dtype=self._dtype)
-            else:
-                z = noise[start:start + bs]
-            if m < bs:
-                chunk = torch.cat([chunk, chunk.new_zeros((bs - m, chunk.shape[1]))])
-                z = torch.cat([z, z.new_zeros((bs - m, z.shape[1]))])
-            imgs, idx = self._sim_switch(chunk, z)
+        for c, z, m in self._chunks(cond, noise, generator, self.batch_size):
+            imgs, idx = self._sim_switch(c, z)
             outs.append(imgs[:m])
             idxs.append(idx[:m])
         images = torch.cat(outs)
         return (images, torch.cat(idxs)) if return_experts else images
 
+    def _bulk_graph(self):
+        """The CUDA graph of one chunk of :meth:`_sim_switch` at
+        ``(batch_size, tile)``, with its static input and output tensors,
+        captured after one eager warm-up on a side stream."""
+        key = (self.batch_size, self._tile)
+        if key not in self._graphs:
+            cond = torch.zeros((self.batch_size, self.cond_dim), device=self.device)
+            noise = torch.zeros((self.batch_size, self.noise_dim), device=self.device,
+                                dtype=self._dtype)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._sim_switch(cond, noise)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # No collection during the capture: freeing a garbage engine's
+            # graph or memory there is a CUDA call the capture forbids, and
+            # it invalidates the capture.
+            gc.collect()
+            enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    imgs, idx = self._sim_switch(cond, noise)
+            finally:
+                if enabled:
+                    gc.enable()
+            self._graphs[key] = (graph, cond, noise, imgs, idx)
+        return self._graphs[key]
+
     def simulate_bulk(self, cond, noise=None, generator: Optional[torch.Generator] = None,
                       return_experts: bool = False):
-        """Bulk serving. In JAX this is one ``lax.scan`` program over the
-        chunks; here it runs the same chunk loop as :meth:`simulate_switch`
-        (arguments and results as there)."""
-        return self.simulate_switch(cond, noise, generator, return_experts)
+        """Bulk serving (arguments and results as :meth:`simulate_switch`).
+
+        On the card with ``dyn_dispatch`` each chunk replays one CUDA graph
+        (:meth:`_bulk_graph`, JAX's one ``lax.scan`` program): its conditions
+        and noise (drawn eagerly from ``generator`` as the eager loop draws
+        them) are copied into the graph's inputs, and its outputs out of the
+        graph's buffers, so the result equals :meth:`simulate_switch`'s.
+        Otherwise it is :meth:`simulate_switch`'s chunk loop. The kernels'
+        launch counters do not count replays."""
+        if not (self._dyn and self.device.type == "cuda"):
+            return self.simulate_switch(cond, noise, generator, return_experts)
+        graph, g_cond, g_noise, g_imgs, g_idx = self._bulk_graph()
+        outs, idxs = [], []
+        for c, z, m in self._chunks(cond, noise, generator, self.batch_size):
+            g_cond.copy_(c)
+            g_noise.copy_(z)
+            graph.replay()
+            outs.append(g_imgs[:m].clone())
+            idxs.append(g_idx[:m].clone())
+        images = torch.cat(outs)
+        return (images, torch.cat(idxs)) if return_experts else images
 
     def throughput_bulk(self, n_showers: int = 65536, warmup: bool = True,
                         generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """Steady-state bulk-serving rate on random conditions, timed on the
-        host clock around work that ends in a device synchronise."""
+        host clock around work that ends in a device synchronise (the
+        warm-up captures the graph)."""
         cond = torch.randn((n_showers, self.cond_dim), generator=generator, device=self.device)
         if warmup:
             self.simulate_bulk(cond, generator=generator)
@@ -196,12 +412,205 @@ class FastSim:
         self._sync()
         dt = time.perf_counter() - t0
         del out
-        return {
-            "showers_per_sec": n_showers / dt,
-            "batch_size": float(self.batch_size),
-            "seconds": dt,
-            "n_showers": float(n_showers),
-        }
+        return self._rate(n_showers, dt, self.batch_size)
+
+    def throughput_switch(self, n_batches: int = 20, warmup: int = 3,
+                          generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Steady-state tiled-switch rate, one scalar read back a batch in a
+        depth-2 pipeline: batch i+1 is queued before batch i's sum is read,
+        so the read hides behind the card's work."""
+        bs = self.batch_size
+        cond = torch.randn((bs, self.cond_dim), generator=generator, device=self.device)
+        for _ in range(max(warmup, 1)):
+            out, _ = self._sim_switch(cond, self._draw((bs, self.noise_dim), generator))
+        float(out.sum())
+        t0 = time.perf_counter()
+        prev = None
+        for _ in range(n_batches):
+            out, _ = self._sim_switch(cond, self._draw((bs, self.noise_dim), generator))
+            if prev is not None:
+                float(prev.sum())
+            prev = out
+        float(prev.sum())
+        return self._rate(n_batches * bs, time.perf_counter() - t0, bs)
+
+    # -- dense all-expert path ---------------------------------------------------
+
+    @torch.no_grad()
+    def _sim_dense(self, cond: torch.Tensor, noise: torch.Tensor):
+        """Every expert decodes every sample with the same noise, and each
+        sample takes its routed expert's image (JAX's ``sim``, which applies
+        ``expm1`` after the gather: the same values)."""
+        idx = self._route(cond)
+        imgs = torch.stack([decode(noise, cond) for decode in self._decoders])  # [E, B, H, W]
+        return imgs[idx, torch.arange(cond.shape[0], device=cond.device)], idx
+
+    def simulate(self, cond, noise=None, generator: Optional[torch.Generator] = None,
+                 return_experts: bool = False):
+        """Dense all-expert generation, ``dense_batch_size`` samples per chunk
+        (arguments and results as :meth:`simulate_switch`). E times the
+        decode work of the switch path; on ``"int8"`` its per-tensor scales
+        span every sample of the chunk, so its outputs differ from the
+        switch path's, whose scales span a tile."""
+        outs, idxs = [], []
+        for c, z, m in self._chunks(cond, noise, generator, self.dense_batch_size):
+            imgs, idx = self._sim_dense(c, z)
+            outs.append(imgs[:m])
+            idxs.append(idx[:m])
+        images = torch.cat(outs)
+        return (images, torch.cat(idxs)) if return_experts else images
+
+    def throughput(self, n_batches: int = 20, warmup: int = 3,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Steady-state dense rate, one scalar read back a batch."""
+        bs = self.dense_batch_size
+        cond = torch.randn((bs, self.cond_dim), generator=generator, device=self.device)
+        for _ in range(max(warmup, 1)):
+            out, _ = self._sim_dense(cond, self._draw((bs, self.noise_dim), generator))
+        float(out.sum())
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            out, _ = self._sim_dense(cond, self._draw((bs, self.noise_dim), generator))
+            float(out.sum())
+        return self._rate(n_batches * bs, time.perf_counter() - t0, bs)
+
+    # -- grouped and stream dispatch (host-side buckets) ---------------------
+
+    def _build_grouped(self) -> None:
+        """Per-expert float ``Generator`` modules in the compute dtype (JAX's
+        ``decode_one`` serves the proton family through the module, not the
+        fast decode, on every precision)."""
+        c0 = self._experts[0]["MLPBlock_1"]["Dense_0"]["kernel"].shape[1] // (18 * 10)
+        mods = []
+        for p in self._experts:
+            gen = Generator(self.noise_dim, self.cond_dim, width=c0 / 512)
+            gen.load_state_dict(to_state_dict(p))
+            mods.append(gen.to(self.device, self._dtype).eval())
+        self._modules = mods
+
+    @torch.no_grad()
+    def _decode_one(self, e: int, cond: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        if not hasattr(self, "_modules"):
+            self._build_grouped()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            img = self._modules[e](noise, cond.to(self._dtype))
+        return torch.expm1(img[..., 0].to(torch.float32))
+
+    @staticmethod
+    def _bucket_size(n: int, minimum: int = 256) -> int:
+        size = minimum
+        while size < n:
+            size *= 2
+        return size
+
+    def _bucket(self, cond, noise, sel: np.ndarray, size: int, generator):
+        """Rows ``sel`` of cond and of the per-sample noise padded with zero
+        rows to ``size``, or ``[size, Z]`` noise drawn from ``generator`` of
+        which the first ``len(sel)`` rows serve."""
+        rows = torch.as_tensor(sel, device=self.device)
+        c = cond.new_zeros((size, self.cond_dim))
+        c[:sel.size] = cond[rows]
+        if noise is None:
+            return c, self._draw((size, self.noise_dim), generator)
+        z = noise.new_zeros((size, self.noise_dim))
+        z[:sel.size] = noise[rows]
+        return c, z
+
+    def simulate_grouped(self, cond, noise=None, generator: Optional[torch.Generator] = None,
+                         return_experts: bool = False):
+        """Grouped-dispatch generation: route on the card, one host read of
+        the ids, then each expert's samples in one bucket padded to a power
+        of two (:meth:`_bucket_size`) through its module alone.
+
+        noise: ``[N, noise_dim]`` per sample, or ``None`` to draw ``[size,
+        Z]`` per bucket from ``generator`` (JAX draws ``fold_in(key, e)``).
+        Returns ``[N, H, W]`` float32 on the host, as JAX's numpy (and the
+        ``[N]`` ids with ``return_experts``)."""
+        cond, noise = self._inputs(cond, noise)
+        idx = self._route(cond).cpu().numpy()  # host sync
+        out = torch.empty((cond.shape[0], *self.image_shape), dtype=torch.float32)
+        for e in range(self.n_experts):
+            sel = np.flatnonzero(idx == e)
+            if sel.size == 0:
+                continue
+            c, z = self._bucket(cond, noise, sel, self._bucket_size(sel.size), generator)
+            out[torch.from_numpy(sel)] = self._decode_one(e, c, z)[:sel.size].cpu()
+        return (out, torch.from_numpy(idx)) if return_experts else out
+
+    def simulate_stream(self, cond, noise=None, generator: Optional[torch.Generator] = None,
+                        readback: bool = True, return_experts: bool = False):
+        """Grouped generation for large workloads: route the whole workload
+        in ``batch_size`` chunks (one host read of the ids), cut each
+        expert's samples into chunks of ``batch_size`` (the last padded to a
+        power of two) and queue every chunk's decode before reading any.
+
+        noise: as :meth:`simulate_grouped`; ``None`` draws per chunk (JAX
+        draws ``fold_in(key, e * 100003 + start)``). ``readback=False``
+        returns the queued ``[(rows, images on the device)]``; otherwise
+        ``[N, H, W]`` float32 on the host (and the ids with
+        ``return_experts``)."""
+        cond, noise = self._inputs(cond, noise)
+        bs = self.batch_size
+        idx = torch.cat([self._route(_pad(cond[s:s + bs], bs))[:bs]
+                         for s in range(0, cond.shape[0], bs)])
+        idx = idx[:cond.shape[0]].cpu().numpy()  # one host sync
+        pending = []
+        for e in range(self.n_experts):
+            sel = np.flatnonzero(idx == e)
+            for start in range(0, sel.size, bs):
+                part = sel[start:start + bs]
+                size = part.size if part.size == bs else self._bucket_size(part.size)
+                c, z = self._bucket(cond, noise, part, size, generator)
+                pending.append((part, self._decode_one(e, c, z)))
+        if not readback:
+            return pending
+        out = torch.empty((cond.shape[0], *self.image_shape), dtype=torch.float32)
+        for part, imgs in pending:
+            out[torch.from_numpy(part)] = imgs[:part.size].cpu()
+        return (out, torch.from_numpy(idx)) if return_experts else out
+
+    def throughput_stream(self, n_showers: int = 65536, warmup: bool = True,
+                          generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Steady-state streaming-grouped rate: one scalar read back a
+        chunk, no image copied to the host."""
+        cond = torch.randn((n_showers, self.cond_dim), generator=generator, device=self.device)
+        if warmup:
+            self.simulate_stream(cond[:self.batch_size * self.n_experts], generator=generator)
+        t0 = time.perf_counter()
+        pending = self.simulate_stream(cond, generator=generator, readback=False)
+        total = sum(float(imgs.sum()) for _, imgs in pending)
+        if total != total:
+            raise FloatingPointError("throughput_stream: the served showers hold NaN")
+        return self._rate(n_showers, time.perf_counter() - t0, self.batch_size)
+
+    def throughput_grouped(self, n_batches: int = 20, warmup: int = 3,
+                           generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Steady-state grouped-dispatch rate on one random batch."""
+        bs = self.batch_size
+        cond = torch.randn((bs, self.cond_dim), generator=generator, device=self.device)
+        for _ in range(warmup):
+            self.simulate_grouped(cond, generator=generator)
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            self.simulate_grouped(cond, generator=generator)
+        return self._rate(n_batches * bs, time.perf_counter() - t0, bs)
+
+    # -- helpers -----------------------------------------------------------------
+
+    def standardize(self, cond_raw) -> np.ndarray:
+        """Raw kinematics -> the standardised conditions the router takes
+        (``scaler_cond.transform``; unchanged float32 without a scaler)."""
+        if self.scaler_cond is None:
+            return np.asarray(cond_raw, np.float32)
+        return self.scaler_cond.transform(cond_raw)
+
+    def _draw(self, shape, generator: Optional[torch.Generator]) -> torch.Tensor:
+        return torch.randn(shape, generator=generator, device=self.device, dtype=self._dtype)
+
+    @staticmethod
+    def _rate(n: int, dt: float, batch: int) -> Dict[str, float]:
+        return {"showers_per_sec": n / dt, "batch_size": float(batch), "seconds": dt,
+                "n_showers": float(n)}
 
     def _as_tensor(self, x, dtype: torch.dtype) -> torch.Tensor:
         if not torch.is_tensor(x):

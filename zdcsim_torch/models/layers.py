@@ -29,12 +29,19 @@ def nearest_index(n_out: int, n_in: int) -> np.ndarray:
     return np.floor((np.arange(n_out) + 0.5) * n_in / n_out).astype(np.int64)
 
 
+def nearest_index_on(n_out: int, n_in: int, device: torch.device) -> torch.Tensor:
+    """:func:`nearest_index` computed on ``device`` in float64 (equal to the
+    numpy one): no copy from the host, so a CUDA graph can hold it."""
+    i = torch.arange(n_out, dtype=torch.float64, device=device)
+    return torch.floor((i + 0.5) * n_in / n_out).to(torch.int64)
+
+
 def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Nearest-neighbour resize of an NHWC tensor to ``size`` by gathering
     rows and columns (exact in every dtype, int8 included)."""
     _, h, w, _ = x.shape
-    rows = torch.from_numpy(nearest_index(size[0], h)).to(x.device)
-    cols = torch.from_numpy(nearest_index(size[1], w)).to(x.device)
+    rows = nearest_index_on(size[0], h, x.device)
+    cols = nearest_index_on(size[1], w, x.device)
     return x.index_select(1, rows).index_select(2, cols)
 
 

@@ -10,7 +10,9 @@ every function boundary, as in JAX.
 int8 (``int8=True``): symmetric int8 with ``round`` half to even and a clip
 at +-127; weights per output channel, activations per tensor (the XLA
 backend) or per sample (the kernels of the ``pallas_ab`` and ``pallas``
-backends).
+backends). The XLA backend's per-tensor scales are the dynamic max of each
+call, or static calibrated scales (``act_scales``; ``amax_out`` captures the
+maxima that a calibration scales from).
 
 - ``int8_backend="xla"``: every int8 stage is plain PyTorch.
 - ``int8_backend="pallas_ab"``: the MLP's LayerNorm + LeakyReLU + quant and
@@ -119,11 +121,19 @@ def fused_upsample2_conv4(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Ten
 _quant_per_cout = fdk._quant_cout
 
 
-def _quant_act(x: torch.Tensor):
-    """Per-tensor symmetric int8 of activations, with the dynamic scale of one
-    max over the tensor (static calibrated scales are not ported yet)."""
+def _quant_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None):
+    """Per-tensor symmetric int8 of activations: ``(q, s)``.
+
+    ``scale=None``: the dynamic scale of one max over the tensor.
+    ``scale``: a static calibrated f32 scalar; values beyond its range clip at
+    +-127. Both divide by the f32 scale (``x / s``, as JAX), so a static scale
+    equal to the dynamic one gives the same ``q`` bit for bit.
+    """
     x = x.to(torch.float32)
-    s = torch.clamp(x.abs().amax() / 127.0, min=1e-12)
+    if scale is None:
+        s = torch.clamp(x.abs().amax() / 127.0, min=1e-12)
+    else:
+        s = scale.to(torch.float32)
     q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
     return q, s
 
@@ -133,9 +143,11 @@ def _dequant(y, sk, sx, bias, dtype):
     return (y.to(torch.float32) * (sk * sx) + bias.to(torch.float32)).to(dtype)
 
 
-def conv3x3_int8(x: torch.Tensor, q: QWeights, bias: torch.Tensor) -> torch.Tensor:
-    """Pad-1 3x3 conv on int8 data: ``q = _quant_per_cout(kernel)``."""
-    xq, sx = _quant_act(x)
+def conv3x3_int8(x: torch.Tensor, q: QWeights, bias: torch.Tensor,
+                 act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pad-1 3x3 conv on int8 data: ``q = _quant_per_cout(kernel)``;
+    ``act_scale`` as :func:`_quant_act`'s ``scale``."""
+    xq, sx = _quant_act(x, act_scale)
     kq, sk = q
     return _dequant(_conv_i8(xq, kq, ((1, 1), (1, 1))), sk, sx, bias, x.dtype)
 
@@ -147,11 +159,11 @@ def quant_conv0_phases(kernel: torch.Tensor) -> Dict[str, QWeights]:
     return {name: _quant_per_cout(k) for name, k in dk._phase_kernels(kernel).items()}
 
 
-def fused_upsample2_conv4_int8(x: torch.Tensor, q: Dict[str, QWeights],
-                               bias: torch.Tensor) -> torch.Tensor:
+def fused_upsample2_conv4_int8(x: torch.Tensor, q: Dict[str, QWeights], bias: torch.Tensor,
+                               act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int8 :func:`fused_upsample2_conv4` with one per-tensor activation
-    scale; ``q = quant_conv0_phases(kernel)``."""
-    xq, sx = _quant_act(x)
+    scale (dynamic, or ``act_scale``); ``q = quant_conv0_phases(kernel)``."""
+    xq, sx = _quant_act(x, act_scale)
 
     def qconv(x_, k, pad):
         kq, sk = k
@@ -162,10 +174,11 @@ def fused_upsample2_conv4_int8(x: torch.Tensor, q: Dict[str, QWeights],
 
 
 def resize_conv4_int8_naive(x: torch.Tensor, q: QWeights, bias: torch.Tensor,
-                            n_resized_rows: int, n_cols: int) -> torch.Tensor:
+                            n_resized_rows: int, n_cols: int,
+                            act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Nearest resize of the int8 activations, then one plain 4x4 pad-1 conv:
-    ``q = _quant_per_cout(kernel)``."""
-    xq, sx = _quant_act(x)
+    ``q = _quant_per_cout(kernel)``; ``act_scale`` as :func:`_quant_act`'s."""
+    xq, sx = _quant_act(x, act_scale)
     xr = resize_nearest(xq, (n_resized_rows, n_cols))
     kq, sk = q
     return _dequant(_conv_i8(xr, kq, ((1, 1), (1, 1))), sk, sx, bias, x.dtype)
@@ -316,9 +329,10 @@ def mlp_apply(params: Dict[str, Any], noise: torch.Tensor, cond: torch.Tensor) -
     return x @ bp1["Dense_0"]["kernel"] + bp1["Dense_0"]["bias"]
 
 
-def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights):
+def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights, scales, site):
     """LN1 -> Conv_0 -> GN0 -> resize + Conv_1 of the unfused backends:
-    ``[B, 55, 29, 128]`` in ``dtype``."""
+    ``[B, 55, 29, 128]`` in ``dtype``. ``scales`` and ``site`` as in
+    :func:`decode_apply`."""
     use_ab = int8 and int8_backend in ("pallas_ab", "pallas")
     use_cd = int8 and int8_backend == "pallas"
     c0 = p["MLPBlock_1"]["Dense_0"]["kernel"].shape[1] // (18 * 10)
@@ -330,9 +344,10 @@ def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights):
         )
     else:
         x = leaky_relu(_layer_norm(x, p["MLPBlock_1"]["LayerNorm_0"]))
-        x = x.reshape(-1, 18, 10, c0)
+        x = site(x.reshape(-1, 18, 10, c0), "conv0")
         if int8:
-            x = fused_upsample2_conv4_int8(x, qweights["conv0"], p["Conv_0"]["bias"])
+            x = fused_upsample2_conv4_int8(x, qweights["conv0"], p["Conv_0"]["bias"],
+                                           scales.get("conv0"))
         else:
             x = fused_upsample2_conv4(x, p["Conv_0"]["kernel"], p["Conv_0"]["bias"])
 
@@ -347,9 +362,10 @@ def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights):
             xq.index_select(2, qweights["col_map"]), sx, kp, sk, offsets,
             qweights["conv1_bias"], 56, out_dtype=dtype,
         )[:, :, :29]
-    x = leaky_relu(_group_norm(x, p["GroupNorm2d_0"]["GroupNorm_0"]))
+    x = site(leaky_relu(_group_norm(x, p["GroupNorm2d_0"]["GroupNorm_0"])), "conv1")
     if int8:
-        return resize_conv4_int8_naive(x, qweights["conv1"], p["Conv_1"]["bias"], 56, 30)
+        return resize_conv4_int8_naive(x, qweights["conv1"], p["Conv_1"]["bias"], 56, 30,
+                                       scales.get("conv1"))
     x = _conv(resize_nearest(x, (56, 30)), p["Conv_1"]["kernel"], ((1, 1), (1, 1)))
     return x + p["Conv_1"]["bias"]
 
@@ -357,11 +373,21 @@ def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights):
 def decode_apply(
     params: Dict[str, Any], x: torch.Tensor, dtype: torch.dtype, int8: bool = False,
     int8_backend: str = "xla", qweights: Optional[Dict[str, Any]] = None,
+    act_scales: Optional[Dict[str, torch.Tensor]] = None,
+    amax_out: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """The decode after the MLP, from the Dense_1 output ``x``
     (:func:`mlp_apply`): ``[B, 56, 30, 1]`` in ``dtype``. Arguments as for
     :func:`fast_generator_apply`."""
     p = params
+    scales = act_scales or {}
+
+    def site(t, name):
+        # calibration capture: this quant site's input max-abs, in f32
+        if amax_out is not None:
+            amax_out[name] = t.to(torch.float32).abs().amax()
+        return t
+
     if int8 and qweights is None:
         qweights = quantize_weights(p, int8_backend)
     if int8 and int8_backend == "fused":
@@ -375,11 +401,11 @@ def decode_apply(
         x = _dequant(_conv_i8(q, kq, ((1, 1), (1, 1))), sk, s.reshape(-1, 1, 1, 1),
                      p["Conv_1"]["bias"], dtype)
     else:
-        x = _conv0_conv1(p, x, dtype, int8, int8_backend, qweights)
-    x = leaky_relu(_group_norm(x, p["GroupNorm2d_1"]["GroupNorm_0"]))
+        x = _conv0_conv1(p, x, dtype, int8, int8_backend, qweights, scales, site)
+    x = site(leaky_relu(_group_norm(x, p["GroupNorm2d_1"]["GroupNorm_0"])), "conv2")
 
     if int8:
-        x = conv3x3_int8(x, qweights["conv2"], p["Conv_2"]["bias"])
+        x = conv3x3_int8(x, qweights["conv2"], p["Conv_2"]["bias"], scales.get("conv2"))
     else:
         x = _conv(x, p["Conv_2"]["kernel"], ((1, 1), (1, 1))) + p["Conv_2"]["bias"]
     x = leaky_relu(_group_norm(x, p["GroupNorm2d_2"]["GroupNorm_0"]))
@@ -391,12 +417,21 @@ def decode_apply(
 def fast_generator_apply(
     params: Dict[str, Any], noise: torch.Tensor, cond: torch.Tensor, int8: bool = False,
     int8_backend: str = "xla", qweights: Optional[Dict[str, Any]] = None,
+    act_scales: Optional[Dict[str, torch.Tensor]] = None,
+    amax_out: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Inference forward of ``Generator`` for one expert: ``[B, 56, 30, 1]``.
 
     ``params`` is the expert's Flax-layout tree of tensors in the compute
     dtype; ``noise`` and ``cond`` are in that dtype too. ``qweights`` are
     :func:`quantize_weights` of ``params`` (computed here when not given).
+
+    ``act_scales``: optional ``{"conv0", "conv1", "conv2"} -> f32 scalar
+    tensor``, static activation scales of the XLA backend's quant sites
+    (:func:`_quant_act`); the kernel backends quantise per sample inside
+    their kernels and do not read them. ``amax_out``: a dict that receives
+    the f32 max|x| of each quant site's input under the same keys (the
+    calibration capture; the sites that the backend runs in plain PyTorch).
     """
     return decode_apply(params, mlp_apply(params, noise, cond), noise.dtype, int8,
-                        int8_backend, qweights)
+                        int8_backend, qweights, act_scales, amax_out)
