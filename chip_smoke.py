@@ -2,7 +2,7 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13, 15 and 16 on the CPU at small sizes
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
 Phases, each printing lines with the elapsed seconds:
@@ -104,7 +104,23 @@ Phases, each printing lines with the elapsed seconds:
     0.15 of the dynamic serve; x ``dyn_dispatch`` equal to x switch);
     ``simulate_grouped`` and ``simulate_stream``; each serve routed as the
     ``int8`` switch serve and within rtol 0.15 of its per-shower log1p
-    sums; and ``bench_torch.py``'s first rung at ``BENCH_SHOWERS``.
+    sums; and ``bench_torch.py``'s first rung at ``BENCH_SHOWERS``;
+16. the neutron family behind a router drawn from ``--seed`` that reads
+    every expert (``NEUTRON_SERVE``): the neutron teacher on its module in
+    ``bf16`` (16384 showers, chunks of 4096, tile 64) and both neutron
+    students on ``int8`` (65536, chunks of 32768, tile 128) through the
+    CUDA graph of the dyn tile loop, ``torch.equal`` to the eager dyn loop;
+    a random full-width ``norm="batch"`` tree folded on the card and served
+    on ``int8`` (eager switch); each serve reading every expert, finite and
+    of shape [n, 44, 44], routed as an ``f32`` serve with per-shower log1p
+    sums within rtol 0.15 of it, launching no decode kernel, with the
+    median, spread, routing and peak memory of 3 ``throughput_bulk`` runs;
+    then the neutron gate's split (5120 real showers [5120, 44, 44]),
+    kernel E on it against its plain version (rtol 1e-5) on the bulk ring,
+    and the gates of both students (teacher-relative: each must reach
+    ``vs_baseline >= 1.0``) and of the teacher (informational), each
+    launching E once; E at that shape is timed as in phase 14 and joins
+    its record's ``cases``.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
@@ -113,7 +129,8 @@ and the device's idle share of the serve's wall time; and in phase 15 the
 same of the eager dyn serve and the graph-replayed one on ``int8_pallas``
 and ``int8_fused`` (with the share of ``index_select``, the weight
 gather), and of one chunk of ``bench_torch.py``'s first rung, eager and
-replayed.
+replayed; and in phase 16 of one chunk of the neutron w=0.125 student,
+eager and replayed.
 
 The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
@@ -139,7 +156,10 @@ in one chunk with one draw, and phase 15 on one shower an expert at batch
 the w=0.125 student; no ``int8_fused`` dyn check, which
 ``tests/test_torch_engine_api.py`` holds on the CPU; a dense serve of 1
 shower; a calibration of 1 + 4 rows; one grouped bucket;
-``bench_torch.py``'s first rung at 2 showers). Both modes print each
+``bench_torch.py``'s first rung at 2 showers), and phase 16 at
+``REHEARSE_NEUTRON`` (one shower an expert, batch 3, tile 1; the neutron
+split of 2560 events, E on 8 of its showers, the w=0.125 neutron
+student's gate on 128 conditions with one draw). Both modes print each
 phase's seconds on one line before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
 """
@@ -171,9 +191,14 @@ REHEARSE_GATE = 128  # test conditions, one chunk
 REHEARSE_ENGINE = (None, 3, 1)  # phase 15: one shower an expert, batch 3, tile 1
 REHEARSE_DENSE = (1, 1)  # phase 15's dense showers and batch
 REHEARSE_BENCH = {"batch_size": 2, "tile": 2, "n_showers": 2}
+REHEARSE_NEUTRON = (None, 3, 1)  # phase 16: one shower an expert, batch 3, tile 1
 ENGINE_SERVE = (8192, 4096, 64)  # phase 15: showers, batch, tile
 ENGINE_DENSE = (4096, 2048)  # phase 15's dense showers and batch (DENSE_SAFE_BATCH)
 BENCH_SHOWERS = 65536  # phase 15: bench_torch.py's first rung, cut from 262144
+NEUTRON = {name: os.path.join(HERE, "artifacts", "gate", f"neutron_{name}_serving_weights.npz")
+           for name in ("teacher", "student_w0.125", "student_w0.25")}
+# phase 16: showers, batch, tile (the teacher and the random norm=batch tree; the students)
+NEUTRON_SERVE = {"teacher": (16384, 4096, 64), "student": (65536, 32768, 128)}
 SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
 A_ROWS, B_ROWS, C_ROWS, D_ROWS, GH_ROWS, TIME_ROWS = 256, 64, 64, 64, 64, 64
 STUDENT_F, STUDENT_C = 11520, 32  # the w=0.125 student's Dense_1 and GroupNorm2d_0 widths
@@ -1666,6 +1691,291 @@ def profile_bench_rung(rung, dev, card, seed):
                   card, "15 engine API")
 
 
+def neutron_batch_tree(rng, n_experts=3):
+    """Phase 16's full-width ``GeneratorNeutron(norm="batch")`` tree, numpy
+    in the Flax layout with experts stacked, and its ``gen_stats``, drawn
+    from ``rng``: kernels N(0, 1 / fan-in), biases N(0, 0.1) (the output's
+    plus 0.5, so that its ReLU passes pixels), BatchNorm scales 1 + N(0,
+    0.1), running means N(0, 0.3) and variances 0.5 + U(0, 1)."""
+    import numpy as np
+    import torch
+
+    from zdcsim_torch.convert import from_state_dict
+    from zdcsim_torch.models.neutron import GeneratorNeutron
+    from zdcsim_torch.utils.artifact import _flatten, _unflatten
+
+    shapes = {k: tuple(v.shape) for k, v in GeneratorNeutron(norm="batch").state_dict().items()}
+    trees, stats = [], []
+    for _ in range(n_experts):
+        sd = {}
+        for k, shape in shapes.items():
+            if k.endswith("running_mean"):
+                v = 0.3 * rng.standard_normal(shape)
+            elif k.endswith("running_var"):
+                v = 0.5 + rng.random(shape)
+            elif k.endswith("weight") and len(shape) > 1:
+                v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+            elif k.endswith("weight"):
+                v = 1.0 + 0.1 * rng.standard_normal(shape)
+            else:
+                v = 0.1 * rng.standard_normal(shape) + (0.5 if k == "Conv_3.bias" else 0.0)
+            sd[k] = torch.as_tensor(v.astype("float32"))
+        st = {}
+        trees.append(from_state_dict(sd, stats_out=st))
+        stats.append(st)
+    def stack(ts):
+        flat = [_flatten(t) for t in ts]
+        return _unflatten({k: np.stack([f[k] for f in flat]) for k in flat[0]})
+
+    return stack(trees), {"batch_stats": stack(stats)}
+
+
+def spread_router(rng, share=0.05):
+    """The first router drawn from ``rng`` (:func:`seeded_router`) that sends
+    every expert at least ``share`` of 4096 N(0, 1) probe conditions, drawn
+    from ``rng`` before it: a router with zero biases drawn at random may
+    leave an expert nearly unread."""
+    import torch
+
+    from zdcsim_torch.convert import to_state_dict
+    from zdcsim_torch.models.router import RouterNetwork
+
+    probe = torch.as_tensor(rng.standard_normal((4096, 9), dtype="float32"))
+    while True:
+        router = seeded_router(rng)
+        net = RouterNetwork(3)
+        net.load_state_dict(to_state_dict(router))
+        with torch.no_grad():
+            counts = torch.bincount(net(probe)[1].argmax(-1), minlength=3)
+        if counts.min().item() >= share * len(probe):
+            return router
+
+
+def neutron_rates(eng, dev, n, seed):
+    """``throughput_bulk`` 3 times on ``n`` N(0, 1) conditions (the first
+    warms up and captures), with the routing of those conditions and the
+    peak device memory: ``(rates, median, spread, routing, peak bytes)``."""
+    import statistics
+
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cond = torch.randn((n, eng.cond_dim), generator=torch.Generator(dev).manual_seed(seed),
+                       device=dev)
+    routing = torch.bincount(eng._route(cond), minlength=eng.n_experts).tolist()
+    rates = [eng.throughput_bulk(n_showers=n, warmup=r == 0,
+                                 generator=torch.Generator(dev).manual_seed(seed))
+             ["showers_per_sec"] for r in range(3)]
+    med = statistics.median(rates)
+    peak = torch.cuda.max_memory_allocated(dev)
+    return rates, med, (max(rates) - min(rates)) / med, routing, peak
+
+
+def log_rates(phase, what, eng, dev, n, card, seed):
+    rates, med, spread, routing, peak = neutron_rates(eng, dev, n, seed)
+    log(phase, f"{what} throughput_bulk, {n} showers (batch {eng.batch_size}, tile {eng._tile}"
+        f"{', a CUDA graph' if eng._dyn else ', the eager loop'}): showers/s "
+        + " ".join(f"{r:.1f}" for r in rates) + f", median {med:.1f}, spread (max - min) / "
+        f"median {spread:.4f}; routing {routing}; peak device memory {peak} bytes "
+        f"({peak / 2**30:.3f} GiB) [{card}]")
+
+
+def neutron_serves(dev, rehearse, card, seed, profile):
+    """Phase 16, the serves: the neutron teacher (its module, ``bf16``) and
+    both students (``int8``) through the dyn tile loop, replayed as a CUDA
+    graph on the card, behind a router drawn from ``--seed``; then a
+    full-width random ``norm="batch"`` tree folded on the device and served
+    on ``int8``. Each: every expert decodes, showers finite, >= 0 and of
+    shape [n, 44, 44], the graph ``torch.equal`` to the eager dyn loop,
+    routing identical to an ``f32`` serve and per-shower log1p sums within
+    rtol 0.15 of it, no decode kernel launched, rates and peak memory."""
+    import numpy as np
+    import torch
+
+    import fidelity_torch as ft
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.inference.engine import FastSim
+    from zdcsim_torch.utils.artifact import load_serving_artifact
+
+    phase = "16 neutron"
+    rng = np.random.default_rng([seed, 16])
+    router = spread_router(rng)
+    wrappers = kernel_wrappers()
+    cond = noise = None
+    serves = [(name, *load_serving_artifact(path)) for name, path in NEUTRON.items()]
+    serves.append(("random norm=batch tree, full width", *neutron_batch_tree(rng), None,
+                   {"family": "neutron", "norm": "batch"}))
+    for name, gp, gs, _, meta in serves:
+        precision = "bf16" if name == "teacher" else "int8"
+        n, batch, tile = (REHEARSE_NEUTRON if rehearse
+                          else NEUTRON_SERVE["teacher" if "student" not in name else "student"])
+        cfg = load_config(ft._artifact_model_config(meta))
+        eng = FastSim(gp, router, batch_size=batch, precision=precision, device=dev, cfg=cfg,
+                      gen_stats=gs)
+        dyn = "norm=batch" not in name
+        eng._build_switch(tile=tile, dyn_dispatch=dyn)
+        if cond is None:  # one set for every serve, as many as the largest takes
+            cond, noise = engine_conditions(
+                rng, eng, max(v[0] for v in NEUTRON_SERVE.values()), rehearse)
+        c, z = cond[:n], noise[:n]
+        how = ("the module" if not eng.fast_neutron else
+               "fast_neutron_apply, folded at build" if "norm=batch" in name else
+               "fast_neutron_apply, prefolded")
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        imgs, ids = eng.simulate_bulk(c, noise=z, return_experts=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = {k: v for k, v in read_counts(wrappers).items() if v}
+        used = torch.bincount(ids, minlength=3).tolist()
+        log(phase, f"{name} {precision} ({how}; fast_neutron {eng.fast_neutron}, "
+            f"uses_fast_path {eng.uses_fast_path}): {len(c)} showers, batch {batch}, tile "
+            f"{tile}, {'dyn_dispatch' if dyn else 'switch'} in {dt:.3f}s; showers per expert "
+            f"{used}; decode kernel launches {counts or 'none'}")
+        if min(used) <= 0:
+            fail(f"the {name} serve did not decode with every expert: {used}")
+        if counts:
+            fail(f"the neutron path launched the proton decode kernels: {counts}")
+        imgs_np = imgs.cpu().numpy()
+        if imgs_np.shape != (len(c), 44, 44) or not np.isfinite(imgs_np).all() or imgs_np.min() < 0:
+            fail(f"{name}: served showers not finite/non-negative of shape ({len(c)}, 44, 44)")
+        if dyn:
+            eager, e_ids = eng.simulate_switch(c, noise=z, return_experts=True)
+            same = bool(torch.equal(imgs, eager) and torch.equal(ids, e_ids))
+            form = "a CUDA graph" if dev.type == "cuda" else "the eager loop on the CPU"
+            log(phase, f"{name}: simulate_bulk ({form}) equal to the eager dyn loop: {same}")
+            if not same:
+                fail(f"{name}: the dyn graph differs from the eager dyn loop")
+        ref = FastSim(gp, router, batch_size=batch, precision="f32", device=dev, cfg=cfg,
+                      gen_stats=gs)
+        ref._build_switch(tile=tile)
+        r_imgs, r_ids = ref.simulate_switch(c, noise=z, return_experts=True)
+        check_agrees(phase, f"{name} {precision}", imgs, ids, log1p_sums(r_imgs),
+                     r_ids.cpu().numpy(), "the f32 serve")
+        del ref, r_imgs
+        if dev.type == "cuda":
+            log_rates(phase, f"{name} {precision}", eng, dev, n, card, seed)
+            if profile and name == "student_w0.125":
+                eng.simulate_bulk(c[:batch], noise=z[:batch])  # the graph of one chunk
+                what = f"neutron w=0.125 student int8: one chunk of {batch} showers, tile {tile}"
+                profile_serve(lambda: eng.simulate_switch(c[:batch], noise=z[:batch]),
+                              what + " eager", card, phase)
+                profile_serve(lambda: eng.simulate_bulk(c[:batch], noise=z[:batch]),
+                              what + " replayed", card, phase)
+        del eng, imgs
+
+
+def neutron_gates(dev, rehearse, card):
+    """Phase 16, the gates: the neutron gate's test split (25600 synthetic
+    neutron events, seed 7: 5120 real showers [5120, 44, 44]), kernel E on
+    them against its plain version (rtol 1e-5) on the bulk ring, then
+    ``fidelity_torch.run_gate`` on the two students and the teacher at
+    ``int8``, counts set to 0 before each gate: a student fails unless
+    ``vs_baseline >= 1.0`` under the teacher-relative rule; the teacher's
+    record is informational. Returns ``(E's max abs err, its launches in
+    the first gate, the real showers on the device)``."""
+    import numpy as np
+    import torch
+
+    import fidelity_torch as ft
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.ops import epilogue_kernels as ek
+
+    phase = "16 neutron"
+    overrides = [*ft.GATE_OVERRIDES, *ft._artifact_model_config({"family": "neutron"})]
+    if rehearse:
+        overrides.append(f"dataset.synthetic_n_samples={REHEARSE_SPLIT}")
+    t = time.perf_counter()
+    cond, real = ft.gate_split(load_config(overrides))
+    log(phase, f"neutron gate split in {time.perf_counter() - t:.2f}s: test cond {cond.shape}, "
+        f"real {real.shape}")
+    shown = real[:8] if rehearse else real
+    xt = torch.as_tensor(shown).to(dev)
+    k0 = ek.expm1_channel_sums.bulk_launches
+    out, ref = ek.expm1_channel_sums(xt), ek.expm1_channel_sums_plain(xt)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rel, ok = within_rtol(out, ref, 1e-5)
+    err = (out - ref).abs().max().item()
+    on_bulk = ek.expm1_channel_sums.bulk_launches == k0 + 1
+    ran = (f"on the bulk ring {on_bulk}" if dev.type == "cuda"
+           else "plain version on the CPU; the card runs the bulk ring")
+    log(phase, f"kernel E {list(xt.shape)} float32 -> {list(out.shape)}: max rel err {rel:.3e} "
+        f"(rtol 1e-5: {ok}), max abs err {err:.3e} ({ran})")
+    if not ok or not torch.isfinite(out).all():
+        fail("kernel E disagrees with its plain version at the neutron gate's shape")
+    if dev.type == "cuda" and not on_bulk:
+        fail("kernel E at the neutron gate's shape did not run on the bulk ring")
+
+    data = (cond[:REHEARSE_GATE], real[:REHEARSE_GATE]) if rehearse else (cond, real)
+    wrappers = kernel_wrappers()
+    e_launches = None
+    for name in (("student_w0.125",) if rehearse
+                 else ("student_w0.125", "student_w0.25", "teacher")):
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        rec = ft.run_gate(NEUTRON[name], "int8", dev, data=data,
+                          n_draws=1 if rehearse else ft.N_DRAWS)
+        counts = {k: v for k, v in read_counts(wrappers).items() if v}
+        print(json.dumps(rec), flush=True)
+        log(phase, f"gate of the neutron {name} int8: {time.perf_counter() - t:.2f}s, value "
+            f"{rec['value']} x floor, vs_baseline {rec['vs_baseline']}, criterion "
+            f"{rec['criterion']!r}; kernel launches {counts} [{card}]")
+        e = counts.get("expm1_channel_sums", 0)
+        if dev.type == "cuda" and (e <= 0 or counts.get("expm1_channel_sums on the bulk ring") != e
+                                   or set(counts) - {"expm1_channel_sums",
+                                                     "expm1_channel_sums on the bulk ring"}):
+            fail(f"the neutron {name} gate ran kernels otherwise than E on the bulk ring: {counts}")
+        if not np.isfinite(rec["value"]) or rec["family"] != "neutron":
+            fail(f"the neutron {name} gate gave no finite value: {rec}")
+        if "teacher_x_floor" in rec and not rec["vs_baseline"] >= 1.0:
+            fail(f"the neutron {name} gate did not pass the teacher-relative rule: {rec}")
+        if e_launches is None:
+            e_launches = e
+    return err, e_launches, xt
+
+
+def time_neutron_e(xt, err, launches, card):
+    """Kernel E at the neutron gate's [5120, 44, 44] f32 (phase 16), as
+    phase 14 times its cases: replayed in a CUDA graph, the host loop, the
+    direct body, the plain version, the library's ``expm1`` then the
+    channel-basis matmul, and the bound. Returns the case."""
+    import torch
+
+    from zdcsim_torch.ops import epilogue_kernels as ek
+    from zdcsim_torch.ops.channels import channel_basis
+
+    b, h, w = xt.shape
+    basis = torch.as_tensor(channel_basis((h, w)), device="cuda")
+    fn = lambda **kw: ek.expm1_channel_sums(xt, **kw)  # noqa: E731
+    bound_ms, bound_by = bound(b * h * w * 4 + b * 5 * 4, 2 * b * h * w, F32_OPS_PER_S)
+    reps = []
+    c = {"showers": b, "shape": [b, h, w], "dtype": "float32", "where": "neutron gate",
+         "launches": launches, "max_abs_err": err, "graph_ms": graph_ms(fn, 50, reps),
+         "replays_ms": reps, "eager_ms": time_ms(fn, 50),
+         "old_body_ms": graph_ms(lambda: fn(_direct_body=True), 50),
+         "plain_ms": time_ms(lambda: ek.expm1_channel_sums_plain(xt), 20),
+         "library_ms": time_ms(lambda: torch.expm1(xt).reshape(b, h * w) @ basis, 20),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    log("16 neutron", f"expm1_channel_sums [{b}, {h}, {w}] float32 (the neutron gate's real "
+        f"side): {c['graph_ms']:.4f} ms replayed in a CUDA graph, "
+        f"{100 * bound_ms / c['graph_ms']:.1f}% of its bound {bound_ms:.4f} ms ({bound_by}); "
+        f"host loop {c['eager_ms']:.4f} ms; direct body {c['old_body_ms']:.4f} ms; plain "
+        f"{c['plain_ms']:.4f} ms; library {c['library_ms']:.4f} ms; {launches} launch a gate; "
+        f"a call in each replay {fmt_replays(reps)} [{card}]")
+    return c
+
+
+def neutron(dev, rehearse, card, seed, profile=False):
+    """Phase 16: the neutron family served and gated (``neutron_serves``,
+    ``neutron_gates``); on the card kernel E's time at the gate's shape,
+    returned as a case of E's record."""
+    neutron_serves(dev, rehearse, card, seed, profile)
+    err, launches, xt = neutron_gates(dev, rehearse, card)
+    return time_neutron_e(xt, err, launches, card) if dev.type == "cuda" else None
+
+
 def time_epilogues(e_counts, f_counts, errs, card):
     """Phase 14: kernels E and F at ``EF_TIME_ROWS`` showers of 56x30 in f32
     and bf16 (E also at the gate's 5120 in f32), replayed in a CUDA graph
@@ -1766,8 +2076,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-13 and 15 on the CPU at small sizes with the plain "
-                         "versions")
+                    help="run phases 3-13, 15 and 16 on the CPU at small sizes with the "
+                         "plain versions")
     ap.add_argument("--profile", action="store_true",
                     help="profile one serve of each kernel path with torch.profiler")
     args = ap.parse_args(argv)
@@ -1843,6 +2153,7 @@ def main(argv=None) -> int:
         timed("13 gate", gates, (cond[:REHEARSE_GATE], real[:REHEARSE_GATE]), dev, rehearse,
               card)
         timed("15 engine API", engine_api, gp, router, dev, rehearse, card, args.seed)
+        timed("16 neutron", neutron, dev, rehearse, card, args.seed)
         log_phase_times()
         print(json.dumps({"rehearsal": True}), flush=True)
         return 0
@@ -1861,6 +2172,8 @@ def main(argv=None) -> int:
     rec += timed("14 epilogue times", time_epilogues, e_counts, (f_launches, f_bulk),
                  (e_err, f_err), card)
     timed("15 engine API", engine_api, gp, router, dev, rehearse, card, args.seed, args.profile)
+    e_case = timed("16 neutron", neutron, dev, rehearse, card, args.seed, args.profile)
+    next(r for r in rec if r["name"] == "expm1_channel_sums")["cases"].append(e_case)
     log_phase_times()
     log("done", f"wall {time.perf_counter() - T0:.2f}s [{card}]")
     print(json.dumps({"kernels": rec}), flush=True)

@@ -6,21 +6,25 @@
     python3 fidelity_torch.py artifact int8_pallas     # target, then precision
     python3 fidelity_torch.py artifact int8 --device cpu
 
-Serves a committed proton serving artifact on the gate's test split and
-prints, on its last line, one JSON object with ``fidelity.py``'s keys plus
-``device``: ``value`` is the matched-N 5-channel W1 of generated against
-real showers over the real-vs-real floor of two seeded halves of the test
-split, averaged over ``N_DRAWS`` noise draws; ``vs_baseline >= 1.0`` passes
-(``value <= CRITERION``). An earlier line gives the routing histogram of
-the gate's conditions.
+Serves a committed serving artifact (proton or neutron) on the gate's test
+split and prints, on its last line, one JSON object with ``fidelity.py``'s
+keys plus ``device``: ``value`` is the matched-N 5-channel W1 of generated
+against real showers over the real-vs-real floor of two seeded halves of
+the test split, averaged over ``N_DRAWS`` noise draws; ``vs_baseline >=
+1.0`` passes (``value <= CRITERION``). A neutron artifact (``family:
+neutron``) gates on the neutron dataset and geometry (44x44), and
+teacher-relative: a student with ``teacher_x_floor`` passes at ``value <=
+NEUTRON_REL_CRITERION * teacher_x_floor``, and the teacher's record is
+informational (``vs_baseline: null``), as ``fidelity.py``'s. An earlier
+line gives the routing histogram of the gate's conditions.
 
 The path: the artifact -> the test split of the synthetic dataset
 (25600 events, seed 7, in numpy) -> the real channel sums on kernel E
 (``zdcsim_torch.ops.epilogue_kernels``) -> the floor -> ``N_DRAWS`` serves
 through ``FastSim.simulate_bulk`` (noise from ``torch.Generator`` seeded
 ``100 + d``, so the draws are not JAX's) -> generated channel sums and W1.
-A run directory of training checkpoints and the neutron family are not
-ported and raise ``NotImplementedError``.
+A run directory of training checkpoints is not ported and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,8 +38,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from zdcsim_torch.config import NEUTRON_OVERRIDES
+
 CRITERION = 1.5  # pass: matched-N ws_mean <= 1.5x the real-vs-real floor
 CALIBRATION_EPOCHS = 150
+# neutron students gate relative to their teacher's x-floor (fidelity.py:61)
+NEUTRON_REL_CRITERION = 1.10
 DEFAULT_RUN_GLOBS = (
     "experiments/fidelity_ckpt_*",
     "experiments/r2_proton_bf16_150ep_*",
@@ -75,11 +83,32 @@ def _resolve_target(arg1: Optional[str]) -> Tuple[Optional[str], Optional[str]]:
 
 
 def _artifact_model_config(meta: Dict[str, str]) -> List[str]:
-    """Config overrides from an artifact's metadata: a distilled student
-    carries its ``width``. The neutron family raises: it is not ported."""
-    if meta.get("family") == "neutron":
-        raise NotImplementedError("the neutron family is not ported yet (ROADMAP.md)")
-    return [f"model.generator.width={float(meta['width'])}"] if "width" in meta else []
+    """Config overrides from an artifact's metadata (``fidelity.py:85-107``):
+    a distilled student's ``width``, a ``norm`` and a ``generator_version``;
+    ``family="neutron"`` puts the neutron preset first."""
+    overrides = [*NEUTRON_OVERRIDES] if meta.get("family") == "neutron" else []
+    if "width" in meta:
+        overrides.append(f"model.generator.width={float(meta['width'])}")
+    if "norm" in meta:
+        overrides.append(f"model.norm={meta['norm']}")
+    if "generator_version" in meta:
+        overrides.append(f"model.generator.version={meta['generator_version']}")
+    return overrides
+
+
+def neutron_criterion(meta: Dict[str, str], ratio: float) -> Dict[str, object]:
+    """The neutron family's ``criterion`` and ``vs_baseline``
+    (``fidelity.py:269-288``): the family saturates near 5x the floor at
+    synthetic scale, so a student holds its teacher's fidelity within
+    ``NEUTRON_REL_CRITERION``, and the teacher is informational."""
+    if "teacher_x_floor" in meta:
+        rel_bar = NEUTRON_REL_CRITERION * float(meta["teacher_x_floor"])
+        return {"criterion": f"teacher-relative: <= {NEUTRON_REL_CRITERION}x teacher "
+                             f"({rel_bar:.3f}x floor)",
+                "vs_baseline": round(rel_bar / max(ratio, 1e-9), 3)}
+    return {"vs_baseline": None,
+            "criterion": "informational (neutron family saturates ~5x floor at synthetic "
+                         "scale; students gate teacher-relative)"}
 
 
 def gate_split(cfg) -> Tuple[np.ndarray, np.ndarray]:
@@ -106,12 +135,14 @@ def real_floor(ch_real):
     return float(torch.mean(wasserstein_per_channel(ch_perm[:half], ch_perm[half:2 * half]))), perm
 
 
-def fidelity_record(ch_real, ch_gens: Sequence) -> Dict[str, object]:
+def fidelity_record(ch_real, ch_gens: Sequence, meta: Optional[Dict[str, str]] = None
+                    ) -> Dict[str, object]:
     """The numbers of the gate from ``[n, 5]`` real channel sums and one
     ``[n, 5]`` generated set per draw (``fidelity.py:224-262``): the full-N
     W1 and the matched-N W1 (the generated sums taken in the floor's
     permutation, second half) averaged over the draws, and their ratio to
-    the floor."""
+    the floor. An artifact's ``meta`` of the neutron family sets the
+    neutron ``criterion`` and ``vs_baseline`` (:func:`neutron_criterion`)."""
     import torch
 
     from zdcsim_torch.ops.ws import wasserstein_per_channel
@@ -128,7 +159,7 @@ def fidelity_record(ch_real, ch_gens: Sequence) -> Dict[str, object]:
             ch_perm[:half], ch_gen[perm][half:2 * half]))))
     ws_full_m = float(np.mean(ws_full))
     ratio = float(np.mean(ws_half)) / max(floor, 1e-9)
-    return {
+    record = {
         "metric": "fastsim_fidelity",
         "value": round(ratio, 3),
         "unit": "x_floor",
@@ -138,6 +169,9 @@ def fidelity_record(ch_real, ch_gens: Sequence) -> Dict[str, object]:
         "ws_real_floor": round(floor, 1),
         "criterion_x_floor": CRITERION,
     }
+    if meta is not None and meta.get("family") == "neutron":
+        record.update(neutron_criterion(meta, ratio))
+    return record
 
 
 def run_gate(target: Optional[str] = None, precision: str = "int8", device=None,
@@ -165,14 +199,14 @@ def run_gate(target: Optional[str] = None, precision: str = "int8", device=None,
             "ported yet (ROADMAP.md); gate a serving artifact (*.npz or 'artifact')")
     if art_path is None:
         raise FileNotFoundError(f"no gate run directory and no artifact at {ARTIFACT_PATH}")
-    gp, _, rp, meta = load_serving_artifact(art_path)
+    gp, gs, rp, meta = load_serving_artifact(art_path)
     cfg = load_config([*GATE_OVERRIDES, *_artifact_model_config(meta)])
     cond, real = gate_split(cfg) if data is None else data
     dev = default_device(device)
 
     ch_real = expm1_channel_sums(torch.as_tensor(real).to(dev))
     engine = FastSim(gp, rp, batch_size=min(2048, len(cond)), precision=precision, device=dev,
-                     cfg=cfg)
+                     cfg=cfg, gen_stats=gs)
     ch_gens = []
     for d in range(n_draws):
         gen = torch.Generator(device=dev).manual_seed(100 + d)
@@ -182,7 +216,7 @@ def run_gate(target: Optional[str] = None, precision: str = "int8", device=None,
             hist = torch.bincount(ids, minlength=engine.n_experts).tolist()
             print(f"fidelity_torch: {os.path.basename(art_path)} {precision}: routing of the "
                   f"{len(cond)} test conditions to experts {hist}", flush=True)
-    record = fidelity_record(ch_real, ch_gens)
+    record = fidelity_record(ch_real, ch_gens, meta)
     epoch = int(float(meta.get("epoch", -1)))
     student = meta.get("weights") == "distilled-student"
     record.update({

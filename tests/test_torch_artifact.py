@@ -13,6 +13,7 @@ from zdcsim.config import load_config as jax_load_config
 from zdcsim.utils.artifact import load_serving_artifact as jax_load
 from zdcsim_torch.config import load_config
 from zdcsim_torch.convert import expert, from_jax_params, from_state_dict, to_jax_params, to_state_dict
+from zdcsim_torch.models.neutron import GeneratorNeutron
 from zdcsim_torch.models.proton import Generator
 from zdcsim_torch.models.router import RouterNetwork
 from zdcsim_torch.utils.artifact import _flatten, load_serving_artifact
@@ -55,8 +56,11 @@ def test_artifact_loads_bit_equal_and_round_trips(path):
     net.load_state_dict(router)  # strict: every name and shape maps
     if "MLPBlock_1" in gen_params:  # the proton family
         module = Generator(width=float(meta.get("width", 1.0)))
-        module.load_state_dict(to_state_dict(expert(gen, 0)))
-        _assert_trees_bit_equal(from_state_dict(module.state_dict()), expert(gen_params, 0))
+    else:
+        assert meta["family"] == "neutron"
+        module = GeneratorNeutron(norm=meta["norm"], width=float(meta.get("width", 1.0)))
+    module.load_state_dict(to_state_dict(expert(gen, 0)))
+    _assert_trees_bit_equal(from_state_dict(module.state_dict()), expert(gen_params, 0))
 
 
 def test_config_defaults_equal_jax_config():
@@ -66,6 +70,8 @@ def test_config_defaults_equal_jax_config():
     assert ours.model.noise_dim == ref.model.noise_dim == 10
     assert ours.model.cond_dim == ref.model.cond_dim == 9
     assert ours.model.generator.width == ref.model.generator.width
+    assert ours.model.generator.version == ref.model.generator.version == "v1"
+    assert ours.model.norm == ref.model.norm == "batch"
     assert ours.dataset.zdc_type == ref.dataset.zdc_type
     assert list(ours.dataset.input_image_shape) == list(ref.dataset.input_image_shape) == [56, 30]
     # the keys the gate's data split reads
@@ -77,6 +83,37 @@ def test_config_defaults_equal_jax_config():
                 "epoch_to_load"):
         assert getattr(ours.train, key) == ref.train[key], key
     assert ours.dataset.MIN_INTENSITY_THRESHOLD == 1
+
+
+@pytest.mark.parametrize("extra", [[], ["model.norm=none", "model.generator.width=0.25"],
+                                   ["model.generator.version=v2"]])
+def test_config_neutron_preset_equals_jax(extra):
+    """``NEUTRON_OVERRIDES`` (then the caller's overrides) against JAX's
+    ``load_config("zdcsim/config/neutron.yaml")`` on the keys held here."""
+    from zdcsim_torch.config import NEUTRON_OVERRIDES
+
+    ours = load_config([*NEUTRON_OVERRIDES, *extra])
+    ref = jax_load_config(os.path.join(os.path.dirname(__file__), "..", "zdcsim", "config",
+                                       "neutron.yaml"), overrides=extra)
+    for key in ("architecture", "n_experts", "noise_dim", "cond_dim", "norm"):
+        assert getattr(ours.model, key) == ref.model[key], key
+    for key in ("version", "width"):
+        assert getattr(ours.model.generator, key) == ref.model.generator[key], key
+    assert ours.dataset.zdc_type == ref.dataset.zdc_type == "neutron"
+    assert list(ours.dataset.input_image_shape) == ref.dataset.input_image_shape == [44, 44]
+    for key in ("synthetic", "synthetic_n_samples", "MIN_INTENSITY_THRESHOLD", "test_size"):
+        assert getattr(ours.dataset, key) == ref.dataset[key], key
+
+
+def test_config_checks_norm_and_generator_version():
+    """``model.norm`` is batch, group or none; the (architecture, version)
+    pair must name a generator, as ``build_moe`` requires."""
+    with pytest.raises(ValueError, match="model.norm"):
+        load_config(["model.norm=layer"])
+    with pytest.raises(ValueError, match="no generator version"):
+        load_config(["model.generator.version=v2"])  # proton has no v2
+    assert load_config(["model.architecture=neutron",
+                        "model.generator.version=v2"]).model.generator.version == "v2"
 
 
 def test_config_router_widths_match_the_teacher_router():
@@ -91,6 +128,7 @@ def test_config_router_widths_match_the_teacher_router():
     "dataset.input_image_shape=[44, 44]", "model.architecture=neutron",
     "dataset.synthetic=true", "dataset.synthetic_n_samples=25600", "train.seed=7",
     "train.batch_size=512", "dataset.MIN_INTENSITY_THRESHOLD=null", "dataset.test_size=0.25",
+    "model.norm=none",
 ])
 def test_config_overrides_parse_as_jax(override):
     ours = load_config([override])

@@ -94,9 +94,28 @@ def test_artifact_model_config_teacher_plain():
 
 
 def test_artifact_model_config_neutron_raises():
-    with pytest.raises(NotImplementedError, match="neutron"):
-        ft._artifact_model_config({"weights": "distilled-student", "family": "neutron",
-                                   "width": "0.5", "norm": "none"})
+    """The neutron family is ported: its overrides are ``fidelity.py``'s
+    (the preset of zdcsim/config/neutron.yaml first, then width, norm and
+    generator version), and they load a config equal to JAX's on the held
+    keys."""
+    import fidelity
+    from zdcsim.config import load_config as jax_config
+    from zdcsim_torch.config import NEUTRON_OVERRIDES, load_config
+
+    meta = {"weights": "distilled-student", "family": "neutron", "width": "0.5",
+            "norm": "none", "generator_version": "v1"}
+    overrides = ft._artifact_model_config(meta)
+    ref, cfg_path = fidelity._artifact_model_config(meta)
+    assert overrides == [*NEUTRON_OVERRIDES, *ref]
+    ours, theirs = load_config(overrides), jax_config(cfg_path, overrides=ref)
+    for key in ("architecture", "norm"):
+        assert getattr(ours.model, key) == theirs.model[key] == {"architecture": "neutron",
+                                                                 "norm": "none"}[key]
+    assert ours.model.generator.width == theirs.model.generator.width == 0.5
+    assert ours.dataset.zdc_type == theirs.dataset.zdc_type == "neutron"
+    assert list(ours.dataset.input_image_shape) == theirs.dataset.input_image_shape == [44, 44]
+    assert ft._artifact_model_config({"family": "neutron", "norm": "group"}) == [
+        *NEUTRON_OVERRIDES, "model.norm=group"]
 
 
 def test_gate_constants_equal_fidelity_py():
@@ -107,11 +126,74 @@ def test_gate_constants_equal_fidelity_py():
 
 
 def test_gate_refuses_run_dirs_and_the_neutron_family():
+    """A run directory of checkpoints is still refused; a neutron artifact
+    gates (here on a slice of the test split, one draw) with its family's
+    record."""
     with pytest.raises(NotImplementedError, match="checkpoints"):
         ft.run_gate("experiments/some_run_dir", device="cpu")
-    with pytest.raises(NotImplementedError, match="neutron"):
-        ft.run_gate(os.path.join(REPO, "artifacts", "gate",
-                                 "neutron_student_w0.125_serving_weights.npz"), device="cpu")
+    from zdcsim_torch.config import load_config
+
+    cfg = load_config([*ft.GATE_OVERRIDES, *ft._artifact_model_config({"family": "neutron"}),
+                       "dataset.synthetic_n_samples=2560"])
+    cond, real = ft.gate_split(cfg)
+    assert real.shape[1:] == (44, 44)
+    rec = ft.run_gate(os.path.join(REPO, "artifacts", "gate",
+                                   "neutron_student_w0.125_serving_weights.npz"), "int8",
+                      device="cpu", data=(cond[:256], real[:256]), n_draws=1)
+    assert rec["family"] == "neutron" and rec["n_test"] == 256 and rec["width"] == 0.125
+    assert rec["criterion"].startswith("teacher-relative: <= 1.1x teacher (5.500x floor)")
+    # value is rounded to 3 digits, vs_baseline computed from the unrounded ratio
+    assert abs(rec["vs_baseline"] - 5.5 / rec["value"]) <= 2e-3 * rec["vs_baseline"]
+    assert np.isfinite(rec["value"]) and rec["device"] == {"platform": "cpu", "kind": "cpu"}
+
+
+def test_neutron_gate_split_equals_jax():
+    """The neutron gate's test side (``fidelity.py`` with the neutron preset,
+    here at 2560 synthetic events): conditions and real showers [n, 44, 44]
+    bit-equal to JAX's."""
+    from zdcsim.config import load_config as jax_config
+    from zdcsim.data import get_train_test_data as jax_split
+    from zdcsim.data.loader import split_to_arrays as jax_arrays
+    from zdcsim_torch.config import load_config
+
+    overrides = [*ft.GATE_OVERRIDES, "dataset.synthetic_n_samples=2560"]
+    cond, real = ft.gate_split(load_config([*ft._artifact_model_config({"family": "neutron"}),
+                                            *overrides]))
+    ref = jax_arrays(jax_split(jax_config(os.path.join(REPO, "zdcsim", "config", "neutron.yaml"),
+                                          overrides=overrides)), False)
+    assert real.shape == (512, 44, 44)
+    np.testing.assert_array_equal(cond, ref["cond"])
+    np.testing.assert_array_equal(real, ref["real"][..., 0])
+
+
+@pytest.mark.parametrize("meta", [
+    {"family": "neutron", "weights": "distilled-student", "width": "0.125", "norm": "none",
+     "teacher_x_floor": "5.0"},
+    {"family": "neutron", "weights": "ema", "norm": "group", "epoch": "149"},
+    {"weights": "distilled-student", "width": "0.125"},
+])
+def test_neutron_record_follows_fidelity_py(meta):
+    """``criterion`` and ``vs_baseline`` as ``fidelity.py:269-288``: a
+    neutron student teacher-relative at ``NEUTRON_REL_CRITERION``, the
+    neutron teacher informational (``vs_baseline`` null), a proton record
+    untouched."""
+    import fidelity
+
+    assert ft.NEUTRON_REL_CRITERION == fidelity.NEUTRON_REL_CRITERION == 1.10
+    rng = np.random.default_rng(7)
+    ch_real = torch.from_numpy(rng.gamma(4.0, 300.0, (300, 5)).astype(np.float32))
+    ch_gens = [torch.from_numpy((rng.gamma(4.0, 300.0, (300, 5)) * 1.3).astype(np.float32))]
+    rec = ft.fidelity_record(ch_real, ch_gens, meta)
+    ratio = _jax_gate_numbers(ch_real.numpy(), [g.numpy() for g in ch_gens])["value"]
+    if meta.get("family") != "neutron":
+        assert "criterion" not in rec and rec["vs_baseline"] == round(1.5 / ratio, 3)
+    elif "teacher_x_floor" in meta:
+        bar = 1.10 * 5.0
+        assert rec["criterion"] == f"teacher-relative: <= 1.1x teacher ({bar:.3f}x floor)"
+        assert abs(rec["vs_baseline"] - bar / ratio) <= 1e-3
+    else:
+        assert rec["vs_baseline"] is None
+        assert rec["criterion"].startswith("informational (neutron family saturates")
 
 
 def test_main_prints_the_record_last(monkeypatch, capsys):

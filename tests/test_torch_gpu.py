@@ -713,3 +713,103 @@ def test_a_capture_survives_garbage_engines_with_graphs(serving_trees):
     out = eng.simulate_bulk(cond, generator=torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
+
+
+@pytest.fixture(scope="module")
+def neutron_trees():
+    """The neutron teacher's and the w=0.125 neutron student's generator
+    trees (numpy) with their config overrides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    import fidelity_torch as ft
+    from zdcsim_torch.utils.artifact import load_serving_artifact
+
+    art = os.path.join(os.path.dirname(__file__), "..", "artifacts", "gate")
+    out = {}
+    for which in ("teacher", "student_w0.125"):
+        gp, gs, _, meta = load_serving_artifact(
+            os.path.join(art, f"neutron_{which}_serving_weights.npz"))
+        out[which] = (gp, gs, ft._artifact_model_config(meta))
+    return out
+
+
+def _neutron_engine(trees, which, precision, batch, device):
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.inference.engine import FastSim
+
+    gp, gs, overrides = trees[which]
+    return FastSim(gp, _router(), batch_size=batch, precision=precision, device=device,
+                   cfg=load_config(overrides), gen_stats=gs)
+
+
+def _assert_neutron_close(out, ref, precision):
+    """f32: 1e-4 in log space; bf16 (the teacher's module): the log1p bound
+    of tests/test_pallas_decode.py:203; int8 (the student, no norm between
+    its convs, where a flipped activation cascades): per-shower log1p sums
+    within rtol 0.1 (tests/test_neutron_fast.py:64)."""
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    assert out.shape == ref.shape and np.isfinite(out).all() and out.min() >= 0
+    lo, lr = np.log1p(out), np.log1p(ref)
+    if precision == "f32":
+        np.testing.assert_allclose(lo, lr, rtol=1e-4, atol=1e-4)
+    elif precision == "int8":
+        np.testing.assert_allclose(np.log1p(out.sum((1, 2))), np.log1p(ref.sum((1, 2))),
+                                   rtol=0.1)
+    else:
+        assert np.abs(lo - lr).max() < 0.05 * float(np.abs(lr).max()) + 0.05
+
+
+@pytest.mark.parametrize("which,precision", [("teacher", "bf16"), ("teacher", "f32"),
+                                             ("student_w0.125", "int8"),
+                                             ("student_w0.125", "f32")])
+@pytest.mark.parametrize("form", ["switch", "dyn", "dense", "grouped", "stream"])
+def test_neutron_forms_on_the_card_match_the_cpu(neutron_trees, which, precision, form):
+    """Each serving form of the neutron family on the card against the same
+    form on the CPU, on the same conditions and noise; the dyn form's
+    ``simulate_bulk`` is the replayed CUDA graph."""
+    rng = np.random.default_rng(6)
+    cond = rng.standard_normal((48, 9), dtype=np.float32)
+    noise = rng.standard_normal((48, 10), dtype=np.float32)
+    outs = []
+    for device in ("cpu", "cuda"):
+        eng = _neutron_engine(neutron_trees, which, precision, 32, device)
+        eng._build_switch(tile=8, dyn_dispatch=form == "dyn")
+        run = {"switch": eng.simulate_switch, "dyn": eng.simulate_bulk,
+               "dense": eng.simulate, "grouped": eng.simulate_grouped,
+               "stream": eng.simulate_stream}[form]
+        out, ids = run(cond, noise=noise, return_experts=True)
+        outs.append((out, ids.cpu()))
+    (ref, ref_ids), (out, ids) = outs
+    assert torch.equal(ids, ref_ids) and torch.bincount(ids, minlength=3).min() > 0
+    assert out.shape == (48, 44, 44)
+    _assert_neutron_close(out, ref, precision)
+
+
+@pytest.mark.parametrize("which,precision", [("teacher", "bf16"), ("student_w0.125", "int8")])
+def test_neutron_bulk_graph_equals_the_eager_dyn_loop(neutron_trees, which, precision):
+    """The neutron module (``functional_call`` on weights gathered per tile)
+    and ``fast_neutron_apply`` replayed from a CUDA graph: equal to the
+    eager dyn loop on the same generator seed, on the capture and after."""
+    cond = np.random.default_rng(7).standard_normal((100, 9), dtype=np.float32)
+    eng = _neutron_engine(neutron_trees, which, precision, 64, "cuda")
+    eng._build_switch(tile=16, dyn_dispatch=True)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(3)
+
+    eager, ids = eng.simulate_switch(cond, generator=gen(), return_experts=True)
+    first, ids1 = eng.simulate_bulk(cond, generator=gen(), return_experts=True)
+    again = eng.simulate_bulk(cond, generator=gen())
+    torch.cuda.synchronize()
+    assert list(eng._graphs) == [(64, 16)]
+    assert torch.equal(first, eager) and torch.equal(again, eager) and torch.equal(ids1, ids)
+    assert torch.isfinite(eager).all() and eager.shape == (100, 44, 44)
+
+
+@pytest.mark.parametrize("precision", ["int8_pallas_ab", "int8_pallas", "int8_fused_front",
+                                       "int8_fused"])
+def test_neutron_refuses_the_kernel_precisions_on_the_card(neutron_trees, precision):
+    with pytest.raises(ValueError, match="proton only"):
+        _neutron_engine(neutron_trees, "student_w0.125", precision, 32, "cuda")

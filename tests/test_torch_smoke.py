@@ -11,7 +11,10 @@ serves of ``int8``, ``int8_pallas_ab``,
 with kernel E, the all-expert path with kernel F, the ``f32`` and ``bf16``
 serves, the student's fidelity gate on part of the split, and the engine
 API of phase 15 (``dyn_dispatch``, the dense path, static activation quant,
-grouped and stream dispatch, ``bench_torch.py``'s first rung).
+grouped and stream dispatch, ``bench_torch.py``'s first rung), and the
+neutron family of phase 16 (the teacher's module and both students through
+the dyn tile loop, a folded ``norm="batch"`` tree, kernel E at 44x44, a
+student's gate).
 """
 
 import os
@@ -87,5 +90,9 @@ runpy.run_path("chip_smoke.py", run_name="__main__")
                   '"metric": "fastsim_fidelity"', "int8_pallas dyn_dispatch",
                   "int8_fused dense simulate",
                   "static_act_quant on int8", "simulate_stream vs simulate_grouped",
-                  "bench_torch first rung", " 15 engine API "):
+                  "bench_torch first rung", " 15 engine API ",
+                  "[16 neutron]", "teacher bf16 (the module", "student_w0.25 int8 vs the f32 serve",
+                  "random norm=batch tree, full width int8 (fast_neutron_apply, folded at build",
+                  "kernel E [8, 44, 44] float32", "gate of the neutron student_w0.125 int8",
+                  '"family": "neutron"', " 16 neutron "):
         assert phase in proc.stdout, phase

@@ -5,6 +5,8 @@ the serving path and the fidelity gate's data split read
 (``tests/test_torch_artifact.py`` holds them equal to
 ``zdcsim.config.load_config()``). The router's hidden widths are not a key
 of that file: they are fixed in ``zdcsim/models/router.py`` and copied here.
+The neutron preset of ``zdcsim/config/neutron.yaml`` is
+:data:`NEUTRON_OVERRIDES`, which a caller puts before its own overrides.
 PyYAML is not assumed: overrides use the same ``a.b=c`` dotlist syntax as
 ``zdcsim.config.apply_overrides`` with a small scalar parser, and a key that
 does not exist raises.
@@ -19,6 +21,7 @@ from typing import Any, Iterable, List, Optional, Tuple
 
 @dataclass
 class GeneratorConfig:
+    version: str = "v1"  # v1: the reference architecture; neutron also has v2
     width: float = 1.0
 
 
@@ -33,6 +36,7 @@ class ModelConfig:
     n_experts: int = 3
     noise_dim: int = 10
     cond_dim: int = 9
+    norm: str = "batch"  # the neutron family's normalisation: batch, group or none
     generator: GeneratorConfig = field(default_factory=GeneratorConfig)
     router: RouterConfig = field(default_factory=RouterConfig)
 
@@ -64,6 +68,13 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+
+
+# zdcsim/config/neutron.yaml as overrides (its data paths are not read here)
+NEUTRON_OVERRIDES = (
+    "model.architecture=neutron", "model.norm=group", "dataset.zdc_type=neutron",
+    "dataset.input_image_shape=[44, 44]",
+)
 
 
 def _parse_value(raw: str) -> Any:
@@ -106,8 +117,11 @@ def apply_overrides(cfg: Config, overrides: Optional[Iterable[str]]) -> Config:
 
 
 def load_config(overrides: Optional[List[str]] = None) -> Config:
-    """Defaults, then ``a.b=c`` overrides, then the checks of the JAX loader
-    that concern the keys held here."""
+    """Defaults, then ``a.b=c`` overrides (the neutron preset is
+    ``[*NEUTRON_OVERRIDES, ...]``), then the checks of the JAX loader that
+    concern the keys held here, the norm, and ``build_moe``'s generator rule."""
+    from zdcsim_torch.models import generator_spec
+
     cfg = apply_overrides(Config(), overrides)
     if cfg.model.architecture not in ("proton", "neutron"):
         raise ValueError(f"model.architecture must be proton|neutron, got {cfg.model.architecture}")
@@ -115,4 +129,9 @@ def load_config(overrides: Optional[List[str]] = None) -> Config:
         raise ValueError("model.n_experts must be >= 1")
     if len(tuple(cfg.dataset.input_image_shape)) != 2:
         raise ValueError("dataset.input_image_shape must be [H, W]")
+    if cfg.model.norm not in ("batch", "group", "none"):
+        raise ValueError(f"model.norm must be batch|group|none, got {cfg.model.norm}")
+    m = cfg.model
+    # raises on an (architecture, version) pair that has no generator
+    generator_spec(m.architecture, m.generator.version, m.norm, m.generator.width)
     return cfg

@@ -8,14 +8,15 @@ Two layouts meet here:
   generator in this layout (as tensors), so tests compare like with like;
 - the **PyTorch layout** of the port's ``nn.Module``s, whose submodules carry
   the Flax names: ``Linear.weight [out, in]``, ``Conv2d.weight`` OIHW, norm
-  ``weight``.
+  ``weight``; a BatchNorm's ``batch_stats`` ``mean``/``var`` are its
+  ``running_mean``/``running_var`` buffers.
 
 The mapping is by name and is lossless both ways.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -39,8 +40,14 @@ def expert(tree: Dict[str, Any], e: int) -> Dict[str, Any]:
     return _unflatten({k: v[e] for k, v in _flatten(tree).items()})
 
 
-def to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """One module's Flax tree (numpy or tensors) -> ``state_dict``."""
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def to_state_dict(tree: Dict[str, Any], stats: Optional[Dict[str, Any]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """One module's Flax tree (numpy or tensors) -> ``state_dict``; ``stats``
+    is its ``batch_stats`` collection (``{MaskedBatchNorm_i: {mean, var}}``),
+    if it has one."""
     sd = {}
     for key, v in _flatten(tree).items():
         path, _, leaf = key.rpartition(_SEP)
@@ -53,22 +60,39 @@ def to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         elif leaf != "bias":
             raise ValueError(f"unexpected Flax leaf {key!r}")
         sd[f"{path.replace(_SEP, '.')}.{leaf}"] = t.contiguous()
+    for key, v in _flatten(stats or {}).items():
+        path, _, leaf = key.rpartition(_SEP)
+        if leaf not in _STAT_LEAVES:
+            raise ValueError(f"unexpected batch_stats leaf {key!r}")
+        sd[f"{path.replace(_SEP, '.')}.{_STAT_LEAVES[leaf]}"] = torch.as_tensor(v).contiguous()
     return sd
 
 
-def from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """Inverse of :func:`to_state_dict`, to numpy."""
-    flat = {}
+def from_state_dict(sd: Dict[str, torch.Tensor], stats_out: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
+    """Inverse of :func:`to_state_dict`, to numpy. The running statistics of
+    a BatchNorm go into ``stats_out`` (the ``batch_stats`` collection); a
+    state dict that holds them and no ``stats_out`` raises, so nothing is
+    dropped."""
+    flat, stats = {}, {}
     for key, t in sd.items():
         path, _, leaf = key.rpartition(".")
         t = t.detach().cpu()
+        into = flat
         if leaf == "weight":
             if t.ndim == 1:
                 leaf = "scale"
             else:
                 t = t.T if t.ndim == 2 else t.permute(2, 3, 1, 0)  # -> [in,out] / HWIO
                 leaf = "kernel"
-        flat[f"{path.replace('.', _SEP)}{_SEP}{leaf}"] = t.contiguous().numpy()
+        elif leaf in _STAT_LEAVES.values():
+            leaf = {v: k for k, v in _STAT_LEAVES.items()}[leaf]
+            into = stats
+        into[f"{path.replace('.', _SEP)}{_SEP}{leaf}"] = t.contiguous().numpy()
+    if stats:
+        if stats_out is None:
+            raise ValueError("the state dict holds BatchNorm running statistics: pass stats_out")
+        stats_out.update(_unflatten(stats))
     return _unflatten(flat)
 
 
@@ -87,3 +111,20 @@ def to_jax_params(gen: Dict[str, Any], router: Dict[str, torch.Tensor]) -> Tuple
     """Inverse of :func:`from_jax_params`, to numpy Flax trees."""
     gen_np = _unflatten({k: v.detach().cpu().numpy() for k, v in _flatten(gen).items()})
     return gen_np, from_state_dict(router)
+
+
+def stats_from_jax(gen_stats: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """The generator's ``gen_stats`` as ``load_serving_artifact`` returns it
+    (``{"batch_stats": {MaskedBatchNorm_i: {mean, var}}}``, experts stacked
+    on the leading axis, or empty) -> its ``batch_stats`` collection as
+    float32 CPU tensors (``{}`` when there is none)."""
+    gen_stats = gen_stats or {}
+    if set(gen_stats) - {"batch_stats"}:
+        raise ValueError(f"unexpected generator collections {sorted(gen_stats)}")
+    return tree_to_torch(gen_stats.get("batch_stats", {}))
+
+
+def stats_to_jax(stats: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`stats_from_jax`, to numpy."""
+    flat = {k: v.detach().cpu().numpy() for k, v in _flatten(stats).items()}
+    return {"batch_stats": _unflatten(flat)} if flat else {}

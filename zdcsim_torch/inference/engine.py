@@ -31,6 +31,18 @@ width raises ``ValueError`` when the engine is built.
 
 On a CPU device the kernels' plain versions run instead.
 
+The neutron family (``cfg.model.architecture == "neutron"``; JAX's
+``engine.py:143-160``): a ``GeneratorNeutron`` tree with ``batch_stats``
+(``gen_stats``) is folded once per expert at build
+(``models/neutron_fast.py``), and a ``norm="none"`` student's tree is served
+as it is; both decode with ``fast_neutron_apply``, ``"int8"`` on int8 convs.
+Any other neutron tree (the group-norm teacher, ``GeneratorNeutronV2``)
+serves the float module forward in the compute dtype, on ``"int8"`` too
+(bf16, as JAX). The four kernel precisions are proton only: JAX documents
+them so and runs its XLA int8 on a neutron tree, but the port refuses them
+there (``ValueError``) rather than report a kernel path that launches no
+kernel.
+
 The serving paths, as in JAX:
 
 - :meth:`FastSim.simulate` / :meth:`FastSim.throughput`: dense, every
@@ -46,8 +58,9 @@ The serving paths, as in JAX:
   dispatch -> decode -> scatter is captured once per ``(batch_size, tile)``
   as a CUDA graph and replayed per chunk (otherwise the eager chunk loop);
 - :meth:`FastSim.simulate_grouped` / :meth:`FastSim.simulate_stream` (and
-  their ``throughput_*``): host-side buckets per expert through the float
-  ``Generator`` module in the compute dtype, as JAX's ``decode_one``.
+  their ``throughput_*``): host-side buckets per expert, as JAX's
+  ``decode_one``: through the generator module in the compute dtype, or
+  ``fast_neutron_apply`` on a folded neutron tree.
 
 PyTorch runs eagerly, so the JAX engine's other one-program forms are
 Python loops over chunks and tiles.
@@ -65,9 +78,16 @@ import numpy as np
 import torch
 
 from zdcsim_torch.config import Config, load_config
-from zdcsim_torch.convert import expert, from_jax_params, to_state_dict, tree_to_torch
+from zdcsim_torch.convert import (
+    expert, from_jax_params, stats_from_jax, to_state_dict, tree_to_torch,
+)
 from zdcsim_torch.device import default_device
 from zdcsim_torch.inference.switch_dispatch import tiled_switch_decode
+from zdcsim_torch.models import generator_spec
+from zdcsim_torch.models.neutron import GeneratorNeutron
+from zdcsim_torch.models.neutron_fast import (
+    fast_neutron_apply, fold_neutron_params, is_foldable, is_prefolded, quantize_neutron_weights,
+)
 from zdcsim_torch.models.proton import Generator
 from zdcsim_torch.models.proton_fast import fast_generator_apply, quantize_weights
 from zdcsim_torch.models.router import RouterNetwork
@@ -92,25 +112,51 @@ def _stack(trees: List[Any]) -> Any:
     return first
 
 
-def _decode(dtype: torch.dtype, int8_backend: Optional[str], params, qweights, scales,
-            z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """One expert's fast decode of ``[T]`` samples, then ``expm1`` in f32:
-    ``[T, H, W]`` (``int8_backend`` ``None``: the float decode)."""
+# The generator forwards of one expert, ``fwd(params, qweights, scales, z, c,
+# amax_out=None) -> [T, H, W, 1]`` in the compute dtype; the engine binds
+# their leading arguments with functools.partial.
+
+def _proton_forward(dtype: torch.dtype, int8_backend: Optional[str], params, qweights, scales,
+                    z: torch.Tensor, c: torch.Tensor, amax_out=None) -> torch.Tensor:
+    """``fast_generator_apply`` (``int8_backend`` ``None``: the float decode)."""
+    return fast_generator_apply(
+        params, z, c.to(dtype), int8=int8_backend is not None,
+        int8_backend=int8_backend or "xla", qweights=qweights, act_scales=scales,
+        amax_out=amax_out,
+    )
+
+
+def _neutron_forward(dtype: torch.dtype, int8: bool, params, qweights, scales,
+                     z: torch.Tensor, c: torch.Tensor, amax_out=None) -> torch.Tensor:
+    """``fast_neutron_apply`` on a folded (or prefolded) tree."""
+    return fast_neutron_apply(params, z, c.to(dtype), int8=int8, qweights=qweights,
+                              act_scales=scales, amax_out=amax_out)
+
+
+def _module_forward(module: torch.nn.Module, dtype: torch.dtype, state, qweights, scales,
+                    z: torch.Tensor, c: torch.Tensor, amax_out=None) -> torch.Tensor:
+    """The generator module's eval forward on ``state`` (its ``state_dict``
+    in the compute dtype) through ``torch.func.functional_call``: one module
+    serves every expert's weights. ``module`` is built on the meta device,
+    so a parameter missing from ``state`` fails instead of serving
+    stand-in weights."""
+    return torch.func.functional_call(module, state, (z, c.to(dtype)))
+
+
+def _decode(fwd, params, qweights, scales, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """One expert's decode of ``[T]`` samples by ``fwd``, then ``expm1`` in
+    f32: ``[T, H, W]``."""
     # cuDNN runs float32 convs in TF32 unless told not to (a bf16 conv is
     # unaffected); the context restores the caller's flags
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        img = fast_generator_apply(
-            params, z, c.to(dtype), int8=int8_backend is not None,
-            int8_backend=int8_backend or "xla", qweights=qweights, act_scales=scales,
-        )
+        img = fwd(params, qweights, scales, z, c)
     return torch.expm1(img[..., 0].to(torch.float32))
 
 
-def _decode_dyn(dtype: torch.dtype, int8_backend: Optional[str], stacked,
-                e_k: torch.Tensor, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def _decode_dyn(fwd, stacked, e_k: torch.Tensor, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """:func:`_decode` on the weights of expert ``e_k`` (a 0-d device tensor)
     gathered from the :func:`_stack` tree ``stacked``."""
-    return _decode(dtype, int8_backend, *_take(stacked, e_k), z, c)
+    return _decode(fwd, *_take(stacked, e_k), z, c)
 
 
 def _pad(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -131,7 +177,7 @@ def _take(tree: Any, e: torch.Tensor) -> Any:
 
 
 class FastSim:
-    """Proton fast-simulation engine.
+    """Fast-simulation engine of the proton and neutron families.
 
     Args:
         gen_params / router_params: numpy Flax trees as
@@ -143,9 +189,11 @@ class FastSim:
             applies to every path.
         precision: ``"f32"``, ``"bf16"``, ``"int8"``, ``"int8_pallas_ab"``,
             ``"int8_pallas"``, ``"int8_fused_front"`` or ``"int8_fused"`` (see
-            the module doc).
+            the module doc); the last four take the proton family only.
         device: ``None`` for CUDA (raises without a card), or ``"cpu"``.
-        cfg: model geometry; defaults to ``load_config()``.
+        cfg: model geometry and family (``model.architecture``,
+            ``model.generator.version``, ``model.norm``, widths, the image
+            shape); defaults to ``load_config()``.
         scaler_cond: optional ``zdcsim_torch.data.scalers.StandardScaler`` of
             the raw kinematics (:meth:`standardize`).
         static_act_quant: on ``"int8"``, quantise activations with static
@@ -153,7 +201,15 @@ class FastSim:
             (:meth:`_calibrate_act_scales`) instead of one max per call;
             values beyond a scale's range clip at +-127. The kernel
             precisions quantise per sample inside their kernels, so they
-            refuse it (``ValueError``); the float precisions ignore it.
+            refuse it (``ValueError``); the float precisions, and a neutron
+            tree served by its module, ignore it (as JAX).
+        gen_stats: the generator's ``{"batch_stats": ...}`` collection
+            (a ``norm="batch"`` neutron tree's running statistics), or
+            ``None``.
+
+    Attributes (JAX's): ``uses_fast_path``, the proton family's fast decode;
+    ``fast_neutron``, a folded or prefolded neutron tree on
+    ``fast_neutron_apply``. With neither, the generator module serves.
     """
 
     DENSE_SAFE_BATCH = 2048
@@ -164,7 +220,7 @@ class FastSim:
 
     def __init__(self, gen_params: Any, router_params: Any, batch_size: Optional[int] = None,
                  precision: str = "f32", device=None, cfg: Optional[Config] = None,
-                 scaler_cond=None, static_act_quant: bool = False):
+                 scaler_cond=None, static_act_quant: bool = False, gen_stats: Any = None):
         if precision not in _BACKENDS:
             raise ValueError(
                 f"precision must be one of {sorted(_BACKENDS)} in this port, got {precision!r}"
@@ -177,34 +233,67 @@ class FastSim:
                 f"(precision='int8'), got backend {_BACKENDS[precision]!r}"
             )
         cfg = cfg or load_config()
+        m = cfg.model
+        if m.architecture == "neutron" and _BACKENDS[precision] not in (None, "xla"):
+            raise ValueError(
+                f"precision {precision!r} runs the proton decode kernels: proton only (the "
+                "neutron family serves on 'f32', 'bf16' or 'int8')"
+            )
         self.device = default_device(device)
         self.batch_size = int(batch_size) if batch_size is not None else 8192
         self.dense_batch_size = (int(batch_size) if batch_size is not None
                                  else min(self.DENSE_SAFE_BATCH, self.batch_size))
         self.scaler_cond = scaler_cond
-        self.noise_dim = int(cfg.model.noise_dim)
-        self.cond_dim = int(cfg.model.cond_dim)
-        self.n_experts = int(cfg.model.n_experts)
+        self.noise_dim = int(m.noise_dim)
+        self.cond_dim = int(m.cond_dim)
+        self.n_experts = int(m.n_experts)
         self.image_shape = tuple(cfg.dataset.input_image_shape)
         self.precision = precision
         self._dtype = torch.float32 if precision == "f32" else torch.bfloat16
-        self._int8_backend = _BACKENDS[precision]
+        self._gen_spec = generator_spec(m.architecture, m.generator.version, m.norm,
+                                        m.generator.width)
 
         gen, router_sd = from_jax_params(gen_params, router_params)
+        stats = stats_from_jax(gen_stats)
         n_stacked = gen["Conv_0"]["kernel"].shape[0]
         if n_stacked != self.n_experts:
             raise ValueError(f"weights hold {n_stacked} experts, config says {self.n_experts}")
-        self._experts = [
-            tree_to_torch(expert(gen, e), dtype=self._dtype, device=self.device)
-            for e in range(self.n_experts)
-        ]
-        self._qweights = [
-            quantize_weights(p, self._int8_backend) if self._int8_backend else None
-            for p in self._experts
-        ]
+        trees = [expert(gen, e) for e in range(self.n_experts)]
+        self.uses_fast_path = self._gen_spec[0] is Generator
+        # JAX's _fast_neutron rule: fold a batch-norm tree that has its
+        # statistics, serve a prefolded student as it is
+        self.fast_neutron = False
+        if self._gen_spec[0] is GeneratorNeutron:
+            if stats and is_foldable(trees[0]):
+                trees = [fold_neutron_params(t, expert(stats, e)) for e, t in enumerate(trees)]
+                stats = {}
+                self.fast_neutron = True
+            elif is_prefolded(trees[0]):
+                self.fast_neutron = True
+            elif is_foldable(trees[0]):
+                raise ValueError("a norm='batch' neutron tree needs its running statistics "
+                                 "(gen_stats)")
+        self._int8_backend = _BACKENDS[precision] if self.uses_fast_path else None
+        self._int8 = (self._int8_backend is not None
+                      or (self.fast_neutron and precision == "int8"))
+        if self.uses_fast_path:
+            self._fwd = functools.partial(_proton_forward, self._dtype, self._int8_backend)
+        elif self.fast_neutron:
+            self._fwd = functools.partial(_neutron_forward, self._dtype, self._int8)
+        else:
+            self._fwd = self._module_fwd()
+            trees = [to_state_dict(t, expert(stats, e) if stats else None)
+                     for e, t in enumerate(trees)]
+        self._experts = [tree_to_torch(t, dtype=self._dtype, device=self.device) for t in trees]
+        if not self._int8:
+            self._qweights = [None] * self.n_experts
+        elif self.uses_fast_path:
+            self._qweights = [quantize_weights(p, self._int8_backend) for p in self._experts]
+        else:
+            self._qweights = [quantize_neutron_weights(p) for p in self._experts]
         # The router stays float32: routing logits are cheap and precision-sensitive.
         self.router = RouterNetwork(
-            self.n_experts, self.cond_dim, cfg.model.router.widths
+            self.n_experts, self.cond_dim, m.router.widths
         ).to(self.device)
         self.router.load_state_dict(router_sd)
         self.router.eval()
@@ -214,9 +303,17 @@ class FastSim:
         # min over sites and experts of (margined calibration amax) /
         # (validation amax): above 1, no clipping seen at 4x the batch
         self.act_scale_headroom: Optional[float] = None
-        if static_act_quant and self._int8_backend == "xla":
+        if static_act_quant and self._int8:
             self._act_scales = self._calibrate_act_scales()
         self._build_switch()
+
+    def _module_fwd(self):
+        """:func:`_module_forward` bound to one generator module (on the meta
+        device: every weight comes from the expert's state)."""
+        cls, kwargs = self._gen_spec
+        with torch.device("meta"):
+            module = cls(self.noise_dim, self.cond_dim, **kwargs).eval()
+        return functools.partial(_module_forward, module, self._dtype)
 
     # -- the decode of one expert ------------------------------------------
 
@@ -247,8 +344,7 @@ class FastSim:
             with torch.no_grad():
                 for p, q in zip(self._experts, self._qweights):
                     d: Dict[str, torch.Tensor] = {}
-                    fast_generator_apply(p, z, c, int8=True, int8_backend="xla", qweights=q,
-                                         amax_out=d)
+                    self._fwd(p, q, None, z, c, amax_out=d)
                     out.append(d)
             return out
 
@@ -280,15 +376,14 @@ class FastSim:
         # partials of module-level functions, not closures over self: an
         # engine must leave no reference cycle, or the garbage collector may
         # free it (and destroy its graphs) in the middle of another capture
-        how = (self._dtype, self._int8_backend)
-        self._decoders = [functools.partial(_decode, *how, *self._expert_args(e))
+        self._decoders = [functools.partial(_decode, self._fwd, *self._expert_args(e))
                           for e in range(self.n_experts)]
         # the stacked [E, ...] weights the dyn decoder gathers from
         self._stacked = None
         self._decode_dyn = None
         if self._dyn:
             self._stacked = _stack([list(self._expert_args(e)) for e in range(self.n_experts)])
-            self._decode_dyn = functools.partial(_decode_dyn, *how, self._stacked)
+            self._decode_dyn = functools.partial(_decode_dyn, self._fwd, self._stacked)
 
     @torch.no_grad()
     def _route(self, cond: torch.Tensor) -> torch.Tensor:
@@ -477,24 +572,24 @@ class FastSim:
     # -- grouped and stream dispatch (host-side buckets) ---------------------
 
     def _build_grouped(self) -> None:
-        """Per-expert float ``Generator`` modules in the compute dtype (JAX's
-        ``decode_one`` serves the proton family through the module, not the
-        fast decode, on every precision)."""
-        c0 = self._experts[0]["MLPBlock_1"]["Dense_0"]["kernel"].shape[1] // (18 * 10)
-        mods = []
-        for p in self._experts:
-            gen = Generator(self.noise_dim, self.cond_dim, width=c0 / 512)
-            gen.load_state_dict(to_state_dict(p))
-            mods.append(gen.to(self.device, self._dtype).eval())
-        self._modules = mods
+        """Per-expert decoders of the buckets, JAX's ``decode_one``: on a
+        folded neutron tree ``fast_neutron_apply`` (without static scales,
+        as JAX), else the generator module in the compute dtype (the proton
+        family serves its buckets through ``Generator``, not its fast decode,
+        on every precision)."""
+        if self.uses_fast_path:
+            args = [(to_state_dict(p), None, None) for p in self._experts]
+            fwd = self._module_fwd()
+        else:
+            args = [(p, q, None) for p, q in zip(self._experts, self._qweights)]
+            fwd = self._fwd
+        self._grouped = [functools.partial(_decode, fwd, *a) for a in args]
 
     @torch.no_grad()
     def _decode_one(self, e: int, cond: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        if not hasattr(self, "_modules"):
+        if not hasattr(self, "_grouped"):
             self._build_grouped()
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            img = self._modules[e](noise, cond.to(self._dtype))
-        return torch.expm1(img[..., 0].to(torch.float32))
+        return self._grouped[e](noise, cond)
 
     @staticmethod
     def _bucket_size(n: int, minimum: int = 256) -> int:

@@ -4,7 +4,7 @@ Functions take NHWC tensors, as the JAX package does. The modules hold their
 weights in PyTorch's layout under the Flax names (``Dense_0``,
 ``LayerNorm_0``, ...) so that ``zdcsim_torch.convert`` maps one tree onto
 the other by name. LayerNorm and GroupNorm use Flax's eps of 1e-6, not
-PyTorch's 1e-5.
+PyTorch's 1e-5; ``MaskedBatchNorm`` keeps its own 1e-5.
 """
 
 from __future__ import annotations
@@ -17,10 +17,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 NORM_EPS = 1e-6
+BN_EPS = 1e-5  # MaskedBatchNorm.epsilon (zdcsim/models/layers.py:138)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=slope)
+
+
+def upsample_nearest(x: torch.Tensor, scale: Tuple[int, int] = (2, 2)) -> torch.Tensor:
+    """Nearest-neighbour upsampling of an NHWC tensor by integer factors
+    (``repeat_interleave`` with int counts: no index tensor, nothing read
+    from the host)."""
+    return x.repeat_interleave(scale[0], dim=1).repeat_interleave(scale[1], dim=2)
 
 
 def nearest_index(n_out: int, n_in: int) -> np.ndarray:
@@ -76,3 +84,34 @@ class GroupNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.GroupNorm_0(x)
+
+
+class MaskedBatchNorm(nn.Module):
+    """Eval form of the JAX ``MaskedBatchNorm`` (``zdcsim/models/layers.py:98``):
+    ``(x - mean) * rsqrt(var + 1e-5) * scale + bias`` per feature, computed in
+    float32 and cast back to the input's dtype. ``weight``/``bias`` hold
+    Flax's ``scale``/``bias``; the buffers ``running_mean``/``running_var``
+    hold its ``batch_stats`` ``mean``/``var``. Flax stores the biased
+    variance, and eval uses it as stored. The feature axis is 1 (``[B, C]``
+    or NCHW ``[B, C, H, W]``).
+
+    The training form (masked sub-batch statistics) is not ported:
+    ``train=True`` raises.
+    """
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(
+                "MaskedBatchNorm's training form (masked sub-batch statistics) is not ported "
+                "yet (ROADMAP.md Queue 1 item 6)")
+        f32 = lambda t: t.to(torch.float32)  # noqa: E731
+        y = F.batch_norm(f32(x), f32(self.running_mean), f32(self.running_var), f32(self.weight),
+                         f32(self.bias), training=False, eps=BN_EPS)
+        return y.to(x.dtype)
