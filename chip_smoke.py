@@ -2,7 +2,7 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-13, 15 and 16 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-17 on the CPU at small sizes
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
 Phases, each printing lines with the elapsed seconds:
@@ -120,7 +120,23 @@ Phases, each printing lines with the elapsed seconds:
     and the gates of both students (teacher-relative: each must reach
     ``vs_baseline >= 1.0``) and of the teacher (informational), each
     launching E once; E at that shape is timed as in phase 14 and joins
-    its record's ``cases``.
+    its record's ``cases``;
+17. training (``zdcsim_torch.train``): the full-width proton MoE (E=3,
+    batch 512, f32 with TF32 off, ``TRAIN``) from ``init_state`` on the card
+    steps 6 times through the dense step on the gate split's train side
+    (``DeviceLoader``; 3 steps at epoch 0, 3 at epoch 1), failing unless
+    every metric is finite, every active expert's kernels and spectral-norm
+    ``u`` moved and every inactive one's leaves stayed, the EMA is ``0.99
+    ema + 0.01 params`` and each ``u`` has unit norm; each step's losses,
+    routing and CUDA-synchronised time, the median of steps 2 onwards, the
+    peak memory and the kernel launches (none: the step runs no
+    hand-written kernel) are printed; then one step at width 0.125, E=3,
+    batch 16 (``TRAIN_CHECK``) runs on the card and on the CPU from one
+    state and one set of draws, in float32 and in float64: in float64 every
+    check must hold at the CPU tests' tolerances (``step_agreement``), in
+    float32 all but Adam's moments (``AGREE_F32``), printed beside what 1e-6
+    of noise does to the CPU's own step; a ``{"train": ...}`` line records
+    the phase.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
@@ -129,8 +145,8 @@ and the device's idle share of the serve's wall time; and in phase 15 the
 same of the eager dyn serve and the graph-replayed one on ``int8_pallas``
 and ``int8_fused`` (with the share of ``index_select``, the weight
 gather), and of one chunk of ``bench_torch.py``'s first rung, eager and
-replayed; and in phase 16 of one chunk of the neutron w=0.125 student,
-eager and replayed.
+replayed; in phase 16 of one chunk of the neutron w=0.125 student,
+eager and replayed; and in phase 17 of one more full-width train step.
 
 The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
@@ -159,7 +175,9 @@ shower; a calibration of 1 + 4 rows; one grouped bucket;
 ``bench_torch.py``'s first rung at 2 showers), and phase 16 at
 ``REHEARSE_NEUTRON`` (one shower an expert, batch 3, tile 1; the neutron
 split of 2560 events, E on 8 of its showers, the w=0.125 neutron
-student's gate on 128 conditions with one draw). Both modes print each
+student's gate on 128 conditions with one draw), and phase 17 at
+``REHEARSE_TRAIN`` (2 steps at width 0.125, E=3, batch 4; with no card,
+the first step is held against itself by the comparison). Both modes print each
 phase's seconds on one line before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
 """
@@ -192,6 +210,7 @@ REHEARSE_ENGINE = (None, 3, 1)  # phase 15: one shower an expert, batch 3, tile 
 REHEARSE_DENSE = (1, 1)  # phase 15's dense showers and batch
 REHEARSE_BENCH = {"batch_size": 2, "tile": 2, "n_showers": 2}
 REHEARSE_NEUTRON = (None, 3, 1)  # phase 16: one shower an expert, batch 3, tile 1
+REHEARSE_TRAIN = (0.125, 3, 4, 2)  # phase 17: width, experts, batch, steps
 ENGINE_SERVE = (8192, 4096, 64)  # phase 15: showers, batch, tile
 ENGINE_DENSE = (4096, 2048)  # phase 15's dense showers and batch (DENSE_SAFE_BATCH)
 BENCH_SHOWERS = 65536  # phase 15: bench_torch.py's first rung, cut from 262144
@@ -200,6 +219,8 @@ NEUTRON = {name: os.path.join(HERE, "artifacts", "gate", f"neutron_{name}_servin
 # phase 16: showers, batch, tile (the teacher and the random norm=batch tree; the students)
 NEUTRON_SERVE = {"teacher": (16384, 4096, 64), "student": (65536, 32768, 128)}
 SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
+TRAIN = (1.0, 3, 512, 6)  # phase 17: width, experts, batch, steps (half at epoch 0, half at 1)
+TRAIN_CHECK = (0.125, 3, 16)  # phase 17's card-against-CPU step: width, experts, batch
 A_ROWS, B_ROWS, C_ROWS, D_ROWS, GH_ROWS, TIME_ROWS = 256, 64, 64, 64, 64, 64
 STUDENT_F, STUDENT_C = 11520, 32  # the w=0.125 student's Dense_1 and GroupNorm2d_0 widths
 SWEEP_ROWS = (1, 7, 64)  # phase 9's cluster-size sweep of A and C
@@ -858,8 +879,8 @@ def serve(gp, rp, rng, dev, n, batch, tile, card, seed, profile=False):
 
 
 def profile_serve(run, what, card, phase="profile"):
-    """``run()`` (one serve) under ``torch.profiler``: device time per kernel,
-    and the share of the serve's wall time in which no kernel ran. Returns
+    """``run()`` (one serve or step) under ``torch.profiler``: device time per kernel,
+    and the share of its wall time in which no kernel ran. Returns
     ``{kernel name: [launches, us]}``."""
     import torch
     from torch.autograd import DeviceType
@@ -879,7 +900,7 @@ def profile_serve(run, what, card, phase="profile"):
         k[0] += 1
         k[1] += e.time_range.elapsed_us()
     if not spans:
-        fail("the profiler saw no device activity in the serve")
+        fail(f"the profiler saw no device activity in {what}")
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         busy += max(0.0, b - max(a, end))
@@ -1239,21 +1260,26 @@ def within_rtol(out, ref, rtol):
 
 
 def gate_data(dev, rehearse):
-    """Phase 10: the gate's test split (numpy), and kernel E against its plain
-    version on its real showers (f32 and bf16) and on a neutron-sized batch,
-    each launch on the bulk ring."""
+    """Phase 10: the gate's split (numpy; its test side is the gate's), and
+    kernel E against its plain version on its real showers (f32 and bf16)
+    and on a neutron-sized batch, each launch on the bulk ring. Returns
+    ``(cond, real, max abs err, split)``."""
     import numpy as np
     import torch
 
     import fidelity_torch as ft
     from zdcsim_torch.config import load_config
+    from zdcsim_torch.data.dataset import get_train_test_data
+    from zdcsim_torch.data.loader import split_to_arrays
     from zdcsim_torch.ops import epilogue_kernels as ek
 
     t = time.perf_counter()
     overrides = [*ft.GATE_OVERRIDES]
     if rehearse:
         overrides.append(f"dataset.synthetic_n_samples={REHEARSE_SPLIT}")
-    cond, real = ft.gate_split(load_config(overrides))
+    split = get_train_test_data(load_config(overrides))  # phase 17 trains on its train side
+    test = split_to_arrays(split, False)
+    cond, real = test["cond"], test["real"][..., 0]  # ft.gate_split's arrays
     log("10 kernel E", f"gate split in {time.perf_counter() - t:.2f}s: test cond {cond.shape}, "
         f"real {real.shape}, first test showers' photon sums "
         f"{np.expm1(real[:3]).sum(axis=(1, 2)).round(1).tolist()}")
@@ -1278,7 +1304,7 @@ def gate_data(dev, rehearse):
             fail("kernel E disagrees with its plain version")
         if dev.type == "cuda" and not on_bulk:
             fail(f"kernel E on {list(x.shape)} {dt} did not run on the bulk ring")
-    return cond, real, max(errs)
+    return cond, real, max(errs), split
 
 
 def kernel_f_path(gp, router, dev, n, card):
@@ -2072,11 +2098,268 @@ def fmt_replays(reps):
             + f" .. {warm[-1]:.4f} | " + " ".join(f"{r:.4f}" for r in timed))
 
 
+# The float32 step on the card against the CPU's: Adam's moments are not held.
+# The step's gradient jumps where a max pool's window holds near ties (the
+# discriminator's first pool on the generator's ReLU zeros): the CPU's own step
+# moves them by more than 1e-4 when its noise moves by 1e-6 (PERF.md, PR 14),
+# and the card's float32 convs differ from the CPU's by about that much. In
+# float64 the two are held on every check.
+AGREE_F32 = ("metrics", "params", "sn_stats", "ema", "count")
+
+
+def step_flops(run):
+    """The floating-point operations of ``run()`` (matmuls and convs, forward
+    and backward) as ``torch.utils.flop_counter`` counts them."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        run()
+    return counter.get_total_flops()
+
+
+def step_on(step, state, data, draws, device, dtype):
+    """``step`` from ``state`` on ``data`` and ``draws`` with every tensor on
+    ``device`` in ``dtype`` (the keep masks stay bool); synchronised."""
+    import torch
+
+    move = lambda x: x.to(device, dtype)  # noqa: E731
+    out = step(state.to(device, dtype), {k: move(v) for k, v in data.items()},
+               {**{k: move(draws[k]) for k in ("gumbel", "noise_1", "noise_2")},
+                "aux_keep": tuple(k.to(device) for k in draws["aux_keep"])}, 0)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def step_agreement(ref, ours, lrs):
+    """How far one train step (``ours``: ``(state, metrics)``) is from a
+    reference step on the same state and draws, at the CPU tests'
+    tolerances (``tests/test_torch_train_step.py``): ``{check: {"ratio":
+    worst error over tolerance, "at": where}}``, each ratio at most 1 to
+    pass. Metrics rtol 1e-4 (the photon sums' std against the sums' mean);
+    parameters ``2 lr``; Adam moments 1e-4 of relative norm error per
+    leaf (a leaf under 1% of its component's norm against that 1%);
+    spectral-norm stats 1e-4 per expert by norm; the EMA ``0.01 * 2 lr_g``;
+    the parameters and the EMA each with ``2^-22`` of their size beside
+    (float32's rounding of the update); ``count`` and ``step`` equal."""
+    import torch
+
+    (rs, rm), (s, m) = ref, ours
+    cpu = lambda t: t.detach().to("cpu")  # noqa: E731
+    worst = {}
+
+    def note(what, err, tol, at):
+        """The worst ``err / tol`` (0 where ``err`` is 0; a NaN counts as
+        infinitely far)."""
+        err, tol = torch.as_tensor(err), torch.as_tensor(tol)
+        r = torch.where(err == 0, 0.0, err / tol).nan_to_num(nan=float("inf"))
+        ratio = float(r.max())
+        if what not in worst or ratio > worst[what]["ratio"]:
+            worst[what] = {"ratio": ratio, "at": at}
+
+    for k, v in rm.items():
+        scale = cpu(v).abs()
+        if k == "std_intensities_experts":
+            scale = torch.maximum(scale, cpu(rm["mean_intensities_experts"]).abs())
+        note("metrics", (cpu(m[k]) - cpu(v)).abs(), 1e-4 * scale, k)
+    for name in ("gen", "disc", "aux", "router"):
+        a, b = getattr(s, name), getattr(rs, name)
+        for k in b.params:
+            p = cpu(b.params[k])
+            note("params", (cpu(a.params[k]) - p).abs(), 2 * lrs[name] + 2.0 ** -22 * p.abs(),
+                 f"{name} {k}")
+        for moment in ("mu", "nu"):
+            ma, mb = getattr(a.opt_state, moment), getattr(b.opt_state, moment)
+            total = float(sum(cpu(v).double().norm() ** 2 for v in mb.values())) ** 0.5
+            for k in mb:
+                scale = max(float(cpu(mb[k]).norm()), 1e-2 * total)
+                note("moments", (cpu(ma[k]) - cpu(mb[k])).norm(), 1e-4 * scale,
+                     f"{name} {moment} {k}")
+        for k in b.stats:
+            e = b.stats[k].shape[0]
+            ref_k = cpu(b.stats[k]).reshape(e, -1)
+            note("sn_stats", (cpu(a.stats[k]).reshape(e, -1) - ref_k).norm(dim=1),
+                 1e-4 * ref_k.norm(dim=1), k)
+        note("count", int(a.opt_state.count != b.opt_state.count), 0.0, name)
+    for k in rs.ema_gen_params:
+        e = cpu(rs.ema_gen_params[k])
+        note("ema", (cpu(s.ema_gen_params[k]) - e).abs(), 0.02 * lrs["gen"] + 2.0 ** -22 * e.abs(),
+             k)
+    note("count", int(s.step != rs.step), 0.0, "step")
+    return worst
+
+
+def fmt_worst(worst):
+    """:func:`step_agreement`'s record as ``{check: (ratio, where)}``."""
+    return {k: (round(v["ratio"], 4), v["at"]) for k, v in worst.items()}
+
+
+def check_step(old, new, metrics, batch_size, ema_decay):
+    """The phase 17 checks of one step: every metric finite; each active
+    expert's (``B_e > 1``) generator, discriminator and aux kernels moved
+    and every leaf of an inactive one stayed; EMA equal to ``decay * ema +
+    (1 - decay) * params``; each active expert's spectral-norm ``u`` of unit
+    norm, and moved where it has more than one element (a layer of one
+    output, ``SNDense_2``, has ``u = +-1`` after its first power step).
+    Returns the active mask."""
+    import torch
+
+    bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        fail(f"non-finite metrics {bad}")
+    active = (metrics["n_choosen_experts_mean_epoch"] * batch_size).round() > 1
+    for name in ("gen", "disc", "aux"):
+        a, b = getattr(new, name).params, getattr(old, name).params
+        for k in a:
+            changed = (a[k] != b[k]).flatten(1).any(dim=1)
+            if bool((changed & ~active).any()):
+                fail(f"{name} {k} moved on an inactive expert")
+            if k.endswith(".weight") and a[k].ndim >= 3 and not bool(changed[active].all()):
+                fail(f"{name} {k} did not move on every active expert ({active.tolist()})")
+    for k, e in old.ema_gen_params.items():
+        want = ema_decay * e + (1.0 - ema_decay) * new.gen.params[k]
+        if not torch.allclose(new.ema_gen_params[k], want, rtol=1e-6, atol=1e-9):
+            fail(f"EMA of {k} is not {ema_decay} * ema + {1 - ema_decay:.2f} * params")
+    for k, u in new.disc.stats.items():
+        if k.endswith("/u"):
+            moved = (u != old.disc.stats[k]).flatten(1).any(dim=1)
+            norm = u.flatten(1).norm(dim=1)
+            if (u[0].numel() > 1 and not bool(moved[active].all())) or bool(moved[~active].any()):
+                fail(f"spectral-norm {k} moved otherwise than on the active experts")
+            if not bool(((norm[active] - 1).abs() < 1e-5).all()):
+                fail(f"spectral-norm {k} is not of unit norm: {norm.tolist()}")
+    return active
+
+
+def train(split, dev, rehearse, card, seed, profile=False):
+    """Phase 17: the proton family's dense train step (``zdcsim_torch.train``)
+    on the gate's train side through ``DeviceLoader``: ``TRAIN`` steps, half
+    at epoch 0 and half at epoch 1, with the checks of :func:`check_step`,
+    each step's losses, routing and CUDA-synchronised wall time, the median
+    of steps 2 onwards and the peak memory; then one step at
+    ``TRAIN_CHECK`` on the card and on the CPU from one state and one set of
+    draws, in float32 and float64, within the CPU tests' tolerances
+    (:func:`step_agreement`; float32 without the moments, ``AGREE_F32``).
+    With ``profile``, one more full-width step under ``torch.profiler``."""
+    import numpy as np
+    import torch
+
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.data.loader import make_loaders, split_to_arrays
+    from zdcsim_torch.models import build_moe
+    from zdcsim_torch.train.state import init_state, make_optimizers
+    from zdcsim_torch.train.step import build_train_step, draw_step_noise
+
+    phase = "17 train"
+    width, n_exp, batch, n_steps = REHEARSE_TRAIN if rehearse else TRAIN
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def setup(width, n_exp, batch, device, state_seed):
+        cfg = load_config([f"model.generator.width={width}", f"model.n_experts={n_exp}",
+                           f"train.batch_size={batch}", f"train.seed={seed}"])
+        mods = build_moe(cfg)
+        return cfg, mods, init_state(mods, cfg, state_seed, device), build_train_step(mods, cfg)
+
+    t = time.perf_counter()
+    cfg, mods, state, step = setup(width, n_exp, batch, dev, seed)
+    sync()
+    n_params = {n: sum(v[0].numel() if n != "router" else v.numel() for v in
+                       getattr(state, n).params.values()) for n in ("gen", "disc", "aux", "router")}
+    log(phase, f"proton MoE width {width}, E={n_exp}, batch {batch}: init_state on {dev.type} in "
+        f"{time.perf_counter() - t:.2f}s; parameters an expert {n_params} (router shared); "
+        f"matmul/conv precision {step.precision}")
+    loader, _ = make_loaders(cfg, split, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wrappers = kernel_wrappers()
+    reset_counts(wrappers)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times, routing, first = [], [], None
+    plan = [0] * ((n_steps + 1) // 2) + [1] * (n_steps // 2)
+    epochs = {ep: loader.epoch(ep) for ep in (0, 1)}
+    for i, epoch in enumerate(plan):
+        data = next(epochs[epoch])
+        draws = draw_step_noise(gen, mods, batch, dev)
+        sync()
+        t = time.perf_counter()
+        new, metrics = step(state, data, draws, epoch)
+        sync()
+        times.append(time.perf_counter() - t)
+        active = check_step(state, new, metrics, batch, float(cfg.train.ema_decay))
+        counts = (metrics["n_choosen_experts_mean_epoch"] * batch).round().int().tolist()
+        routing.append(counts)
+        losses = {k: round(float(v), 6) for k, v in metrics.items() if v.ndim == 0}
+        log(phase, f"step {i + 1} (epoch {epoch}): {times[-1]:.4f}s, routing {counts} (active "
+            f"{active.tolist()}), {losses}")
+        if rehearse and first is None:
+            first = (new, metrics)
+        state = new
+    counts = {k: v for k, v in read_counts(wrappers).items() if v}
+    if profile and dev.type == "cuda":
+        profile_serve(lambda: step(state, data, draws, plan[-1]),
+                      f"one dense step at width {width}, E={n_exp}, batch {batch}", card, phase)
+    med = float(np.median(times[1:])) if len(times) > 1 else times[0]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else None
+    rec = {"width": width, "n_experts": n_exp, "batch": batch, "steps": len(times),
+           "step_s": times, "median_step_s_from_2": med, "routing": routing,
+           "peak_mem_gib": peak, "kernel_launches": counts, "precision": step.precision,
+           "card": card}
+    log(phase, f"{len(times)} steps, median of steps 2 onwards {med:.4f}s, peak memory "
+        f"{'not measured on the CPU' if peak is None else f'{peak:.3f} GiB'}; kernel launches "
+        f"{counts or 'none of A-H'} [{card}]")
+    if dev.type == "cuda":  # one more step, counted (the counter's host cost is not timed)
+        flops = step_flops(lambda: step(state, data, draws, plan[-1]))
+        rec.update(tflop=flops / 1e12, bound_s=flops / F32_OPS_PER_S,
+                   tflop_per_s=flops / med / 1e12)
+        log(phase, f"{flops / 1e12:.2f} TFLOP a step (torch.utils.flop_counter): bound "
+            f"{rec['bound_s']:.4f}s at the f32 peak, {rec['tflop_per_s']:.2f} TFLOP/s at the "
+            f"median, {100 * rec['bound_s'] / med:.1f}% of the bound [{card}]")
+
+    # the card against the CPU: one step from one state and one set of draws,
+    # in float32 and in float64
+    t = time.perf_counter()
+    if rehearse:  # no card: the first step against itself runs the comparison
+        width, n_exp, batch = REHEARSE_TRAIN[:3]
+        pairs = [(torch.float32, first, first)]
+    else:
+        width, n_exp, batch = TRAIN_CHECK
+        cfg, mods, state0, step = setup(width, n_exp, batch, "cpu", seed + 1)
+        data = {k: torch.as_tensor(v[:batch]) for k, v in split_to_arrays(split, True).items()}
+        draws = draw_step_noise(torch.Generator().manual_seed(seed + 1), mods, batch, "cpu")
+        pairs = [(dt, step_on(step, state0, data, draws, "cpu", dt),
+                  step_on(step, state0, data, draws, dev, dt))
+                 for dt in (torch.float32, torch.float64)]
+    rec["against_cpu"] = {"width": width, "n_experts": n_exp, "batch": batch}
+    if not rehearse:  # what 1e-6 of noise does to the CPU's own float32 step
+        z = draws["noise_1"]
+        jitter = torch.randn(z.shape, generator=torch.Generator().manual_seed(seed + 2))
+        moved = step_on(step, state0, data, {**draws, "noise_1": z * (1 + 1e-6 * jitter)},
+                        "cpu", torch.float32)
+        sens = step_agreement(pairs[0][1], moved, make_optimizers(cfg))
+        rec["against_cpu"]["cpu_noise_1e-6"] = sens
+        log(phase, f"the CPU's float32 step against itself with noise_1 moved by 1e-6 of its "
+            f"size: {fmt_worst(sens)} [{card}]")
+    for dtype, ref, ours in pairs:
+        worst = step_agreement(ref, ours, make_optimizers(cfg))
+        gated = AGREE_F32 if dtype == torch.float32 and not rehearse else tuple(worst)
+        name = str(dtype)[6:]
+        rec["against_cpu"][name] = worst
+        how = " (no card: the first step against itself)" if rehearse else ""
+        log(phase, f"one step at width {width}, E={n_exp}, batch {batch} in {name} on "
+            f"{dev.type} against the CPU{how}: worst error / tolerance {fmt_worst(worst)}, held: "
+            f"{', '.join(gated)} ({time.perf_counter() - t:.2f}s) [{card}]")
+        bad = {k: worst[k] for k in gated if worst[k]["ratio"] > 1.0}
+        if bad:
+            fail(f"the {name} train step on {dev.type} disagrees with the CPU's: {bad}")
+    print(json.dumps({"train": rec}), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-13, 15 and 16 on the CPU at small sizes with the "
+                    help="run phases 3-13 and 15-17 on the CPU at small sizes with the "
                          "plain versions")
     ap.add_argument("--profile", action="store_true",
                     help="profile one serve of each kernel path with torch.profiler")
@@ -2147,13 +2430,14 @@ def main(argv=None) -> int:
     conv_in = timed("7b G, H", check_conv_stages, *gh_in[1:4], dev)
     if rehearse:
         _, router = timed("8 serve", serve, gp, rp, rng, dev, *REHEARSE_SERVE, card, args.seed)
-        cond, real, _ = timed("10 E", gate_data, dev, rehearse)
+        cond, real, _, split = timed("10 E", gate_data, dev, rehearse)
         timed("11 F", kernel_f_path, gp, router, dev, REHEARSE_F, card)
         timed("12 float serves", float_serves, gp, router, dev, *REHEARSE_FLOAT, card, args.seed)
         timed("13 gate", gates, (cond[:REHEARSE_GATE], real[:REHEARSE_GATE]), dev, rehearse,
               card)
         timed("15 engine API", engine_api, gp, router, dev, rehearse, card, args.seed)
         timed("16 neutron", neutron, dev, rehearse, card, args.seed)
+        timed("17 train", train, split, dev, rehearse, card, args.seed)
         log_phase_times()
         print(json.dumps({"rehearsal": True}), flush=True)
         return 0
@@ -2164,7 +2448,7 @@ def main(argv=None) -> int:
     timed("9 kernel times", sweep_clusters, rec, a_in[:3], c_in[:3], card)
     conv_ms = timed("9 kernel times", time_conv_stages, conv_in, card)
     rec += timed("9 kernel times", time_fused, *gh_in[:4], launches, gh_in[4:], conv_ms, card)
-    cond, real, e_err = timed("10 E", gate_data, dev, rehearse)
+    cond, real, e_err, split = timed("10 E", gate_data, dev, rehearse)
     f_launches, f_bulk, f_err = timed("11 F", kernel_f_path, gp, router, dev, F_SHOWERS, card)
     timed("12 float serves", float_serves, gp, router, dev, FLOAT_SHOWERS, SERVE_BATCH,
           SERVE_TILE, card, args.seed)
@@ -2174,6 +2458,7 @@ def main(argv=None) -> int:
     timed("15 engine API", engine_api, gp, router, dev, rehearse, card, args.seed, args.profile)
     e_case = timed("16 neutron", neutron, dev, rehearse, card, args.seed, args.profile)
     next(r for r in rec if r["name"] == "expm1_channel_sums")["cases"].append(e_case)
+    timed("17 train", train, split, dev, rehearse, card, args.seed, args.profile)
     log_phase_times()
     log("done", f"wall {time.perf_counter() - T0:.2f}s [{card}]")
     print(json.dumps({"kernels": rec}), flush=True)

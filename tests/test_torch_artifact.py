@@ -85,6 +85,24 @@ def test_config_defaults_equal_jax_config():
     assert ours.dataset.MIN_INTENSITY_THRESHOLD == 1
 
 
+def test_config_train_step_keys_equal_jax_config():
+    """The keys the train step reads (``zdcsim/train/step.py``,
+    ``zdcsim/train/state.py``) have JAX's defaults."""
+    ours, ref = load_config(), jax_load_config()
+    for key in ("lr_g", "di_strength", "in_strength", "sdi_pairwise_quirk"):
+        assert getattr(ours.model.generator, key) == ref.model.generator[key], key
+    assert ours.model.discriminator.lr_d == ref.model.discriminator.lr_d
+    for key in ("lr_a", "strength"):
+        assert getattr(ours.model.aux_reg, key) == ref.model.aux_reg[key], key
+    for key in ("lr_r", "ed_strength", "gan_strength", "diff_strength", "util_strength",
+                "alb_strength", "stop_router_training_epoch", "alpha", "min_weight",
+                "tau_start", "tau_min", "tau_decay", "differentiable_gan_term"):
+        assert getattr(ours.model.router, key) == ref.model.router[key], key
+    for key in ("ema_decay", "precision", "remat", "fast_generator", "dispatch",
+                "dispatch_tile", "epochs", "stratified_batches"):
+        assert getattr(ours.train, key) == ref.train[key], key
+
+
 @pytest.mark.parametrize("extra", [[], ["model.norm=none", "model.generator.width=0.25"],
                                    ["model.generator.version=v2"]])
 def test_config_neutron_preset_equals_jax(extra):
@@ -128,7 +146,9 @@ def test_config_router_widths_match_the_teacher_router():
     "dataset.input_image_shape=[44, 44]", "model.architecture=neutron",
     "dataset.synthetic=true", "dataset.synthetic_n_samples=25600", "train.seed=7",
     "train.batch_size=512", "dataset.MIN_INTENSITY_THRESHOLD=null", "dataset.test_size=0.25",
-    "model.norm=none",
+    "model.norm=none", "model.router.stop_router_training_epoch=null",
+    "model.router.differentiable_gan_term=false", "model.generator.lr_g=2e-4",
+    "train.dispatch=switch",
 ])
 def test_config_overrides_parse_as_jax(override):
     ours = load_config([override])

@@ -813,3 +813,73 @@ def test_neutron_bulk_graph_equals_the_eager_dyn_loop(neutron_trees, which, prec
 def test_neutron_refuses_the_kernel_precisions_on_the_card(neutron_trees, precision):
     with pytest.raises(ValueError, match="proton only"):
         _neutron_engine(neutron_trees, "student_w0.125", precision, 32, "cuda")
+
+
+def _train_setup(width=0.125, n_experts=3):
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.models import build_moe
+
+    cfg = load_config([f"model.generator.width={width}", f"model.n_experts={n_experts}"])
+    return cfg, build_moe(cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dense_train_step_on_cuda_matches_cpu(cuda, dtype):
+    """One dense step (width 0.125, E=3, batch 8) on the card and on the CPU
+    from one state and one set of draws, at the CPU tests' tolerances
+    (``chip_smoke.step_agreement``; TF32 is off inside the step). In float32
+    Adam's moments are not held (``chip_smoke.AGREE_F32``): the step's
+    gradient jumps at a max pool's near ties; in float64 every check is."""
+    import chip_smoke
+    from zdcsim_torch.train.state import init_state, make_optimizers
+    from zdcsim_torch.train.step import build_train_step, draw_step_noise
+
+    cfg, mods = _train_setup()
+    state = init_state(mods, cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    b = 8
+    batch = {"real": (rng.random((b, 56, 30, 1)) * 3).astype(np.float32),
+             "cond": rng.standard_normal((b, 9)).astype(np.float32),
+             "std": rng.random((b, 1)).astype(np.float32),
+             "intensity": (rng.random((b, 1)) * 500).astype(np.float32),
+             "positions": (rng.random((b, 2)) * 20).astype(np.float32)}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    draws = draw_step_noise(torch.Generator().manual_seed(1), mods, b, "cpu")
+    step = build_train_step(mods, cfg)
+    ref = chip_smoke.step_on(step, state, batch, draws, "cpu", dtype)
+    ours = chip_smoke.step_on(step, state, batch, draws, cuda, dtype)
+    assert ours[0].gen.params["Conv_0.weight"].device.type == cuda.type
+    assert ours[0].gen.params["Conv_0.weight"].dtype == dtype
+    worst = chip_smoke.step_agreement(ref, ours, make_optimizers(cfg))
+    held = chip_smoke.AGREE_F32 if dtype == torch.float32 else tuple(worst)
+    assert all(worst[k]["ratio"] <= 1.0 for k in held), worst
+
+
+@pytest.mark.parametrize("kind", ["dense", "conv"])
+def test_spectral_norm_on_cuda_matches_cpu(cuda, kind):
+    """``SNDense``/``SNConv`` train forwards on the card against the CPU:
+    output, ``u`` and ``sigma`` within rtol 1e-5 over 3 forwards (TF32 off)."""
+    from zdcsim_torch.models.layers import SNConv, SNDense
+    from zdcsim_torch.train.step import f32_matmuls
+
+    torch.manual_seed(0)
+
+    def make():
+        return (SNDense(300, 64, "SNDense_0") if kind == "dense"
+                else SNConv(16, 32, 3, "SNConv_0"))
+
+    layer, gpu_layer = make(), make()
+    gpu_layer.load_state_dict(layer.state_dict())
+    gpu_layer.to(cuda)
+    x = torch.randn((32, 300) if kind == "dense" else (32, 16, 27, 14))
+    ku, ks = layer.stats_keys()
+    cpu_stats = {ku: torch.randn(1, 64 if kind == "dense" else 32), ks: torch.ones(())}
+    gpu_stats = {k: v.to(cuda) for k, v in cpu_stats.items()}
+    with torch.no_grad(), f32_matmuls():
+        for _ in range(3):
+            y, cpu_stats = layer(x, cpu_stats, True)
+            yg, gpu_stats = gpu_layer(x.to(cuda), gpu_stats, True)
+            torch.testing.assert_close(yg.cpu(), y, rtol=1e-5, atol=1e-5)
+            for k in (ku, ks):
+                torch.testing.assert_close(gpu_stats[k].cpu(), cpu_stats[k], rtol=1e-5,
+                                           atol=1e-6)

@@ -14,7 +14,9 @@ API of phase 15 (``dyn_dispatch``, the dense path, static activation quant,
 grouped and stream dispatch, ``bench_torch.py``'s first rung), and the
 neutron family of phase 16 (the teacher's module and both students through
 the dyn tile loop, a folded ``norm="batch"`` tree, kernel E at 44x44, a
-student's gate).
+student's gate), and the proton family's dense train step of phase 17 (two
+steps at width 0.125, E=3, batch 4, with their checks, and the first step
+held against itself by the card-against-CPU comparison).
 """
 
 import os
@@ -94,5 +96,7 @@ runpy.run_path("chip_smoke.py", run_name="__main__")
                   "[16 neutron]", "teacher bf16 (the module", "student_w0.25 int8 vs the f32 serve",
                   "random norm=batch tree, full width int8 (fast_neutron_apply, folded at build",
                   "kernel E [8, 44, 44] float32", "gate of the neutron student_w0.125 int8",
-                  '"family": "neutron"', " 16 neutron "):
+                  '"family": "neutron"', " 16 neutron ",
+                  "[17 train]", "step 2 (epoch 1)", "kernel launches none of A-H",
+                  "against the CPU (no card: the first step against itself)", '{"train": ', " 17 train "):
         assert phase in proc.stdout, phase

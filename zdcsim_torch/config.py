@@ -1,7 +1,7 @@
 """The port's configuration: plain dataclasses, no YAML.
 
 The defaults are copied from the keys of ``zdcsim/config/default.yaml`` that
-the serving path and the fidelity gate's data split read
+the serving path, the fidelity gate's data split and the train step read
 (``tests/test_torch_artifact.py`` holds them equal to
 ``zdcsim.config.load_config()``). The router's hidden widths are not a key
 of that file: they are fixed in ``zdcsim/models/router.py`` and copied here.
@@ -23,11 +23,39 @@ from typing import Any, Iterable, List, Optional, Tuple
 class GeneratorConfig:
     version: str = "v1"  # v1: the reference architecture; neutron also has v2
     width: float = 1.0
+    lr_g: float = 1.0e-4
+    di_strength: float = 1.0e-1  # SDI-GAN diversity term
+    in_strength: float = 1.0e-3  # photon-sum intensity term
+    sdi_pairwise_quirk: bool = False  # the reference's [B, B] broadcast of the SDI term
+
+
+@dataclass
+class DiscriminatorConfig:
+    lr_d: float = 1.0e-5
+
+
+@dataclass
+class AuxRegConfig:
+    lr_a: float = 1.0e-4
+    strength: float = 1.0e-3  # aux coordinate loss weight on the generator
 
 
 @dataclass
 class RouterConfig:
     widths: Tuple[int, ...] = (128, 64, 32)
+    lr_r: float = 1.0e-4
+    ed_strength: float = 0.0
+    gan_strength: float = 1.0e-1
+    diff_strength: float = 1.0e-6
+    util_strength: float = 0.0
+    alb_strength: float = 1.0e-5
+    stop_router_training_epoch: Optional[int] = 40  # None: never frozen
+    alpha: int = 60  # epochs of the ALB weight's ramp
+    min_weight: float = 0.2
+    tau_start: float = 1.2
+    tau_min: float = 0.8
+    tau_decay: float = 0.985
+    differentiable_gan_term: bool = True  # False: the reference's constant GAN term
 
 
 @dataclass
@@ -38,6 +66,8 @@ class ModelConfig:
     cond_dim: int = 9
     norm: str = "batch"  # the neutron family's normalisation: batch, group or none
     generator: GeneratorConfig = field(default_factory=GeneratorConfig)
+    discriminator: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
+    aux_reg: AuxRegConfig = field(default_factory=AuxRegConfig)
     router: RouterConfig = field(default_factory=RouterConfig)
 
 
@@ -61,6 +91,14 @@ class TrainConfig:
     save_experiment_data: bool = False
     checkpoint_experiment_dir: Optional[str] = None
     epoch_to_load: Optional[int] = None
+    epochs: int = 250
+    ema_decay: float = 0.99
+    precision: str = "f32"  # f32 | bf16
+    remat: bool = False
+    fast_generator: bool = False
+    dispatch: str = "dense"  # dense | switch
+    dispatch_tile: int = 128
+    stratified_batches: bool = False
 
 
 @dataclass

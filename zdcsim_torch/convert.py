@@ -16,8 +16,10 @@ The mapping is by name and is lossless both ways.
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from zdcsim_torch.utils.artifact import _flatten, _unflatten
@@ -43,17 +45,35 @@ def expert(tree: Dict[str, Any], e: int) -> Dict[str, Any]:
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
-def to_state_dict(tree: Dict[str, Any], stats: Optional[Dict[str, Any]] = None
-                  ) -> Dict[str, torch.Tensor]:
+def _kernel_to_torch(t: torch.Tensor, lead: int) -> torch.Tensor:
+    """``[in, out]`` -> ``[out, in]``, HWIO -> OIHW, after ``lead`` stacked axes."""
+    keep = tuple(range(lead))
+    if t.ndim - lead == 2:
+        return t.transpose(-1, -2)
+    return t.permute(*keep, lead + 3, lead + 2, lead, lead + 1)
+
+
+def _kernel_to_flax(t: torch.Tensor, lead: int) -> torch.Tensor:
+    """Inverse of :func:`_kernel_to_torch`."""
+    keep = tuple(range(lead))
+    if t.ndim - lead == 2:
+        return t.transpose(-1, -2)
+    return t.permute(*keep, lead + 2, lead + 3, lead + 1, lead)
+
+
+def to_state_dict(tree: Dict[str, Any], stats: Optional[Dict[str, Any]] = None,
+                  stacked: bool = False) -> Dict[str, torch.Tensor]:
     """One module's Flax tree (numpy or tensors) -> ``state_dict``; ``stats``
     is its ``batch_stats`` collection (``{MaskedBatchNorm_i: {mean, var}}``),
-    if it has one."""
+    if it has one. ``stacked``: every leaf has a leading expert axis, which
+    stays in front."""
+    lead = int(stacked)
     sd = {}
     for key, v in _flatten(tree).items():
         path, _, leaf = key.rpartition(_SEP)
         t = torch.as_tensor(v)
         if leaf == "kernel":
-            t = t.T if t.ndim == 2 else t.permute(3, 2, 0, 1)  # [in,out] / HWIO
+            t = _kernel_to_torch(t, lead)
             leaf = "weight"
         elif leaf == "scale":
             leaf = "weight"
@@ -68,22 +88,23 @@ def to_state_dict(tree: Dict[str, Any], stats: Optional[Dict[str, Any]] = None
     return sd
 
 
-def from_state_dict(sd: Dict[str, torch.Tensor], stats_out: Optional[Dict[str, Any]] = None
-                    ) -> Dict[str, Any]:
+def from_state_dict(sd: Dict[str, torch.Tensor], stats_out: Optional[Dict[str, Any]] = None,
+                    stacked: bool = False) -> Dict[str, Any]:
     """Inverse of :func:`to_state_dict`, to numpy. The running statistics of
     a BatchNorm go into ``stats_out`` (the ``batch_stats`` collection); a
     state dict that holds them and no ``stats_out`` raises, so nothing is
     dropped."""
+    lead = int(stacked)
     flat, stats = {}, {}
     for key, t in sd.items():
         path, _, leaf = key.rpartition(".")
         t = t.detach().cpu()
         into = flat
         if leaf == "weight":
-            if t.ndim == 1:
+            if t.ndim - lead == 1:
                 leaf = "scale"
             else:
-                t = t.T if t.ndim == 2 else t.permute(2, 3, 1, 0)  # -> [in,out] / HWIO
+                t = _kernel_to_flax(t, lead)
                 leaf = "kernel"
         elif leaf in _STAT_LEAVES.values():
             leaf = {v: k for k, v in _STAT_LEAVES.items()}[leaf]
@@ -128,3 +149,82 @@ def stats_to_jax(stats: Dict[str, Any]) -> Dict[str, Any]:
     """Inverse of :func:`stats_from_jax`, to numpy."""
     flat = {k: v.detach().cpu().numpy() for k, v in _flatten(stats).items()}
     return {"batch_stats": _unflatten(flat)} if flat else {}
+
+
+# ---------------------------------------------------------------------------
+# The train state (zdcsim/train/state.py MoETrainState <-> zdcsim_torch's)
+# ---------------------------------------------------------------------------
+
+_COMPONENTS = ("gen", "disc", "aux", "router")
+
+
+def _field(obj: Any, name: str) -> Any:
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def _train_stats_from_jax(stats: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """``{"batch_stats": nested}`` (or ``{}``) -> the flat stats tree keyed by
+    ``|``-joined paths (Flax's own keys keep their ``/``)."""
+    if set(stats) - {"batch_stats"}:
+        raise ValueError(f"unexpected collections {sorted(stats)}")
+    return {k: torch.as_tensor(np.array(v, dtype=np.float32)).to(device)
+            for k, v in _flatten(stats.get("batch_stats", {})).items()}
+
+
+def train_state_from_jax(state: Any, device: str | torch.device | None = None):
+    """A JAX ``MoETrainState`` (``zdcsim/train/state.py``, arrays or numpy)
+    or the dict form :func:`train_state_to_jax` returns -> the port's
+    ``MoETrainState`` on ``device`` (CUDA unless the caller asks for the
+    CPU). Parameters, Adam ``mu``/``nu`` and the EMA go to the PyTorch
+    layout, experts stacked in front (the router is not stacked); the
+    discriminator's spectral-norm ``u``/``sigma`` keep Flax's paths; Adam's
+    ``count`` and ``step`` stay int32 scalars. Optax's state is read as
+    ``(ScaleByAdamState(count, mu, nu), ...)``."""
+    from zdcsim_torch.device import default_device
+    from zdcsim_torch.train.state import AdamState, Component, MoETrainState
+
+    dev = default_device(device)
+
+    def params(tree, stacked):
+        np_tree = _unflatten({k: np.array(v, dtype=np.float32)
+                              for k, v in _flatten(tree).items()})
+        return {k: v.to(dev) for k, v in to_state_dict(np_tree, stacked=stacked).items()}
+
+    def scalar(x):
+        return torch.as_tensor(np.array(x, dtype=np.int32)).to(dev)
+
+    def component(c, stacked):
+        opt = _field(c, "opt_state")
+        adam = opt if isinstance(opt, Mapping) else opt[0]
+        return Component(
+            params=params(_field(c, "params"), stacked),
+            stats=_train_stats_from_jax(dict(_field(c, "stats")), dev),
+            opt_state=AdamState(count=scalar(_field(adam, "count")),
+                                mu=params(_field(adam, "mu"), stacked),
+                                nu=params(_field(adam, "nu"), stacked)))
+
+    comps = {n: component(_field(state, n), n != "router") for n in _COMPONENTS}
+    return MoETrainState(**comps, ema_gen_params=params(_field(state, "ema_gen_params"), True),
+                         step=scalar(_field(state, "step")))
+
+
+def train_state_to_jax(state) -> Dict[str, Any]:
+    """Inverse of :func:`train_state_from_jax`, to numpy: ``{"gen": {"params",
+    "stats", "opt_state": {"count", "mu", "nu"}}, "disc": ..., "aux": ...,
+    "router": ..., "ema_gen_params", "step"}`` in the Flax layout, stats as
+    ``{"batch_stats": nested}`` or ``{}``. A JAX state is
+    ``MoETrainState(gen=Component(params, stats, (ScaleByAdamState(count, mu,
+    nu), EmptyState())), ...)`` of these leaves."""
+
+    def component(c, stacked):
+        flat = {k: v.detach().cpu().numpy() for k, v in c.stats.items()}
+        return {"params": from_state_dict(c.params, stacked=stacked),
+                "stats": {"batch_stats": _unflatten(flat)} if flat else {},
+                "opt_state": {"count": c.opt_state.count.cpu().numpy(),
+                              "mu": from_state_dict(c.opt_state.mu, stacked=stacked),
+                              "nu": from_state_dict(c.opt_state.nu, stacked=stacked)}}
+
+    out = {n: component(getattr(state, n), n != "router") for n in _COMPONENTS}
+    out["ema_gen_params"] = from_state_dict(state.ema_gen_params, stacked=True)
+    out["step"] = state.step.cpu().numpy()
+    return out

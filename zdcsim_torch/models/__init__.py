@@ -1,14 +1,31 @@
-"""The generator classes by name, and ``build_moe``'s rule for choosing one
-(``zdcsim/models/__init__.py:114-150``)."""
+"""The generator classes by name, ``build_moe``'s rule for choosing one
+(``zdcsim/models/__init__.py:114-150``), and the expert-stacked MoE of
+training (``MoEModules``, ``build_moe``).
+
+Expert stacking: where JAX ``nn.vmap``s each module over a leading expert
+axis, the port keeps one expert's module (on the meta device: it holds no
+weights) and every parameter and stat stacked on a leading ``[E, ...]`` axis
+in the train state; each expert runs through ``torch.func.functional_call``
+on its slice (``torch.unbind``, whose backward stacks the slices' gradients),
+and the outputs are stacked. The generator broadcasts noise and conditions to
+every expert; the discriminator and the aux regressor take each expert's own
+``[E, B, ...]`` slice, as JAX's ``in_axes=(0, None, None)`` and ``(0, None)``.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Type
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
+import torch
 import torch.nn as nn
+from torch.func import functional_call
 
 from zdcsim_torch.models.neutron import GeneratorNeutron, GeneratorNeutronV2
-from zdcsim_torch.models.proton import Generator
+from zdcsim_torch.models.proton import AuxReg, Discriminator, Generator
+from zdcsim_torch.models.router import RouterNetwork
+
+Tree = Dict[str, torch.Tensor]
 
 GENERATORS: Dict[str, Type[nn.Module]] = {
     "proton.generator": Generator,
@@ -33,3 +50,86 @@ def generator_spec(architecture: str, version: str = "v1", norm: str = "batch",
     if architecture == "neutron":
         kwargs["norm"] = norm
     return GENERATORS[key], kwargs
+
+
+def expert_slices(tree: Tree, n_experts: int) -> List[Tree]:
+    """A stacked flat tree -> one flat tree per expert (views)."""
+    if not tree:
+        return [{} for _ in range(n_experts)]
+    keys = list(tree)
+    return [dict(zip(keys, vals)) for vals in zip(*(tree[k].unbind(0) for k in keys))]
+
+
+def stack_trees(trees: Sequence[Tree]) -> Tree:
+    """Inverse of :func:`expert_slices`."""
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+@dataclass
+class MoEModules:
+    """One expert's generator, discriminator and aux regressor, the router,
+    and the geometry (counterpart of ``zdcsim/models/__init__.py:82``). The
+    modules hold no weights of their own: the train state does, stacked."""
+
+    generator: nn.Module
+    discriminator: nn.Module
+    aux_reg: nn.Module
+    router: nn.Module
+    n_experts: int
+    noise_dim: int
+    cond_dim: int
+    image_shape: Tuple[int, int]
+    names: Dict[str, str] = field(default_factory=dict)
+
+    def generate(self, params: Tree, noise: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """Every expert on the same ``noise``, ``cond``: ``[E, B, H, W, 1]``."""
+        return torch.stack([functional_call(self.generator, p, (noise, cond))
+                            for p in expert_slices(params, self.n_experts)])
+
+    def discriminate(self, params: Tree, stats: Tree, img: torch.Tensor, cond: torch.Tensor,
+                     train: bool = True) -> Tuple[torch.Tensor, torch.Tensor, Tree]:
+        """Expert ``e`` scores ``img[e]``: ``(scores [E, B, 1], latents [E, B,
+        F], new stats)``, the stats stacked as they came."""
+        outs = [functional_call(self.discriminator, p, (x, cond, s, train))
+                for p, s, x in zip(expert_slices(params, self.n_experts),
+                                   expert_slices(stats, self.n_experts), img.unbind(0))]
+        scores, latents, new = zip(*outs)
+        return torch.stack(scores), torch.stack(latents), stack_trees(new) if new[0] else {}
+
+    def regress(self, params: Tree, img: torch.Tensor,
+                keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """Expert ``e`` regresses ``img[e]`` with its keep masks ``keep[i][e]``
+        (``None``: the eval form): ``[E, B, 2]``."""
+        def keep_of(e):
+            return None if keep is None else tuple(k[e] for k in keep)
+
+        slices = zip(expert_slices(params, self.n_experts), img.unbind(0))
+        return torch.stack([functional_call(self.aux_reg, p, (x, keep_of(e)))
+                            for e, (p, x) in enumerate(slices)])
+
+    def route(self, params: Tree, cond: torch.Tensor) -> torch.Tensor:
+        """The router's logits ``[B, E]``."""
+        return functional_call(self.router, params, (cond,))[1]
+
+
+def build_moe(cfg) -> MoEModules:
+    """The proton family's MoE of training from a config (``build_moe``,
+    ``zdcsim/models/__init__.py:114``). The neutron family's discriminator
+    and aux regressor are not ported yet."""
+    m = cfg.model
+    if m.architecture != "proton":
+        raise NotImplementedError(
+            "training the neutron family (DiscriminatorNeutron, AuxRegNeutron, MaskedBatchNorm's "
+            "training form) is not ported yet: ROADMAP.md Queue 1 item 6b")
+    gen_cls, kwargs = generator_spec(m.architecture, m.generator.version, m.norm,
+                                     m.generator.width)
+    shape = tuple(cfg.dataset.input_image_shape)
+    with torch.device("meta"):
+        modules = (gen_cls(noise_dim=m.noise_dim, cond_dim=m.cond_dim, **kwargs),
+                   Discriminator(cond_dim=m.cond_dim, image_shape=shape), AuxReg(),
+                   RouterNetwork(n_experts=m.n_experts, cond_dim=m.cond_dim,
+                                 widths=m.router.widths))
+    return MoEModules(*modules, n_experts=int(m.n_experts), noise_dim=int(m.noise_dim),
+                      cond_dim=int(m.cond_dim), image_shape=shape,
+                      names={k: type(v).__name__ for k, v in
+                             zip(("generator", "discriminator", "aux_reg", "router"), modules)})

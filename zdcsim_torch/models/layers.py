@@ -9,7 +9,7 @@ PyTorch's 1e-5; ``MaskedBatchNorm`` keeps its own 1e-5.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 NORM_EPS = 1e-6
 BN_EPS = 1e-5  # MaskedBatchNorm.epsilon (zdcsim/models/layers.py:138)
+SN_EPS = 1e-12  # flax.linen.SpectralNorm's epsilon
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
@@ -115,3 +116,107 @@ class MaskedBatchNorm(nn.Module):
         y = F.batch_norm(f32(x), f32(self.running_mean), f32(self.running_var), f32(self.weight),
                          f32(self.bias), training=False, eps=BN_EPS)
         return y.to(x.dtype)
+
+
+def max_pool(x: torch.Tensor, window: Tuple[int, int],
+             strides: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Max pool of an NCHW tensor with VALID padding (``zdcsim/models/layers.py:73``);
+    ``strides`` defaults to ``window``."""
+    return F.max_pool2d(x, window, strides or window)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """Flax's ``padding="SAME"`` along one axis: ``(low, high)`` such that the
+    output has ``ceil(size / stride)`` positions."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def dropout(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """``flax.linen.Dropout`` with its keep mask given: ``keep`` (bool, the
+    shape of ``x``) keeps ``x / (1 - rate)``; ``None`` is the eval form."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum() + SN_EPS)
+
+
+def spectral_normalize(w_mat: torch.Tensor, u: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flax 0.12's ``SpectralNorm._spectral_normalize`` on a kernel flattened
+    to ``[K, out]``, one power step: ``v = l2n(u W^T)``, ``u' = l2n(v W)``
+    (``u``, ``v`` carry no gradient), ``sigma = v W u'^T`` (its gradient
+    reaches ``W``). Returns ``(W / sigma, u' [1, out], sigma)``; a zero
+    sigma divides by 1."""
+    with torch.no_grad():
+        w_d = w_mat.detach()
+        v = _l2_normalize(u @ w_d.T)
+        u = _l2_normalize(v @ w_d)
+    sigma = ((v @ w_mat) @ u.T)[0, 0]
+    return w_mat / torch.where(sigma != 0, sigma, torch.ones_like(sigma)), u, sigma
+
+
+class _SpectralNorm(nn.Module):
+    """Shared body of :class:`SNDense` and :class:`SNConv`. The power-iteration
+    state lives outside the module: ``forward`` takes the flat stats dict and
+    returns ``(y, new entries)``. The keys are Flax's ``batch_stats`` paths
+    joined by ``|`` (``SNConv_0|SpectralNorm_0|Conv_0/kernel/u`` and
+    ``.../sigma``); ``u`` is ``[1, out]``, ``sigma`` a scalar. The iteration
+    runs on every forward; its ``u`` and ``sigma`` are returned as the new
+    entries only when ``train``, else the old ones are."""
+
+    inner: str  # the wrapped layer's Flax name
+    stats_name: str  # this layer's Flax name in its parent
+
+    def stats_keys(self) -> Tuple[str, str]:
+        """The keys of ``u`` and ``sigma`` in the stats dict."""
+        base = f"{self.stats_name}|SpectralNorm_0|{self.inner}/kernel"
+        return f"{base}/u", f"{base}/sigma"
+
+    def _normalized(self, w_mat: torch.Tensor, stats: Dict[str, torch.Tensor], train: bool
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        ku, ks = self.stats_keys()
+        w_n, u, sigma = spectral_normalize(w_mat, stats[ku])
+        new = {ku: u, ks: sigma.detach()} if train else {ku: stats[ku], ks: stats[ks]}
+        return w_n, new
+
+
+class SNDense(_SpectralNorm):
+    """Spectrally normalised Dense (``zdcsim/models/layers.py:197``); ``name``
+    is its Flax name in the parent (``SNDense_0``)."""
+
+    inner = "Dense_0"
+
+    def __init__(self, in_features: int, features: int, name: str):
+        super().__init__()
+        self.stats_name = name
+        self.Dense_0 = nn.Linear(in_features, features)
+
+    def forward(self, x: torch.Tensor, stats: Dict[str, torch.Tensor], train: bool = True):
+        w_n, new = self._normalized(self.Dense_0.weight.T, stats, train)  # [in, out]
+        return x @ w_n + self.Dense_0.bias, new
+
+
+class SNConv(_SpectralNorm):
+    """Spectrally normalised Conv with VALID padding on NCHW input
+    (``zdcsim/models/layers.py:210``). The kernel is flattened in Flax's HWIO
+    row order, so ``v`` is Flax's vector."""
+
+    inner = "Conv_0"
+
+    def __init__(self, in_features: int, features: int, kernel_size: int, name: str,
+                 strides: int = 1):
+        super().__init__()
+        self.stats_name = name
+        self.Conv_0 = nn.Conv2d(in_features, features, kernel_size, stride=strides)
+
+    def forward(self, x: torch.Tensor, stats: Dict[str, torch.Tensor], train: bool = True):
+        w = self.Conv_0.weight  # OIHW
+        w_mat = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])  # HWIO flattened: [K, out]
+        w_n, new = self._normalized(w_mat, stats, train)
+        w_n = w_n.reshape(w.shape[2], w.shape[3], w.shape[1], w.shape[0]).permute(3, 2, 0, 1)
+        return F.conv2d(x, w_n, self.Conv_0.bias, stride=self.Conv_0.stride), new
