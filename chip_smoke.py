@@ -2,7 +2,7 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-17 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-18 on the CPU at small sizes
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
 Phases, each printing lines with the elapsed seconds:
@@ -136,7 +136,29 @@ Phases, each printing lines with the elapsed seconds:
     check must hold at the CPU tests' tolerances (``step_agreement``), in
     float32 all but Adam's moments (``AGREE_F32``), printed beside what 1e-6
     of noise does to the CPU's own step; a ``{"train": ...}`` line records
-    the phase.
+    the phase;
+18. the training loop (``zdcsim_torch.train.loop.train``): the full-width
+    proton MoE (``LOOP``: E=3, batch 512, f32) for 2 epochs on a synthetic
+    split of its own (2560 events, seed 7: 2048 train, 512 test), an eval
+    every epoch with ``eval.fused_epilogue`` (kernel E), the split and the
+    checkpoints saved (threshold 1e30, ``keep_best`` 1, async) under a
+    temporary directory removed at the end. Each eval of the loop is
+    followed by the same evaluation with the plain epilogue on the same
+    state and a replay of its draws (``checked_evaluator`` stands in for
+    the loop's ``build_evaluator``): it fails unless each eval launched E,
+    every launch on the bulk ring, and agrees with the plain one (ws_mean
+    within rel 1e-4, routing identical); unless ``keep_best`` left only the
+    checkpoint of the lower ``ws_mean``, which restores ``torch.equal`` to
+    the state it saved; unless a resume from it trains from its epoch with
+    finite losses; unless ``FastSim.from_checkpoint`` serves 4096 showers on
+    ``int8``, ``int8_pallas`` (launching A-D) and ``int8_fused`` (H) behind
+    a router drawn from ``--seed``, each agreeing with ``int8`` (routing
+    identical, per-shower log1p sums within rtol 0.15); and unless the CLI
+    twin's ``--eval --checkpoint-epoch`` (in-process) prints the
+    evaluator's keys. Printed: each epoch's seconds of steps, metrics sync,
+    eval and callbacks (the loop's ``time split`` log records), one
+    synchronous checkpoint write, the peak memory; a ``{"loop": ...}`` line
+    records the phase.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
@@ -177,7 +199,11 @@ shower; a calibration of 1 + 4 rows; one grouped bucket;
 split of 2560 events, E on 8 of its showers, the w=0.125 neutron
 student's gate on 128 conditions with one draw), and phase 17 at
 ``REHEARSE_TRAIN`` (2 steps at width 0.125, E=3, batch 4; with no card,
-the first step is held against itself by the comparison). Both modes print each
+the first step is held against itself by the comparison), and phase 18 at
+``REHEARSE_LOOP`` (width 0.125, E=3, batch 4 on 12 events: 2 steps an
+epoch, evals of 2 showers; serves of 6 showers on ``int8`` and
+``int8_pallas``, the fused precision taking full width only; no timed
+write). Both modes print each
 phase's seconds on one line before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
 """
@@ -186,6 +212,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -221,6 +248,13 @@ NEUTRON_SERVE = {"teacher": (16384, 4096, 64), "student": (65536, 32768, 128)}
 SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
 TRAIN = (1.0, 3, 512, 6)  # phase 17: width, experts, batch, steps (half at epoch 0, half at 1)
 TRAIN_CHECK = (0.125, 3, 16)  # phase 17's card-against-CPU step: width, experts, batch
+LOOP = (1.0, 3, 512, 2560)  # phase 18: width, experts, batch, synthetic events (2048 / 512)
+REHEARSE_LOOP = (0.125, 3, 4, 12)  # 2 steps an epoch, an eval of 2 showers
+LOOP_SERVE = (4096, 4096, 64)  # phase 18's serves from the checkpoint: showers, batch, tile
+REHEARSE_LOOP_SERVE = (6, 8, 2)
+# the evaluator's keys (zdcsim/train/evaluate.py:472-481): the CLI's --eval prints them
+EVAL_KEYS = {"ws_mean", "ws_std", "ws_mean_exp", "ws_std_exp", "ws_mean_rel", "ws_real_floor",
+             "eval_expert_counts", "epoch"}
 A_ROWS, B_ROWS, C_ROWS, D_ROWS, GH_ROWS, TIME_ROWS = 256, 64, 64, 64, 64, 64
 STUDENT_F, STUDENT_C = 11520, 32  # the w=0.125 student's Dense_1 and GroupNorm2d_0 widths
 SWEEP_ROWS = (1, 7, 64)  # phase 9's cluster-size sweep of A and C
@@ -2355,11 +2389,283 @@ def train(split, dev, rehearse, card, seed, profile=False):
     return rec
 
 
+class TimeSplits(logging.Handler):
+    """Collects the loop's ``epoch <n> time split`` records
+    (``zdcsim_torch/train/loop.py``): ``{epoch: {part: seconds}}``."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.splits = {}
+
+    def emit(self, record):
+        if "time split" in str(record.msg):
+            epoch, times = record.args
+            self.splits[epoch] = dict(times)
+
+
+def checked_evaluator(evals, states, dev):
+    """A stand-in for the loop's ``build_evaluator``: the loop's evaluator
+    (kernel E with ``eval.fused_epilogue``), timed and counted, then the
+    same evaluation with the plain epilogue on the same state and a replay
+    of the same draws; each record goes to ``evals``, and a host copy of
+    each evaluated state (the state its epoch's checkpoint saves) to
+    ``states``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from zdcsim_torch.ops import epilogue_kernels as ek
+    from zdcsim_torch.train.checkpoint import host_copy
+    from zdcsim_torch.train.evaluate import build_evaluator
+
+    e = ek.expm1_channel_sums
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def build(modules, cfg, chunk_size=None):
+        fused = build_evaluator(modules, cfg, chunk_size)
+        plain = build_evaluator(modules, dataclasses.replace(
+            cfg, eval=dataclasses.replace(cfg.eval, fused_epilogue=False)), chunk_size)
+
+        def evaluate(state, arrays, epoch, generator=None, **kw):
+            draws = generator.get_state()
+            launches, bulk = e.launches, e.bulk_launches
+            sync()
+            t = time.perf_counter()
+            m = fused(state, arrays, epoch, generator, **kw)
+            sync()
+            rec = {"epoch": epoch, "eval_s": time.perf_counter() - t,
+                   "E_launches": e.launches - launches, "E_on_bulk_ring": e.bulk_launches - bulk}
+            replay = torch.Generator(device=dev)
+            replay.set_state(draws)
+            mp = plain(state, arrays, epoch, replay, **kw)
+            rec.update(ws_mean=m["ws_mean"], ws_mean_plain=mp["ws_mean"],
+                       rel=abs(m["ws_mean"] - mp["ws_mean"]) / abs(mp["ws_mean"]),
+                       routing=m["eval_expert_counts"].tolist(),
+                       routing_identical=bool(np.array_equal(m["eval_expert_counts"],
+                                                             mp["eval_expert_counts"])
+                                              and m.get("router_accuracy")
+                                              == mp.get("router_accuracy")))
+            evals.append(rec)
+            states[epoch] = host_copy(state)
+            return m
+
+        return evaluate
+
+    return build
+
+
+def loop(dev, rehearse, card, seed):
+    """Phase 18: the training loop (``zdcsim_torch.train.loop.train``) at
+    ``LOOP`` on a synthetic split of its own (seed 7): 2 epochs, an eval each
+    epoch on kernel E, the split and the checkpoints saved (every eval under
+    the threshold, ``keep_best`` 1, async) under a temporary directory
+    removed at the end. Fails unless each eval launched E on the bulk ring
+    and agrees with the plain epilogue on the same state and draws (rel
+    1e-4, routing identical), keep_best left the checkpoint of the lower
+    ``ws_mean`` alone on disk, the restored checkpoint equals the evaluated
+    state bit for bit, a resume from it trains from its epoch with finite
+    losses, ``FastSim.from_checkpoint`` serves it on ``int8``,
+    ``int8_pallas`` (A-D) and ``int8_fused`` (H) behind a router drawn from
+    ``--seed`` in agreement with ``int8``, and the CLI's ``--eval
+    --checkpoint-epoch`` prints the evaluator's keys. Prints each epoch's
+    seconds of steps, metrics sync, eval and callbacks, a synchronous
+    checkpoint write's, and the peak memory."""
+    import contextlib
+    import io
+    import logging
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import zdcsim_torch.train.loop as loop_mod
+    from zdcsim_torch.cli import main as cli_main
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.convert import to_state_dict
+    from zdcsim_torch.inference.engine import FastSim
+    from zdcsim_torch.train.checkpoint import (
+        CKPT_PREFIX, host_copy, restore_checkpoint, save_checkpoint)
+
+    phase = "18 loop"
+    width, n_exp, batch, n_events = REHEARSE_LOOP if rehearse else LOOP
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tmp = tempfile.mkdtemp(prefix="zdcsim_loop_")
+    data = [f"model.generator.width={width}", f"model.n_experts={n_exp}",
+            f"train.batch_size={batch}", "dataset.synthetic=true",
+            f"dataset.synthetic_n_samples={n_events}", "train.seed=7", "eval.fused_epilogue=true",
+            f"train.save_experiments_dir={tmp}/"]
+    rec = {"width": width, "n_experts": n_exp, "batch": batch, "events": n_events, "card": card}
+    wrappers = kernel_wrappers()
+    try:
+        # -- the loop: 2 epochs, an eval and a checkpoint each ----------------
+        cfg = load_config([*data, "train.epochs=2", "train.eval_every=1", "config.run_name=smoke",
+                           "train.save_experiment_data=true", "train.ws_threshold_model_save=1e30",
+                           "train.checkpoint_keep_best=1", "train.async_checkpointing=true"])
+        evals, states = [], {}
+        splits = TimeSplits()
+        logger = logging.getLogger(loop_mod.__name__)
+        level = logger.level
+        logger.setLevel(logging.INFO)
+        logger.addHandler(splits)
+        build = loop_mod.build_evaluator
+        loop_mod.build_evaluator = checked_evaluator(evals, states, dev)
+        reset_counts(wrappers)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        try:
+            history, state = loop_mod.train(cfg, return_state=True, device=dev)
+            sync()
+        finally:
+            loop_mod.build_evaluator = build
+            logger.removeHandler(splits)
+            logger.setLevel(level)
+        rec["train_s"] = time.perf_counter() - t
+        counts = {k: v for k, v in read_counts(wrappers).items() if v}
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+        rec["kernel_launches"] = counts
+        rec["epochs"] = []
+        for h, ev in zip(history, evals):
+            ep = h["epoch"]
+            times = {**splits.splits.get(ep, {}), "eval_fused": ev["eval_s"]}
+            rec["epochs"].append({"epoch": ep, "times_s": times, **{k: h[k] for k in (
+                "gen_loss", "disc_loss", "router_loss", "ws_mean")}, "eval": ev})
+            log(phase, f"epoch {ep}: steps {times.get('steps', float('nan')):.4f}s, metrics sync "
+                f"{times.get('sync', float('nan')):.4f}s, eval {ev['eval_s']:.4f}s (E, the loop's "
+                f"eval with its plain comparison {times.get('eval', float('nan')):.4f}s), callbacks "
+                f"{times.get('callbacks', float('nan')):.4f}s (the checkpoint's host copy, async "
+                f"write); gen_loss {h['gen_loss']:.4f}, disc_loss {h['disc_loss']:.4f}, ws_mean "
+                f"{h['ws_mean']:.4f} [{card}]")
+            log(phase, f"epoch {ep} eval: E launched {ev['E_launches']} times, "
+                f"{ev['E_on_bulk_ring']} on the bulk ring; ws_mean {ev['ws_mean']!r} against "
+                f"{ev['ws_mean_plain']!r} with the plain epilogue (rel {ev['rel']:.3e}, limit "
+                f"1e-4); routing {ev['routing']}, identical {ev['routing_identical']}")
+            if cuda and (ev["E_launches"] < 1 or ev["E_on_bulk_ring"] != ev["E_launches"]):
+                fail(f"epoch {ep}'s eval did not launch E on the bulk ring: {ev}")
+            if not (ev["rel"] <= 1e-4 and ev["routing_identical"]):
+                fail(f"epoch {ep}'s eval on kernel E disagrees with the plain epilogue: {ev}")
+            if not all(np.isfinite(h[k]) for k in ("gen_loss", "disc_loss", "ws_mean")):
+                fail(f"epoch {ep}: non-finite losses {h}")
+        if [h["epoch"] for h in history] != [0, 1] or len(evals) != 2:
+            fail(f"the loop ran epochs {[h['epoch'] for h in history]}, evals {len(evals)}")
+        peak = "not measured on the CPU" if not cuda else f"{rec['peak_mem_gib']:.3f} GiB"
+        log(phase, f"train() of 2 epochs in {rec['train_s']:.2f}s; kernel launches {counts}; "
+            f"peak memory {peak} [{card}]")
+        if counts.get("expm1_channel_sums", 0) != sum(ev["E_launches"] for ev in evals):
+            fail(f"E launched outside the evals: {counts}")
+        # -- keep_best, restore ------------------------------------------------
+        exp_dir = cfg.config.experiment_dir
+        models = f"{exp_dir}/models"
+        kept = min(history, key=lambda h: h["ws_mean"])["epoch"]
+        on_disk = sorted(int(d[len(CKPT_PREFIX):]) for d in os.listdir(models)
+                         if d.startswith(CKPT_PREFIX))
+        rec.update(kept=kept, on_disk=on_disk)
+        log(phase, f"checkpoints on disk {on_disk}: keep_best=1 kept epoch {kept} (the lower "
+            f"ws_mean) and deleted epoch {1 - kept}; the epoch-0 checkpoint deleted: "
+            f"{0 not in on_disk}")
+        if on_disk != [kept]:
+            fail(f"keep_best=1 left {on_disk}, not [{kept}]")
+        restored = restore_checkpoint(models, kept, state)
+        flat, saved = host_copy(restored), states[kept]
+        same = set(flat) == set(saved) and all(
+            flat[k].dtype == saved[k].dtype and torch.equal(flat[k], saved[k]) for k in flat)
+        log(phase, f"restored checkpoint of epoch {kept}: {len(flat)} tensors, "
+            f"{sum(v.numel() * v.element_size() for v in flat.values()) / 2 ** 30:.3f} GiB, "
+            f"torch.equal to the evaluated state {same}; step {int(restored.step)}")
+        if not same:
+            fail("the restored checkpoint differs from the state it saved")
+        if cuda:  # the time of one write, as the loop makes it without async_checkpointing
+            sync()
+            t = time.perf_counter()
+            path = save_checkpoint(os.path.join(tmp, "timing"), kept, restored)
+            rec["checkpoint_write_s"] = time.perf_counter() - t
+            rec["checkpoint_bytes"] = os.path.getsize(os.path.join(path, "state.pt"))
+            log(phase, f"one synchronous checkpoint write (host copy + torch.save of "
+                f"{rec['checkpoint_bytes']} bytes): {rec['checkpoint_write_s']:.4f}s [{card}]")
+        del state, restored, flat, saved, states
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # -- resume from the kept epoch -----------------------------------------
+        cfg2 = load_config([*data, "train.epochs=2", f"train.checkpoint_experiment_dir={exp_dir}",
+                            f"train.epoch_to_load={kept}", "config.run_name=resumed"])
+        t = time.perf_counter()
+        history2 = loop_mod.train(cfg2, device=dev)
+        ran = [h["epoch"] for h in history2]
+        log(phase, f"resumed from epoch {kept}: trained epochs {ran} in "
+            f"{time.perf_counter() - t:.2f}s, gen_loss "
+            f"{[round(h['gen_loss'], 4) for h in history2]}, ws_mean "
+            f"{[round(h['ws_mean'], 4) for h in history2]}")
+        if ran != list(range(kept, 2)) or not all(
+                np.isfinite(h[k]) for h in history2 for k in ("gen_loss", "disc_loss")):
+            fail(f"the resume from epoch {kept} ran {ran}: {history2}")
+        rec["resumed_epochs"] = ran
+
+        # -- serve the checkpoint --------------------------------------------------
+        n, serve_batch, tile = REHEARSE_LOOP_SERVE if rehearse else LOOP_SERVE
+        rng = np.random.default_rng([seed, 18])
+        cond = rng.standard_normal((n, 9), dtype="float32")
+        noise = rng.standard_normal((n, 10), dtype="float32")
+        router = to_state_dict(seeded_router(rng, n_exp))
+        ref = None
+        rec["serves"] = {}
+        for precision in ("int8", "int8_pallas") + (() if rehearse else ("int8_fused",)):
+            names = KERNEL_PATHS.get(precision, ())
+            eng = FastSim.from_checkpoint(cfg, models, kept, precision=precision,
+                                          batch_size=serve_batch, device=dev)
+            eng.router.load_state_dict(router)
+            eng._build_switch(tile=tile)
+            reset_counts(wrappers)
+            t = time.perf_counter()
+            imgs, ids = eng.simulate_bulk(cond, noise=noise, return_experts=True)
+            sync()
+            dt = time.perf_counter() - t
+            c = {k: v for k, v in read_counts(wrappers).items() if v}
+            used = torch.bincount(ids, minlength=n_exp).tolist()
+            rec["serves"][precision] = {"launches": c, "routing": used, "s": dt}
+            log(phase, f"FastSim.from_checkpoint(epoch {kept}) {precision}: {n} showers in "
+                f"{dt:.3f}s, routing {used}, kernel launches {c or 'none'} [{card}]")
+            if tuple(imgs.shape) != (n, *eng.image_shape):
+                fail(f"{precision}: served shape {tuple(imgs.shape)}")
+            if cuda and min((c.get(k, 0) for k in names), default=1) <= 0:
+                fail(f"the {precision} serve of the checkpoint did not launch {names}: {c}")
+            if ref is None:
+                imgs_np = imgs.cpu().numpy()
+                if not np.isfinite(imgs_np).all() or imgs_np.min() < 0:
+                    fail("int8: served showers not finite and non-negative")
+                ref = (log1p_sums(imgs), ids.cpu().numpy())
+            else:
+                check_agrees(phase, f"{precision} from the checkpoint", imgs, ids, *ref,
+                             ref_name="its int8 serve")
+            del eng, imgs, ids
+
+        # -- the CLI twin -------------------------------------------------------------
+        out = io.StringIO()
+        argv = ["--eval", "--checkpoint-epoch", str(kept), "--override", *data,
+                f"train.checkpoint_experiment_dir={exp_dir}"] + (["--cpu"] if rehearse else [])
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+        printed = json.loads(out.getvalue().strip().splitlines()[-1])
+        log(phase, f"cli_torch.py {' '.join(argv[:3])} ...: exit {rc} in "
+            f"{time.perf_counter() - t:.2f}s, printed {sorted(printed)}; ws_mean "
+            f"{printed.get('ws_mean')!r}")
+        if rc != 0 or set(printed) != EVAL_KEYS:
+            fail(f"the CLI's --eval printed {sorted(printed)}, not the evaluator's keys")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"loop": rec}), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-13 and 15-17 on the CPU at small sizes with the "
+                    help="run phases 3-13 and 15-18 on the CPU at small sizes with the "
                          "plain versions")
     ap.add_argument("--profile", action="store_true",
                     help="profile one serve of each kernel path with torch.profiler")
@@ -2438,6 +2744,7 @@ def main(argv=None) -> int:
         timed("15 engine API", engine_api, gp, router, dev, rehearse, card, args.seed)
         timed("16 neutron", neutron, dev, rehearse, card, args.seed)
         timed("17 train", train, split, dev, rehearse, card, args.seed)
+        timed("18 loop", loop, dev, rehearse, card, args.seed)
         log_phase_times()
         print(json.dumps({"rehearsal": True}), flush=True)
         return 0
@@ -2459,6 +2766,7 @@ def main(argv=None) -> int:
     e_case = timed("16 neutron", neutron, dev, rehearse, card, args.seed, args.profile)
     next(r for r in rec if r["name"] == "expm1_channel_sums")["cases"].append(e_case)
     timed("17 train", train, split, dev, rehearse, card, args.seed, args.profile)
+    timed("18 loop", loop, dev, rehearse, card, args.seed)
     log_phase_times()
     log("done", f"wall {time.perf_counter() - T0:.2f}s [{card}]")
     print(json.dumps({"kernels": rec}), flush=True)

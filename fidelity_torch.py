@@ -23,8 +23,8 @@ The path: the artifact -> the test split of the synthetic dataset
 (``zdcsim_torch.ops.epilogue_kernels``) -> the floor -> ``N_DRAWS`` serves
 through ``FastSim.simulate_bulk`` (noise from ``torch.Generator`` seeded
 ``100 + d``, so the draws are not JAX's) -> generated channel sums and W1.
-A run directory of training checkpoints is not ported and raises
-``NotImplementedError``.
+Gating a run directory of training checkpoints is not ported (ROADMAP.md
+Queue 1 item 7) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -195,8 +195,8 @@ def run_gate(target: Optional[str] = None, precision: str = "int8", device=None,
     art_path, exp_dir = _resolve_target(target)
     if exp_dir is not None:
         raise NotImplementedError(
-            f"{exp_dir}: gating a run directory needs training checkpoints, which are not "
-            "ported yet (ROADMAP.md); gate a serving artifact (*.npz or 'artifact')")
+            f"{exp_dir}: gating a run directory of training checkpoints is not ported yet "
+            "(ROADMAP.md Queue 1 item 7); gate a serving artifact (*.npz or 'artifact')")
     if art_path is None:
         raise FileNotFoundError(f"no gate run directory and no artifact at {ARTIFACT_PATH}")
     gp, gs, rp, meta = load_serving_artifact(art_path)

@@ -103,10 +103,11 @@ def test_gate_real_channel_sums_and_floor(split):
 
 
 def test_split_refuses_what_is_not_ported():
+    """The pickles are not ported; a resume whose run saved no split raises
+    rather than draw a new one (saving and resuming: tests/test_torch_loop.py)."""
     with pytest.raises(NotImplementedError, match="pickles"):
         get_train_test_data(load_config())
-    for extra in (["train.save_experiment_data=true"],
-                  ["train.checkpoint_experiment_dir=/x", "train.epoch_to_load=3"]):
-        cfg = load_config(["dataset.synthetic=true", "dataset.synthetic_n_samples=32", *extra])
-        with pytest.raises(NotImplementedError, match="training"):
-            get_train_test_data(cfg)
+    cfg = load_config(["dataset.synthetic=true", "dataset.synthetic_n_samples=32",
+                       "train.checkpoint_experiment_dir=/nonexistent/run", "train.epoch_to_load=3"])
+    with pytest.raises(FileNotFoundError, match="train_test_indices"):
+        get_train_test_data(cfg)

@@ -14,9 +14,11 @@ API of phase 15 (``dyn_dispatch``, the dense path, static activation quant,
 grouped and stream dispatch, ``bench_torch.py``'s first rung), and the
 neutron family of phase 16 (the teacher's module and both students through
 the dyn tile loop, a folded ``norm="batch"`` tree, kernel E at 44x44, a
-student's gate), and the proton family's dense train step of phase 17 (two
+student's gate), the proton family's dense train step of phase 17 (two
 steps at width 0.125, E=3, batch 4, with their checks, and the first step
-held against itself by the card-against-CPU comparison).
+held against itself by the card-against-CPU comparison), and the training
+loop of phase 18 (2 epochs with evals, keep_best, the restore, a resume,
+serves from the checkpoint and the CLI's ``--eval``).
 """
 
 import os
@@ -98,5 +100,8 @@ runpy.run_path("chip_smoke.py", run_name="__main__")
                   "kernel E [8, 44, 44] float32", "gate of the neutron student_w0.125 int8",
                   '"family": "neutron"', " 16 neutron ",
                   "[17 train]", "step 2 (epoch 1)", "kernel launches none of A-H",
-                  "against the CPU (no card: the first step against itself)", '{"train": ', " 17 train "):
+                  "against the CPU (no card: the first step against itself)", '{"train": ', " 17 train ",
+                  "[18 loop]", "epoch 1 eval:", "torch.equal to the evaluated state True",
+                  "resumed from epoch", "int8_pallas from the checkpoint vs its int8 serve",
+                  "--eval --checkpoint-epoch", '{"loop": ', " 18 loop "):
         assert phase in proc.stdout, phase

@@ -1,9 +1,10 @@
 """The port's configuration: plain dataclasses, no YAML.
 
 The defaults are copied from the keys of ``zdcsim/config/default.yaml`` that
-the serving path, the fidelity gate's data split and the train step read
-(``tests/test_torch_artifact.py`` holds them equal to
-``zdcsim.config.load_config()``). The router's hidden widths are not a key
+the serving path, the fidelity gate's data split, the train step, the
+training loop, its evaluator and callbacks, and the CLI read
+(``tests/test_torch_artifact.py`` and ``tests/test_torch_loop.py`` hold them
+equal to ``zdcsim.config.load_config()``). The router's hidden widths are not a key
 of that file: they are fixed in ``zdcsim/models/router.py`` and copied here.
 The neutron preset of ``zdcsim/config/neutron.yaml`` is
 :data:`NEUTRON_OVERRIDES`, which a caller puts before its own overrides.
@@ -85,13 +86,39 @@ class DatasetConfig:
 
 
 @dataclass
+class RunConfig:
+    """The ``config`` section: the run's name, and the experiment directory
+    and date that ``zdcsim_torch.utils.io.append_experiment_dir_to_cfg``
+    stamps on it (``None`` until then)."""
+
+    run_name: str = "zdcsim_train_run"
+    experiment_dir: Optional[str] = None
+    date: Optional[str] = None
+
+
+@dataclass
+class WandbConfig:
+    log_experiments: bool = False  # a wandb run (a no-op where wandb is not installed)
+    plot_images: bool = False  # the eval figures (not ported: ROADMAP.md Queue 1 item 7)
+    run_name: Optional[str] = None  # stamped with the experiment directory
+
+
+@dataclass
 class TrainConfig:
     batch_size: int = 512
     seed: int = 42
-    save_experiment_data: bool = False
-    checkpoint_experiment_dir: Optional[str] = None
-    epoch_to_load: Optional[int] = None
+    save_experiment_data: bool = False  # the scales and split indices, and checkpoints
+    checkpoint_experiment_dir: Optional[str] = None  # resume from this experiment ...
+    epoch_to_load: Optional[int] = None  # ... at this epoch (both or neither)
     epochs: int = 250
+    eval_every: int = 1  # evaluate every N epochs (and the last); 0: never
+    ws_threshold_model_save: float = 3  # checkpoint where ws_mean is below it
+    checkpoint_keep_best: Optional[int] = None  # keep the k lowest-ws checkpoints; None: all
+    async_checkpointing: bool = False  # write checkpoints in a background thread
+    save_experiments_dir: Optional[str] = "experiments/"
+    save_eval_plots: bool = False  # the eval figures (not ported: ROADMAP.md Queue 1 item 7)
+    profile_epoch: Optional[int] = None  # epoch to trace with torch.profiler
+    profile_dir: Optional[str] = None  # None: <experiment_dir>/traces
     ema_decay: float = 0.99
     precision: str = "f32"  # f32 | bf16
     remat: bool = False
@@ -102,10 +129,28 @@ class TrainConfig:
 
 
 @dataclass
+class EvalConfig:
+    chunk_size: int = 1024  # test showers generated per chunk
+    bulk: bool = True  # JAX: one XLA program against per-chunk dispatch; one eager path here
+    sample_routing: bool = False  # Gumbel-perturbed routing, as the reference
+    fused_epilogue: bool = False  # kernel E for expm1 + channel sums
+
+
+@dataclass
+class ParallelConfig:
+    n_devices: Optional[int] = None  # None: one card here (multi-GPU: ROADMAP.md Queue 1 item 8)
+    expert_parallel: int = 1
+
+
+@dataclass
 class Config:
+    config: RunConfig = field(default_factory=RunConfig)
+    wandb: WandbConfig = field(default_factory=WandbConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
 
 # zdcsim/config/neutron.yaml as overrides (its data paths are not read here)
@@ -169,6 +214,9 @@ def load_config(overrides: Optional[List[str]] = None) -> Config:
         raise ValueError("dataset.input_image_shape must be [H, W]")
     if cfg.model.norm not in ("batch", "group", "none"):
         raise ValueError(f"model.norm must be batch|group|none, got {cfg.model.norm}")
+    if (cfg.train.checkpoint_experiment_dir is None) != (cfg.train.epoch_to_load is None):
+        raise ValueError("train.checkpoint_experiment_dir and train.epoch_to_load must be set "
+                         "together (resume) or both left null")
     m = cfg.model
     # raises on an (architecture, version) pair that has no generator
     generator_spec(m.architecture, m.generator.version, m.norm, m.generator.width)

@@ -5,9 +5,12 @@ numpy end to end. :func:`get_train_test_data` makes the same draws from
 ``np.random.default_rng(train.seed)`` in the same order as the JAX package
 (the stratified subsample, one permutation per condition group for the
 pairing, then the split's permutation), so the split is bit-equal to JAX's.
-Reading the reference's pickles, saving the experiment data and resuming
-from a saved split are not ported: they come with training (ROADMAP.md,
-"the rest of the port": training) and raise ``NotImplementedError``.
+``train.save_experiment_data`` writes the scales and the split indices into
+the run's directory (``zdcsim_torch.utils.io``, the JAX package's formats),
+and a resume (``train.checkpoint_experiment_dir`` with
+``train.epoch_to_load``) reads the saved indices back. Reading the
+reference's pickles is not ported: the GPU machine has no pandas (ROADMAP.md
+Queue 1 item 6d); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ import numpy as np
 
 from zdcsim_torch.data.prep import COND_COLUMNS, PreparedDataset, pair_same_condition
 from zdcsim_torch.data.scalers import MinMaxScaler, StandardScaler
-
-_TRAINING = "comes with training (ROADMAP.md)"
+from zdcsim_torch.utils.io import (
+    DIR_INFO, DIR_MODELS, create_dir, load_train_test_indices, save_scales,
+    save_train_test_indices,
+)
 
 
 @dataclass
@@ -52,6 +57,9 @@ class SplitArrays:
     scaler_cond: StandardScaler
     scaler_std: MinMaxScaler
     data_cond_names: Tuple[str, ...] = COND_COLUMNS
+    # the run's checkpoint directory; set only with train.save_experiment_data,
+    # so without it the checkpoint callback writes nothing (as in JAX)
+    dir_models: Optional[str] = None
 
     @property
     def image_shape(self) -> Tuple[int, int]:
@@ -95,8 +103,9 @@ def get_dataset(cfg, rng: Optional[np.random.Generator] = None) -> PreparedDatas
     rng = rng or np.random.default_rng(int(cfg.train.seed))
     d = cfg.dataset
     if not d.synthetic:
-        raise NotImplementedError(f"reading the reference's pickles {_TRAINING}; "
-                                  "set dataset.synthetic=true")
+        raise NotImplementedError("reading the reference's pickles needs pandas, which the GPU "
+                                  "machine lacks: ROADMAP.md Queue 1 item 6d; set "
+                                  "dataset.synthetic=true")
     from zdcsim_torch.data.synthetic import make_synthetic_dataset
 
     ds = make_synthetic_dataset(int(d.synthetic_n_samples), tuple(d.input_image_shape),
@@ -116,12 +125,15 @@ def get_dataset(cfg, rng: Optional[np.random.Generator] = None) -> PreparedDatas
 
 def transform_data_for_training(cfg, ds: PreparedDataset,
                                 rng: Optional[np.random.Generator] = None) -> SplitArrays:
-    """Pairing, scaling and the train/test split."""
+    """Pairing, scaling and the train/test split. On resume the split
+    indices saved in ``train.checkpoint_experiment_dir`` are read back, so
+    train/test membership is the saved run's; with
+    ``train.save_experiment_data`` the scales and the indices are written
+    into this run's ``info/`` directory, on resume too."""
     rng = rng or np.random.default_rng(int(cfg.train.seed))
-    if cfg.train.save_experiment_data:
-        raise NotImplementedError(f"train.save_experiment_data {_TRAINING}")
-    if cfg.train.checkpoint_experiment_dir is not None and cfg.train.epoch_to_load is not None:
-        raise NotImplementedError(f"resuming from a saved split {_TRAINING}")
+    experiment_dir = cfg.config.experiment_dir or cfg.config.run_name
+    dir_info = DIR_INFO.format(EXPERIMENT_DIR_NAME=experiment_dir)
+    dir_models = DIR_MODELS.format(EXPERIMENT_DIR_NAME=experiment_dir)
     zdc = cfg.dataset.zdc_type
     std_col = "std_proton" if zdc == "proton" else "std"
     group_col = "group_number_proton" if zdc == "proton" else "group_number"
@@ -140,9 +152,18 @@ def transform_data_for_training(cfg, ds: PreparedDataset,
     cond = scaler_cond.fit_transform(ds.cond_matrix())
     positions = ds.positions.astype(np.float32)  # deliberately unscaled
 
-    indices = rng.permutation(n) if cfg.dataset.shuffle_train_test_split else np.arange(n)
-    n_test = int(round(n * float(cfg.dataset.test_size)))
-    test_idx, train_idx = indices[:n_test], indices[n_test:]
+    if cfg.train.checkpoint_experiment_dir is not None and cfg.train.epoch_to_load is not None:
+        ckpt_info = DIR_INFO.format(EXPERIMENT_DIR_NAME=cfg.train.checkpoint_experiment_dir)
+        train_idx, test_idx = load_train_test_indices(ckpt_info)
+    else:
+        indices = rng.permutation(n) if cfg.dataset.shuffle_train_test_split else np.arange(n)
+        n_test = int(round(n * float(cfg.dataset.test_size)))
+        test_idx, train_idx = indices[:n_test], indices[n_test:]
+    if cfg.train.save_experiment_data:
+        create_dir(dir_info)
+        save_scales(zdc, scaler_cond.mean_, scaler_cond.scale_, dir_info)
+        create_dir(dir_models)
+        save_train_test_indices(dir_info, train_indices=train_idx, test_indices=test_idx)
 
     def sel(a):
         return a[train_idx], a[test_idx]
@@ -162,6 +183,7 @@ def transform_data_for_training(cfg, ds: PreparedDataset,
         expert_number_train=exp_train, expert_number_test=exp_test,
         train_indices=np.asarray(train_idx), test_indices=np.asarray(test_idx),
         scaler_cond=scaler_cond, scaler_std=scaler_std,
+        dir_models=dir_models if cfg.train.save_experiment_data else None,
     )
 
 

@@ -64,6 +64,13 @@ The serving paths, as in JAX:
 
 PyTorch runs eagerly, so the JAX engine's other one-program forms are
 Python loops over chunks and tiles.
+
+:meth:`FastSim.from_state` serves a train state (``zdcsim_torch/train/
+state.py``, the EMA generator by default) and :meth:`FastSim.from_checkpoint`
+a checkpoint of one (``zdcsim_torch/train/checkpoint.py``): the state holds
+the PyTorch layout, which ``convert.from_state_dict`` takes back to the Flax
+layout the engine is built from, so a trained full-width state serves on
+every precision, the kernel paths included.
 """
 
 from __future__ import annotations
@@ -79,7 +86,7 @@ import torch
 
 from zdcsim_torch.config import Config, load_config
 from zdcsim_torch.convert import (
-    expert, from_jax_params, stats_from_jax, to_state_dict, tree_to_torch,
+    expert, from_jax_params, from_state_dict, stats_from_jax, to_state_dict, tree_to_torch,
 )
 from zdcsim_torch.device import default_device
 from zdcsim_torch.inference.switch_dispatch import tiled_switch_decode
@@ -689,6 +696,44 @@ class FastSim:
         for _ in range(n_batches):
             self.simulate_grouped(cond, generator=generator)
         return self._rate(n_batches * bs, time.perf_counter() - t0, bs)
+
+    # -- from a train state ------------------------------------------------------
+
+    @classmethod
+    def from_state(cls, modules, state, use_ema: bool = True, **kwargs) -> "FastSim":
+        """An engine serving ``state``'s generator (its EMA unless ``use_ema``
+        is off) behind its router. ``modules`` is the ``MoEModules`` the state
+        was trained with, of a generator class ``build_moe`` builds (the
+        tiny test stand-ins are not served); ``kwargs`` go to the
+        constructor, whose ``cfg`` defaults to ``load_config()`` with the
+        modules' geometry."""
+        from zdcsim_torch.models import GENERATORS
+
+        if modules.generator.__class__ not in GENERATORS.values():
+            raise ValueError(f"FastSim serves the generators of build_moe, not "
+                             f"{modules.names.get('generator', type(modules.generator).__name__)}")
+        if "cfg" not in kwargs:
+            h, w = modules.image_shape
+            kwargs["cfg"] = load_config([
+                f"model.n_experts={modules.n_experts}", f"model.noise_dim={modules.noise_dim}",
+                f"model.cond_dim={modules.cond_dim}", f"dataset.input_image_shape=[{h}, {w}]"])
+        gen = state.ema_gen_params if use_ema else state.gen.params
+        return cls(from_state_dict(gen, stacked=True), from_state_dict(state.router.params),
+                   **kwargs)
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, dir_models: str, epoch: int, **kwargs) -> "FastSim":
+        """An engine serving the checkpoint of ``epoch`` under ``dir_models``
+        (``<experiment_dir>/models/``) of a run of ``cfg``'s model, through
+        :meth:`from_state`; the state is restored on ``kwargs["device"]``."""
+        from zdcsim_torch.models import build_moe
+        from zdcsim_torch.train.checkpoint import restore_checkpoint
+        from zdcsim_torch.train.state import init_state
+
+        modules = build_moe(cfg)
+        state = restore_checkpoint(dir_models, epoch,
+                                   init_state(modules, cfg, 0, kwargs.get("device")))
+        return cls.from_state(modules, state, cfg=cfg, **kwargs)
 
     # -- helpers -----------------------------------------------------------------
 

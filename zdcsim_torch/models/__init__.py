@@ -133,3 +133,27 @@ def build_moe(cfg) -> MoEModules:
                       cond_dim=int(m.cond_dim), image_shape=shape,
                       names={k: type(v).__name__ for k, v in
                              zip(("generator", "discriminator", "aux_reg", "router"), modules)})
+
+
+def count_parameters(params: Tree) -> int:
+    """Total element count of a flat tree of tensors."""
+    return sum(int(v.numel()) for v in params.values())
+
+
+def model_info(modules: MoEModules, state) -> str:
+    """The components and their parameter counts (``model_info``,
+    ``zdcsim/models/__init__.py:207``): the stacked components as E x the
+    count of one expert."""
+    e = modules.n_experts
+    lines = [f"MoE system: {e} expert(s), noise_dim={modules.noise_dim}, "
+             f"cond_dim={modules.cond_dim}, image={modules.image_shape}"]
+    for name, comp in (("generator", state.gen), ("discriminator", state.disc),
+                       ("aux_reg", state.aux)):
+        total = count_parameters(comp.params)
+        lines.append(
+            f"  {name:14s} {modules.names.get(name, '?'):28s} "
+            f"{total:>12,d} params ({total // e:,d}/expert)"
+        )
+    r = count_parameters(state.router.params)
+    lines.append(f"  {'router':14s} {modules.names.get('router', '?'):28s} {r:>12,d} params")
+    return "\n".join(lines)
