@@ -2,7 +2,7 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-18 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-19 on the CPU at small sizes
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
 Phases, each printing lines with the elapsed seconds:
@@ -130,13 +130,16 @@ Phases, each printing lines with the elapsed seconds:
     ema + 0.01 params`` and each ``u`` has unit norm; each step's losses,
     routing and CUDA-synchronised time, the median of steps 2 onwards, the
     peak memory and the kernel launches (none: the step runs no
-    hand-written kernel) are printed; then one step at width 0.125, E=3,
+    hand-written kernel) are printed; the first step runs twice from its
+    state and must be ``torch.equal`` leaf by leaf (the step's
+    ``deterministic()`` context); then one step at width 0.125, E=3,
     batch 16 (``TRAIN_CHECK``) runs on the card and on the CPU from one
     state and one set of draws, in float32 and in float64: in float64 every
     check must hold at the CPU tests' tolerances (``step_agreement``), in
     float32 all but Adam's moments (``AGREE_F32``), printed beside what 1e-6
-    of noise does to the CPU's own step; a ``{"train": ...}`` line records
-    the phase;
+    of noise does to the CPU's own step; the card's float32 step runs twice
+    and must be ``torch.equal``; a ``{"train": ...}`` line records the
+    phase;
 18. the training loop (``zdcsim_torch.train.loop.train``): the full-width
     proton MoE (``LOOP``: E=3, batch 512, f32) for 2 epochs on a synthetic
     split of its own (2560 events, seed 7: 2048 train, 512 test), an eval
@@ -158,7 +161,23 @@ Phases, each printing lines with the elapsed seconds:
     evaluator's keys. Printed: each epoch's seconds of steps, metrics sync,
     eval and callbacks (the loop's ``time split`` log records), one
     synchronous checkpoint write, the peak memory; a ``{"loop": ...}`` line
-    records the phase.
+    records the phase;
+19. the train step's options (``SWITCH``: full width, E=3, batch 512, the
+    constant router GAN term) from the state after one dense float32 step
+    on the gate split's first train batch: the switch step (float32,
+    tile 128, ``dispatch_remat``), the dense float32 step, the dense and
+    the switch bf16 steps and the dense ``fast_generator`` step, each run
+    once warm and ``STEP_RUNS`` times timed (median, peak memory, FLOPs by
+    ``torch.utils.flop_counter``), failing unless its last two runs are
+    ``torch.equal`` leaf by leaf, the switch step agrees with the dense one
+    (``switch_against_dense``: metrics at JAX's rtol 2e-4 / atol 1e-5,
+    ``tests/test_train_step.py:237``, the shares equal, the parameters
+    outside JAX's rtol 2e-3 / atol 2e-5 counted and each within 2 lr),
+    each bf16 step's
+    ``disc_loss`` is within rtol 0.1 / atol 0.05 of its float32 step's,
+    and none of A-H is launched; then the switch step at
+    ``TRAIN_CHECK`` (tile 4) on the card against the CPU, as phase 17
+    holds the dense one; a ``{"options": ...}`` line records the phase.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
@@ -168,7 +187,8 @@ same of the eager dyn serve and the graph-replayed one on ``int8_pallas``
 and ``int8_fused`` (with the share of ``index_select``, the weight
 gather), and of one chunk of ``bench_torch.py``'s first rung, eager and
 replayed; in phase 16 of one chunk of the neutron w=0.125 student,
-eager and replayed; and in phase 17 of one more full-width train step.
+eager and replayed; in phase 17 of one more full-width train step; and in
+phase 19 of one more dense bf16 and switch bf16 step.
 
 The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
@@ -203,7 +223,9 @@ the first step is held against itself by the comparison), and phase 18 at
 ``REHEARSE_LOOP`` (width 0.125, E=3, batch 4 on 12 events: 2 steps an
 epoch, evals of 2 showers; serves of 6 showers on ``int8`` and
 ``int8_pallas``, the fused precision taking full width only; no timed
-write). Both modes print each
+write), and phase 19 at ``REHEARSE_SWITCH`` (width 0.125, E=3, batch 4,
+tile 2; one switch f32 step without remat from ``init_state``, held
+against itself by both comparisons). Both modes print each
 phase's seconds on one line before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
 """
@@ -250,6 +272,10 @@ TRAIN = (1.0, 3, 512, 6)  # phase 17: width, experts, batch, steps (half at epoc
 TRAIN_CHECK = (0.125, 3, 16)  # phase 17's card-against-CPU step: width, experts, batch
 LOOP = (1.0, 3, 512, 2560)  # phase 18: width, experts, batch, synthetic events (2048 / 512)
 REHEARSE_LOOP = (0.125, 3, 4, 12)  # 2 steps an epoch, an eval of 2 showers
+SWITCH = (1.0, 3, 512, 128)  # phase 19: width, experts, batch, tile
+REHEARSE_SWITCH = (0.125, 3, 4, 2)
+CHECK_TILE = 4  # phase 19's switch step at TRAIN_CHECK
+STEP_RUNS = 3  # phase 19's timed runs of each variant after a warm one (none in the rehearsal)
 LOOP_SERVE = (4096, 4096, 64)  # phase 18's serves from the checkpoint: showers, batch, tile
 REHEARSE_LOOP_SERVE = (6, 8, 2)
 # the evaluator's keys (zdcsim/train/evaluate.py:472-481): the CLI's --eval prints them
@@ -2165,6 +2191,40 @@ def step_on(step, state, data, draws, device, dtype):
     return out
 
 
+def output_leaves(out):
+    """Every tensor of a train step's ``(state, metrics)`` by path."""
+    state, metrics = out
+    leaves = {f"metrics {k}": v for k, v in metrics.items()}
+    leaves["step"] = state.step
+    leaves.update({f"ema {k}": v for k, v in state.ema_gen_params.items()})
+    for name in ("gen", "disc", "aux", "router"):
+        c = getattr(state, name)
+        leaves[f"{name} count"] = c.opt_state.count
+        for tree, t in (("params", c.params), ("stats", c.stats), ("mu", c.opt_state.mu),
+                        ("nu", c.opt_state.nu)):
+            leaves.update({f"{name} {tree} {k}": v for k, v in t.items()})
+    return leaves
+
+
+def unequal_leaves(a, b):
+    """The paths where two train steps' outputs are not ``torch.equal``."""
+    import torch
+
+    la, lb = output_leaves(a), output_leaves(b)
+    return [k for k in la if not torch.equal(la[k], lb[k])]
+
+
+def check_repeat(phase, what, a, b, card):
+    """F1: two runs of one step from one state on one set of draws must be
+    ``torch.equal`` leaf by leaf."""
+    bad = unequal_leaves(a, b)
+    log(phase, f"{what} run twice from one state: torch.equal leaf by leaf {not bad} "
+        f"({len(output_leaves(a)) - len(bad)} of {len(output_leaves(a))} leaves equal) [{card}]")
+    if bad:
+        fail(f"{what} is not reproducible: {len(bad)} leaves differ, first {bad[:5]}")
+    return not bad
+
+
 def step_agreement(ref, ours, lrs):
     """How far one train step (``ours``: ``(state, metrics)``) is from a
     reference step on the same state and draws, at the CPU tests'
@@ -2325,6 +2385,9 @@ def train(split, dev, rehearse, card, seed, profile=False):
         losses = {k: round(float(v), 6) for k, v in metrics.items() if v.ndim == 0}
         log(phase, f"step {i + 1} (epoch {epoch}): {times[-1]:.4f}s, routing {counts} (active "
             f"{active.tolist()}), {losses}")
+        if i == 0:
+            rec_equal = check_repeat(phase, f"the first step (width {width}, batch {batch})",
+                                     (new, metrics), step(state, data, draws, epoch), card)
         if rehearse and first is None:
             first = (new, metrics)
         state = new
@@ -2337,7 +2400,7 @@ def train(split, dev, rehearse, card, seed, profile=False):
     rec = {"width": width, "n_experts": n_exp, "batch": batch, "steps": len(times),
            "step_s": times, "median_step_s_from_2": med, "routing": routing,
            "peak_mem_gib": peak, "kernel_launches": counts, "precision": step.precision,
-           "card": card}
+           "first_step_repeats_equal": rec_equal, "card": card}
     log(phase, f"{len(times)} steps, median of steps 2 onwards {med:.4f}s, peak memory "
         f"{'not measured on the CPU' if peak is None else f'{peak:.3f} GiB'}; kernel launches "
         f"{counts or 'none of A-H'} [{card}]")
@@ -2364,6 +2427,10 @@ def train(split, dev, rehearse, card, seed, profile=False):
                   step_on(step, state0, data, draws, dev, dt))
                  for dt in (torch.float32, torch.float64)]
     rec["against_cpu"] = {"width": width, "n_experts": n_exp, "batch": batch}
+    if not rehearse:
+        rec["against_cpu"]["card_repeats_equal"] = check_repeat(
+            phase, f"the float32 step at width {width}, batch {batch} on {dev.type}",
+            pairs[0][2], step_on(step, state0, data, draws, dev, torch.float32), card)
     if not rehearse:  # what 1e-6 of noise does to the CPU's own float32 step
         z = draws["noise_1"]
         jitter = torch.randn(z.shape, generator=torch.Generator().manual_seed(seed + 2))
@@ -2386,6 +2453,196 @@ def train(split, dev, rehearse, card, seed, profile=False):
         if bad:
             fail(f"the {name} train step on {dev.type} disagrees with the CPU's: {bad}")
     print(json.dumps({"train": rec}), flush=True)
+    return rec
+
+
+SWITCH_METRICS = ("gen_loss", "disc_loss", "div_loss", "intensity_loss", "aux_reg_loss",
+                  "router_loss", "gan_loss")
+
+
+def switch_against_dense(dense, switch, lrs):
+    """The switch step against the dense step from one state on one set of
+    draws, as worst error over tolerance: metrics at JAX's rtol 2e-4 / atol
+    1e-5 (``tests/test_train_step.py:237-281``) and the shares equal;
+    parameters at JAX's rtol 2e-3 / atol 2e-5, where ``beyond_jax_tol``
+    counts the elements outside it, each of which must be within ``2 lr``
+    (``params``): Adam moves a parameter whose gradient is zero up to
+    rounding by about ``lr`` to one side or the other, whichever way the
+    two steps' sums round (JAX's test runs tiny modules, whose gradients
+    have no such elements). The spectral-norm stats differ by design (the
+    switch step's power iteration takes 2 steps, the dense step's 4), and
+    with them the discriminator's gradients a little."""
+    import torch
+
+    (sd, md), (ss, ms) = dense, switch
+    worst = {k: (0.0, None) for k in ("metrics", "params")}
+    beyond, total = 0, 0
+
+    def note(what, r, at):
+        if r > worst[what][0]:
+            worst[what] = (r, at)
+
+    for k in SWITCH_METRICS:
+        note("metrics", float(((ms[k] - md[k]).abs() / (1e-5 + 2e-4 * md[k].abs())).max()), k)
+    for name in ("gen", "disc", "aux", "router"):
+        a, b = getattr(ss, name), getattr(sd, name)
+        for k in b.params:
+            err = (a.params[k] - b.params[k]).abs()
+            beyond += int((err > 2e-5 + 2e-3 * b.params[k].abs()).sum())
+            total += err.numel()
+            note("params", float(err.max()) / (2 * lrs[name]), f"{name} {k}")
+    worst["beyond_jax_tol"] = (beyond, total)
+    worst["shares_equal"] = bool(torch.equal(md["n_choosen_experts_mean_epoch"],
+                                             ms["n_choosen_experts_mean_epoch"]))
+    return worst
+
+
+def options(split, dev, rehearse, card, seed, profile=False):
+    """Phase 19: the switch step, bf16 and ``fast_generator`` at ``SWITCH``
+    (see the module docstring), then the switch step at ``TRAIN_CHECK`` on
+    the card against the CPU. With ``profile``, one more step of each bf16
+    variant under ``torch.profiler``."""
+    import numpy as np
+    import torch
+
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.data.loader import split_to_arrays
+    from zdcsim_torch.models import build_moe
+    from zdcsim_torch.train.state import init_state, make_optimizers
+    from zdcsim_torch.train.step import build_train_step, draw_step_noise
+
+    phase = "19 options"
+    width, n_exp, batch, tile = REHEARSE_SWITCH if rehearse else SWITCH
+    runs = 0 if rehearse else STEP_RUNS
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def build(*over, width=width, n_exp=n_exp, batch=batch):
+        cfg = load_config([f"model.generator.width={width}", f"model.n_experts={n_exp}",
+                           f"train.batch_size={batch}", f"train.seed={seed}",
+                           "model.router.differentiable_gan_term=false", *over])
+        mods = build_moe(cfg)
+        return cfg, mods, build_train_step(mods, cfg)
+
+    # the rehearsal leaves out the remat (its first call imports torch._dynamo)
+    switch_over = ("train.dispatch=switch", f"train.dispatch_tile={tile}",
+                   f"train.dispatch_remat={not rehearse}")
+    cfg, mods, dense = build()
+    data = {k: torch.as_tensor(v[:batch]).to(dev)
+            for k, v in split_to_arrays(split, True).items()}
+    rows = draw_step_noise(torch.Generator(device=dev).manual_seed(seed + 4), mods, batch, dev,
+                           switch=True)
+    # the dense step's keep masks: each row's own in its routed expert's row
+    per_expert = {**rows, "aux_keep": tuple(k[None].expand(n_exp, *k.shape)
+                                            for k in rows["aux_keep"])}
+    state = init_state(mods, cfg, seed + 3, dev)
+    variants = {"switch f32": (build(*switch_over)[2], rows)}
+    if not rehearse:  # the rehearsal holds the switch step against itself
+        state, _ = dense(state, data, per_expert, 0)
+        sync()
+        variants.update({
+            "dense f32": (dense, per_expert),
+            "switch bf16": (build(*switch_over, "train.precision=bf16")[2], rows),
+            "dense bf16": (build("train.precision=bf16")[2], per_expert),
+            "dense fast_generator": (build("train.fast_generator=true")[2], per_expert),
+        })
+    wrappers = kernel_wrappers()
+    reset_counts(wrappers)
+    rec, outs = {"width": width, "n_experts": n_exp, "batch": batch, "tile": tile,
+                 "card": card}, {}
+    for name, (step, draws) in variants.items():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        times, last = [], []
+        for _ in range(1 + runs):
+            sync()
+            t = time.perf_counter()
+            out = step(state, data, draws, 0)
+            sync()
+            times.append(time.perf_counter() - t)
+            last = (last + [out])[-2:]
+        if runs:
+            check_repeat(phase, name, *last, card)
+        bad = [k for k, v in out[1].items() if not bool(torch.isfinite(v).all())]
+        if bad:
+            fail(f"{name}: non-finite metrics {bad}")
+        med = float(np.median(times[1:] or times))
+        r = {"step_s": times, "median_step_s": med, "repeats_equal": bool(runs) or None,
+             "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                              if dev.type == "cuda" else None),
+             "precision": step.precision["train.precision"], "switch": step.switch}
+        if dev.type == "cuda":  # one more step, counted
+            flops = step_flops(lambda: step(state, data, draws, 0))
+            r.update(tflop=flops / 1e12, tflop_per_s=flops / med / 1e12)
+            if profile and name.endswith("bf16"):
+                profile_serve(lambda: step(state, data, draws, 0),
+                              f"one {name} step at width {width}, E={n_exp}, batch {batch}",
+                              card, phase)
+        rec[name] = r
+        outs[name] = out
+        log(phase, f"{name}: median of {runs} {med:.4f}s (warm run {times[0]:.4f}s), peak "
+            + ("not measured on the CPU" if r["peak_mem_gib"] is None else
+               f"{r['peak_mem_gib']:.3f} GiB")
+            + (f", {r['tflop']:.2f} TFLOP ({r['tflop_per_s']:.2f} TFLOP/s)" if "tflop" in r else "")
+            + f"; gen_loss {float(out[1]['gen_loss']):.6f}, disc_loss "
+            f"{float(out[1]['disc_loss']):.6f} [{card}]")
+        del out, last
+    counts = {k: v for k, v in read_counts(wrappers).items() if v}
+    rec["kernel_launches"] = counts
+    log(phase, f"kernel launches {counts or 'none of A-H'}")
+    if counts:
+        fail(f"the train steps launched hand-written kernels: {counts}")
+
+    agree = switch_against_dense(outs.get("dense f32", outs["switch f32"]), outs["switch f32"],
+                                 make_optimizers(cfg))
+    rec["switch_against_dense"] = agree
+    n, total = agree["beyond_jax_tol"]
+    ref = "dense f32 (constant GAN term)" if "dense f32" in outs else "itself (no card)"
+    log(phase, f"switch f32 against {ref}: worst error / tolerance "
+        f"{ {k: agree[k] for k in ('metrics', 'params')} }; parameters beyond "
+        f"JAX's tolerance {n} of {total} ({n / total:.2e}), each within 2 lr; shares equal "
+        f"{agree['shares_equal']}")
+    if agree["metrics"][0] > 1 or agree["params"][0] > 1 or not agree["shares_equal"]:
+        fail(f"the switch step disagrees with the dense step: {agree}")
+    for lo, hi in (("dense bf16", "dense f32"), ("switch bf16", "switch f32")):
+        if lo not in outs:  # the rehearsal
+            continue
+        a, b = float(outs[lo][1]["disc_loss"]), float(outs[hi][1]["disc_loss"])
+        ok = abs(a - b) <= 0.05 + 0.1 * abs(b)
+        rec[f"{lo} disc_loss against f32"] = (a, b)
+        log(phase, f"{lo} disc_loss {a:.6f} against {hi}'s {b:.6f}: within rtol 0.1 / atol "
+            f"0.05 {ok}")
+        if not ok:
+            fail(f"{lo}'s disc_loss is not within rtol 0.1 / atol 0.05 of {hi}'s")
+    # the switch step on the card against the CPU, as phase 17 holds the dense one
+    t = time.perf_counter()
+    if rehearse:  # no card: the switch step against itself runs the comparison
+        pairs = [(torch.float32, outs["switch f32"], outs["switch f32"])]
+    else:
+        del outs
+        width, n_exp, batch = TRAIN_CHECK
+        cfg, mods, step = build("train.dispatch=switch", f"train.dispatch_tile={CHECK_TILE}",
+                                width=width, n_exp=n_exp, batch=batch)
+        state0 = init_state(mods, cfg, seed + 1, "cpu")
+        data = {k: torch.as_tensor(v[:batch]) for k, v in split_to_arrays(split, True).items()}
+        draws = draw_step_noise(torch.Generator().manual_seed(seed + 1), mods, batch, "cpu",
+                                switch=True)
+        pairs = [(dt, step_on(step, state0, data, draws, "cpu", dt),
+                  step_on(step, state0, data, draws, dev, dt))
+                 for dt in (torch.float32, torch.float64)]
+    rec["against_cpu"] = {"width": width, "n_experts": n_exp, "batch": batch}
+    for dtype, ref, ours in pairs:
+        worst = step_agreement(ref, ours, make_optimizers(cfg))
+        gated = AGREE_F32 if dtype == torch.float32 and not rehearse else tuple(worst)
+        name = str(dtype)[6:]
+        rec["against_cpu"][name] = worst
+        how = " (no card: the step against itself)" if rehearse else ""
+        log(phase, f"one switch step at width {width}, E={n_exp}, batch {batch} in {name} on "
+            f"{dev.type} against the CPU{how}: worst error / tolerance {fmt_worst(worst)}, "
+            f"held: {', '.join(gated)} ({time.perf_counter() - t:.2f}s) [{card}]")
+        bad = {k: worst[k] for k in gated if worst[k]["ratio"] > 1.0}
+        if bad:
+            fail(f"the {name} switch step on {dev.type} disagrees with the CPU's: {bad}")
+    print(json.dumps({"options": rec}), flush=True)
     return rec
 
 
@@ -2665,7 +2922,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-13 and 15-18 on the CPU at small sizes with the "
+                    help="run phases 3-13 and 15-19 on the CPU at small sizes with the "
                          "plain versions")
     ap.add_argument("--profile", action="store_true",
                     help="profile one serve of each kernel path with torch.profiler")
@@ -2745,6 +3002,7 @@ def main(argv=None) -> int:
         timed("16 neutron", neutron, dev, rehearse, card, args.seed)
         timed("17 train", train, split, dev, rehearse, card, args.seed)
         timed("18 loop", loop, dev, rehearse, card, args.seed)
+        timed("19 options", options, split, dev, rehearse, card, args.seed)
         log_phase_times()
         print(json.dumps({"rehearsal": True}), flush=True)
         return 0
@@ -2767,6 +3025,7 @@ def main(argv=None) -> int:
     next(r for r in rec if r["name"] == "expm1_channel_sums")["cases"].append(e_case)
     timed("17 train", train, split, dev, rehearse, card, args.seed, args.profile)
     timed("18 loop", loop, dev, rehearse, card, args.seed)
+    timed("19 options", options, split, dev, rehearse, card, args.seed, args.profile)
     log_phase_times()
     log("done", f"wall {time.perf_counter() - T0:.2f}s [{card}]")
     print(json.dumps({"kernels": rec}), flush=True)

@@ -1,8 +1,9 @@
 """The port's CLI twin (``cli_torch.py`` -> ``zdcsim_torch/cli.py``) on the
 CPU, at width 0.125 on a small synthetic split: a 1-epoch train that saves
 its split and a checkpoint, ``--eval --checkpoint-epoch 0`` from that run
-(printing the keys of JAX's evaluator), ``--simulate`` (writing the arrays
-JAX's writes), the refusals, and ``_inject_checkpoint_epoch``'s cases as
+(printing the keys of JAX's evaluator), a switch bf16 train resumed from
+its checkpoint, ``--simulate`` (writing the arrays JAX's writes), the
+refusals, and ``_inject_checkpoint_epoch``'s cases as
 ``tests/test_resume.py:58-94``.
 """
 
@@ -74,6 +75,24 @@ def test_cli_evaluates_a_checkpoint(trained):
     assert "Resumed" not in proc.stderr
     test_idx = np.load(f"{exp_dir}/info/train_test_indices.npz")["test_indices"]
     assert sum(metrics["eval_expert_counts"]) == len(test_idx)
+
+
+def test_cli_trains_switch_bf16_and_resumes(tmp_path):
+    """``train.dispatch=switch train.precision=bf16``: one epoch saving its
+    checkpoint, then a run resumed from it; the loop's per-(epoch, batch)
+    draws are the switch form's (one keep mask per row), or the step
+    refuses them."""
+    opts = [*DATA, "train.dispatch=switch", "train.dispatch_tile=4", "train.precision=bf16",
+            "config.run_name=sw", "train.save_experiment_data=true",
+            "train.ws_threshold_model_save=1e30", f"train.save_experiments_dir={tmp_path}/"]
+    first = cli(tmp_path, "--cpu", "--override", *opts, "train.epochs=1")
+    (exp_dir,) = glob.glob(f"{tmp_path}/sw_*")
+    assert "epoch 0 (" in first.stderr and os.path.isfile(
+        f"{exp_dir}/models/state_epoch_0/state.pt")
+    again = cli(tmp_path, "--cpu", "--checkpoint-epoch", "0", "--override", *opts,
+                "train.epochs=2", f"train.checkpoint_experiment_dir={exp_dir}")
+    assert "Resumed from" in again.stderr
+    assert "epoch 1 (" in again.stderr and "Final epoch metrics" in again.stderr
 
 
 def test_cli_simulates(tmp_path):

@@ -855,6 +855,35 @@ def test_dense_train_step_on_cuda_matches_cpu(cuda, dtype):
     assert all(worst[k]["ratio"] <= 1.0 for k in held), worst
 
 
+@pytest.mark.parametrize("options", [
+    [], ["train.dispatch=switch", "train.dispatch_tile=4"], ["train.precision=bf16"],
+], ids=["dense", "switch", "bf16"])
+def test_train_step_on_cuda_is_deterministic(cuda, options):
+    """Two steps on the card (width 0.125, E=3, batch 8) from one state on
+    one set of draws: every metric and every state leaf ``torch.equal``
+    (``chip_smoke.unequal_leaves``; the step's ``deterministic()``)."""
+    import chip_smoke
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.models import build_moe
+    from zdcsim_torch.train.state import init_state
+    from zdcsim_torch.train.step import build_train_step, draw_step_noise
+
+    cfg = load_config(["model.generator.width=0.125", "model.n_experts=3", *options])
+    mods = build_moe(cfg)
+    step = build_train_step(mods, cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b = 8
+    batch = {"real": torch.rand((b, 56, 30, 1), generator=g, device=cuda) * 3,
+             "cond": torch.randn((b, 9), generator=g, device=cuda),
+             "std": torch.rand((b, 1), generator=g, device=cuda),
+             "intensity": torch.rand((b, 1), generator=g, device=cuda) * 500,
+             "positions": torch.rand((b, 2), generator=g, device=cuda) * 20}
+    draws = draw_step_noise(g, mods, b, cuda, step.switch)
+    state = init_state(mods, cfg, seed=0, device=cuda)
+    assert chip_smoke.unequal_leaves(step(state, batch, draws, 0),
+                                     step(state, batch, draws, 0)) == []
+
+
 @pytest.mark.parametrize("kind", ["dense", "conv"])
 def test_spectral_norm_on_cuda_matches_cpu(cuda, kind):
     """``SNDense``/``SNConv`` train forwards on the card against the CPU:

@@ -16,9 +16,11 @@ neutron family of phase 16 (the teacher's module and both students through
 the dyn tile loop, a folded ``norm="batch"`` tree, kernel E at 44x44, a
 student's gate), the proton family's dense train step of phase 17 (two
 steps at width 0.125, E=3, batch 4, with their checks, and the first step
-held against itself by the card-against-CPU comparison), and the training
-loop of phase 18 (2 epochs with evals, keep_best, the restore, a resume,
-serves from the checkpoint and the CLI's ``--eval``).
+held against itself by the card-against-CPU comparison, the first step run
+twice and held equal), the training loop of phase 18 (2 epochs with evals,
+keep_best, the restore, a resume, serves from the checkpoint and the CLI's
+``--eval``), and the train step's options of phase 19 (one switch step,
+held against itself by its comparisons).
 """
 
 import os
@@ -103,5 +105,9 @@ runpy.run_path("chip_smoke.py", run_name="__main__")
                   "against the CPU (no card: the first step against itself)", '{"train": ', " 17 train ",
                   "[18 loop]", "epoch 1 eval:", "torch.equal to the evaluated state True",
                   "resumed from epoch", "int8_pallas from the checkpoint vs its int8 serve",
-                  "--eval --checkpoint-epoch", '{"loop": ', " 18 loop "):
+                  "--eval --checkpoint-epoch", '{"loop": ', " 18 loop ",
+                  "run twice from one state: torch.equal leaf by leaf True",
+                  "[19 options]", "switch f32 against itself (no card)",
+                  "one switch step at width 0.125", '{"options": ',
+                  " 19 options "):
         assert phase in proc.stdout, phase

@@ -125,6 +125,7 @@ class TrainConfig:
     fast_generator: bool = False
     dispatch: str = "dense"  # dense | switch
     dispatch_tile: int = 128
+    dispatch_remat: bool = True  # checkpoint each chunk's forward of the switch step
     stratified_batches: bool = False
 
 

@@ -88,32 +88,50 @@ def to_state_dict(tree: Dict[str, Any], stats: Optional[Dict[str, Any]] = None,
     return sd
 
 
+def _flax_leaf(key: str, t: torch.Tensor, lead: int) -> Tuple[str, torch.Tensor, bool]:
+    """One ``state_dict`` entry -> ``(flat Flax key, tensor in Flax layout,
+    is a BatchNorm statistic)``."""
+    path, _, leaf = key.rpartition(".")
+    stat = leaf in _STAT_LEAVES.values()
+    if leaf == "weight":
+        if t.ndim - lead == 1:
+            leaf = "scale"
+        else:
+            t = _kernel_to_flax(t, lead)
+            leaf = "kernel"
+    elif stat:
+        leaf = {v: k for k, v in _STAT_LEAVES.items()}[leaf]
+    return f"{path.replace('.', _SEP)}{_SEP}{leaf}", t, stat
+
+
 def from_state_dict(sd: Dict[str, torch.Tensor], stats_out: Optional[Dict[str, Any]] = None,
                     stacked: bool = False) -> Dict[str, Any]:
     """Inverse of :func:`to_state_dict`, to numpy. The running statistics of
     a BatchNorm go into ``stats_out`` (the ``batch_stats`` collection); a
     state dict that holds them and no ``stats_out`` raises, so nothing is
     dropped."""
-    lead = int(stacked)
     flat, stats = {}, {}
     for key, t in sd.items():
-        path, _, leaf = key.rpartition(".")
-        t = t.detach().cpu()
-        into = flat
-        if leaf == "weight":
-            if t.ndim - lead == 1:
-                leaf = "scale"
-            else:
-                t = _kernel_to_flax(t, lead)
-                leaf = "kernel"
-        elif leaf in _STAT_LEAVES.values():
-            leaf = {v: k for k, v in _STAT_LEAVES.items()}[leaf]
-            into = stats
-        into[f"{path.replace('.', _SEP)}{_SEP}{leaf}"] = t.contiguous().numpy()
+        name, t, stat = _flax_leaf(key, t.detach().cpu(), int(stacked))
+        (stats if stat else flat)[name] = t.contiguous().numpy()
     if stats:
         if stats_out is None:
             raise ValueError("the state dict holds BatchNorm running statistics: pass stats_out")
         stats_out.update(_unflatten(stats))
+    return _unflatten(flat)
+
+
+def flax_view(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """One module's parameters (a ``state_dict`` without statistics, one
+    expert) as the nested Flax-layout tree of :func:`from_state_dict`, on
+    the same device, as views: differentiable, so a training forward that
+    reads the Flax layout (``proton_fast``) reaches the parameters."""
+    flat = {}
+    for key, t in params.items():
+        name, t, stat = _flax_leaf(key, t, 0)
+        if stat:
+            raise ValueError(f"flax_view takes parameters only, got {key!r}")
+        flat[name] = t
     return _unflatten(flat)
 
 

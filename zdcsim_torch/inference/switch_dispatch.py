@@ -1,5 +1,6 @@
 """Tiled-switch MoE dispatch (counterpart of
-``zdcsim/inference/switch_dispatch.py:35``).
+``zdcsim/inference/switch_dispatch.py``): :func:`tiled_switch_decode` for
+serving (``:35``), :func:`tiled_switch_apply` for training (``:149``).
 
 Each sample is decoded by its routed expert only:
 
@@ -25,13 +26,55 @@ is Python, in one of two forms:
   row. Nothing is read to the host, so the launch sequence is fixed per
   ``(B, T)`` and a CUDA graph can hold it. ``torch.bincount`` reads its
   maximum to the host on CUDA, so this form counts by a comparison sum.
+
+:func:`tiled_switch_apply` is the training form: pytrees of ``[B, ...]``
+inputs and outputs, differentiable, per-expert closures only, pad lanes
+writing to the dummy row (each real row is written once), and one
+out-of-place scatter of every chunk's outputs.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+
+
+def _chunk_table(idx: torch.Tensor, e_count: int, tile: int, on_host_counts: bool):
+    """The aligned chunks of ``idx`` [B]: ``(rows [K, T], e_k [K], used [K],
+    real [K, T])``. ``rows`` are the source rows of each lane (a pad lane
+    repeats its segment's last real sample, clamped into ``[0, B)`` where
+    the expert has none); ``used`` marks the chunks inside the aligned
+    layout of an expert with samples; ``real`` the lanes of real samples.
+    ``on_host_counts``: count with ``torch.bincount`` (which reads its
+    maximum to the host on CUDA) instead of a comparison sum."""
+    b = idx.shape[0]
+    if b % tile != 0:
+        raise ValueError(f"batch {b} must be a multiple of tile {tile}")
+    dev = idx.device
+    k_chunks = b // tile + e_count  # upper bound on the aligned chunks
+
+    if on_host_counts:
+        counts = torch.bincount(idx, minlength=e_count)
+    else:
+        counts = (idx[:, None] == torch.arange(e_count, device=dev)[None, :]).sum(0)
+    padded = (counts + tile - 1) // tile * tile
+    zero = torch.zeros(1, dtype=counts.dtype, device=dev)
+    aligned_off = torch.cat([zero, torch.cumsum(padded, 0)])
+    seg_start = torch.cat([zero, torch.cumsum(counts, 0)])
+    perm = torch.argsort(idx, stable=True)
+
+    pos = torch.arange(k_chunks, device=dev) * tile
+    e_k = torch.clamp(
+        torch.searchsorted(aligned_off[1:], pos, right=True), 0, e_count - 1
+    )
+    lane = torch.arange(tile, device=dev)
+    local = (pos - aligned_off[e_k])[:, None] + lane[None, :]
+    n_e = counts[e_k][:, None]
+    src = seg_start[e_k][:, None] + torch.minimum(local, torch.clamp(n_e - 1, min=0))
+    rows = perm[torch.clamp(src, max=b - 1)]
+    used = (pos < aligned_off[-1]) & (counts[e_k] > 0)
+    return rows, e_k, used, local < n_e
 
 
 def tiled_switch_decode(
@@ -52,41 +95,15 @@ def tiled_switch_decode(
     device tensor; it must decode as ``decode_fns[e_k]`` does, which still
     give the expert count. Returns ``[B, *out_shape]``.
     """
-    e_count = len(decode_fns)
     b = idx.shape[0]
-    if b % tile != 0:
-        raise ValueError(f"batch {b} must be a multiple of tile {tile}")
-    dev = idx.device
-    k_chunks = b // tile + e_count  # upper bound on the aligned chunks
-
-    experts = torch.arange(e_count, device=dev)
-    if decode_dyn is None:
-        counts = torch.bincount(idx, minlength=e_count)
-    else:
-        counts = (idx[:, None] == experts[None, :]).sum(0)
-    padded = (counts + tile - 1) // tile * tile
-    zero = torch.zeros(1, dtype=counts.dtype, device=dev)
-    aligned_off = torch.cat([zero, torch.cumsum(padded, 0)])
-    seg_start = torch.cat([zero, torch.cumsum(counts, 0)])
-    perm = torch.argsort(idx, stable=True)
-
-    pos = torch.arange(k_chunks, device=dev) * tile
-    e_k = torch.clamp(
-        torch.searchsorted(aligned_off[1:], pos, right=True), 0, e_count - 1
-    )
-    lane = torch.arange(tile, device=dev)
-    local = (pos - aligned_off[e_k])[:, None] + lane[None, :]
-    last = torch.clamp(counts[e_k] - 1, min=0)[:, None]
-    src = seg_start[e_k][:, None] + torch.minimum(local, last)
-    rows = perm[torch.clamp(src, max=b - 1)]
-    used = (pos < aligned_off[-1]) & (counts[e_k] > 0)
+    rows, e_k, used, _ = _chunk_table(idx, len(decode_fns), tile, decode_dyn is None)
     rows = torch.where(used[:, None], rows, torch.full_like(rows, b))
 
     out = None
     if decode_dyn is not None:
         # every chunk; an unused one decodes row b - 1 into the dummy row b
         read = torch.clamp(rows, max=b - 1)
-        for k in range(k_chunks):
+        for k in range(rows.shape[0]):
             img = decode_dyn(e_k[k], noise[read[k]], cond[read[k]])
             if out is None:
                 out = img.new_zeros((b + 1, *out_shape))
@@ -101,3 +118,57 @@ def tiled_switch_decode(
             out = img.new_zeros((b + 1, *out_shape))
         out.index_copy_(0, r, img)
     return out[:b]
+
+
+Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+def tiled_switch_apply(
+    apply_fns: Sequence[Callable[[Dict[str, torch.Tensor]], Outputs]],
+    idx: torch.Tensor,
+    inputs: Dict[str, torch.Tensor],
+    tile: int = 64,
+    remat: bool = False,
+) -> Outputs:
+    """Each sample through its routed expert, differentiably (the training
+    form of :func:`tiled_switch_decode`).
+
+    apply_fns: per-expert closures from a chunk ``{name: [T, ...]}`` to a
+    ``[T, ...]`` tensor or a tuple of them; idx: ``[B]`` expert of each
+    sample (not differentiated); inputs: ``{name: [B, ...]}``, gathered per
+    chunk; tile must divide B. ``remat``: each chunk's forward runs under
+    ``torch.utils.checkpoint`` (non-reentrant) and is recomputed in the
+    backward pass (JAX's ``jax.checkpoint(run_chunk)``). Returns the
+    outputs as ``[B, ...]`` in the closures' structure.
+
+    A pad lane (a replica of its segment's last real sample) writes to the
+    dummy row ``B``, so each real row is written once and its cotangent
+    reaches its one chunk lane: a duplicate write would count a boundary
+    sample's cotangent twice (the divergence JAX documents at ``:165``).
+    All chunks' outputs go back in one out-of-place scatter per output.
+    JAX runs every one of the ``B/T + E`` chunks; here the chunk table is
+    read to the host once a call and the unused chunks, which reach only
+    the dummy row, are skipped.
+    """
+    b = idx.shape[0]
+    rows, e_k, used, real = _chunk_table(idx, len(apply_fns), tile, True)
+    rows_out = torch.where(used[:, None] & real, rows, torch.full_like(rows, b))
+    run = [k for k, u in enumerate(used.tolist()) if u]
+    experts = e_k.tolist()
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+    outs = []
+    for k in run:
+        chunk = {name: x.index_select(0, rows[k]) for name, x in inputs.items()}
+        fn = apply_fns[experts[k]]
+        outs.append(checkpoint(fn, chunk, use_reentrant=False, preserve_rng_state=False)
+                    if remat else fn(chunk))
+    flat_rows = rows_out[run].reshape(-1)
+
+    def scatter(parts):
+        src = torch.cat(parts)
+        return src.new_zeros((b + 1, *src.shape[1:])).index_copy(0, flat_rows, src)[:b]
+
+    if isinstance(outs[0], torch.Tensor):
+        return scatter(outs)
+    return tuple(scatter(list(parts)) for parts in zip(*outs))

@@ -83,7 +83,7 @@ class MoEModules:
 
     def generate(self, params: Tree, noise: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         """Every expert on the same ``noise``, ``cond``: ``[E, B, H, W, 1]``."""
-        return torch.stack([functional_call(self.generator, p, (noise, cond))
+        return torch.stack([self.generate_one(p, noise, cond)
                             for p in expert_slices(params, self.n_experts)])
 
     def discriminate(self, params: Tree, stats: Tree, img: torch.Tensor, cond: torch.Tensor,
@@ -104,8 +104,27 @@ class MoEModules:
             return None if keep is None else tuple(k[e] for k in keep)
 
         slices = zip(expert_slices(params, self.n_experts), img.unbind(0))
-        return torch.stack([functional_call(self.aux_reg, p, (x, keep_of(e)))
-                            for e, (p, x) in enumerate(slices)])
+        return torch.stack([self.regress_one(p, x, keep_of(e)) for e, (p, x) in enumerate(slices)])
+
+    # One expert on a chunk (``params``/``stats``: its slice, :func:`expert_slices`),
+    # the handles of the switch step (JAX's ``generator_single``,
+    # ``discriminator_single``, ``aux_reg_single``).
+
+    def generate_one(self, params: Tree, noise: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """``[T, H, W, 1]``."""
+        return functional_call(self.generator, params, (noise, cond))
+
+    def discriminate_one(self, params: Tree, stats: Tree, img: torch.Tensor, cond: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(scores [T, 1], latents [T, F])`` with ``train=False``: spectral
+        norm's ``u`` is read, not advanced."""
+        scores, latents, _ = functional_call(self.discriminator, params, (img, cond, stats, False))
+        return scores, latents
+
+    def regress_one(self, params: Tree, img: torch.Tensor,
+                    keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """``[T, 2]`` with the chunk rows' keep masks (``None``: the eval form)."""
+        return functional_call(self.aux_reg, params, (img, keep))
 
     def route(self, params: Tree, cond: torch.Tensor) -> torch.Tensor:
         """The router's logits ``[B, E]``."""

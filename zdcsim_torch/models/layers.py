@@ -45,13 +45,52 @@ def nearest_index_on(n_out: int, n_in: int, device: torch.device) -> torch.Tenso
     return torch.floor((i + 0.5) * n_in / n_out).to(torch.int64)
 
 
+class _NearestGather(torch.autograd.Function):
+    """``index_select`` along ``dim`` by a nearest-resize index; the backward
+    adds each source position's (at most ``ceil(n_out / n_in)``) outputs
+    by gathers in a fixed order, where ``index_select``'s backward adds
+    atomically on CUDA (or, under ``torch.use_deterministic_algorithms``,
+    sorts every element)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, index):
+        ctx.dim, ctx.n_in = dim, x.shape[dim]
+        ctx.save_for_backward(index)
+        return x.index_select(dim, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        n_out = g.shape[ctx.dim]
+        src = torch.arange(ctx.n_in, device=index.device)
+        first = torch.searchsorted(index, src)
+        count = torch.searchsorted(index, src, right=True) - first
+        shape = [1] * g.ndim
+        shape[ctx.dim] = ctx.n_in
+        out = None
+        for r in range(-(-n_out // ctx.n_in)):
+            term = (g.index_select(ctx.dim, torch.clamp(first + r, max=n_out - 1))
+                    * (count > r).to(g.dtype).reshape(shape))
+            out = term if out is None else out + term
+        return out, None, None
+
+
+def gather_nearest(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(dim, index)`` for a nearest-resize ``index``
+    (:func:`nearest_index`: nondecreasing); under autograd, with a backward
+    that is deterministic on CUDA and needs no index accumulation."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _NearestGather.apply(x, dim, index)
+    return x.index_select(dim, index)
+
+
 def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Nearest-neighbour resize of an NHWC tensor to ``size`` by gathering
     rows and columns (exact in every dtype, int8 included)."""
     _, h, w, _ = x.shape
     rows = nearest_index_on(size[0], h, x.device)
     cols = nearest_index_on(size[1], w, x.device)
-    return x.index_select(1, rows).index_select(2, cols)
+    return gather_nearest(gather_nearest(x, 1, rows), 2, cols)
 
 
 def group_norm_groups(channels: int, groups: int = 32) -> int:

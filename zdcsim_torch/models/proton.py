@@ -16,8 +16,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from zdcsim_torch.models.layers import (
-    NORM_EPS, GroupNorm2d, MLPBlock, SNConv, SNDense, dropout, leaky_relu, max_pool,
-    nearest_index, same_pads,
+    NORM_EPS, GroupNorm2d, MLPBlock, SNConv, SNDense, dropout, gather_nearest, leaky_relu,
+    max_pool, nearest_index, same_pads,
 )
 
 PROTON_SHAPE = (56, 30)
@@ -57,7 +57,7 @@ class Generator(nn.Module):
         x = leaky_relu(self.GroupNorm2d_0(self.Conv_0(x)))  # 35x19
         rows = torch.from_numpy(nearest_index(PROTON_SHAPE[0], x.shape[2])).to(x.device)
         cols = torch.from_numpy(nearest_index(PROTON_SHAPE[1], x.shape[3])).to(x.device)
-        x = x.index_select(2, rows).index_select(3, cols)  # 56x30
+        x = gather_nearest(gather_nearest(x, 2, rows), 3, cols)  # 56x30
         x = leaky_relu(self.GroupNorm2d_1(self.Conv_1(x)))  # 55x29
         x = leaky_relu(self.GroupNorm2d_2(self.Conv_2(x)))  # 55x29
         x = torch.relu(self.Conv_3(x))  # 56x30

@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from zdcsim_torch.models.layers import (
-    group_norm_groups, leaky_relu, nearest_index, resize_nearest,
+    group_norm_groups, leaky_relu, nearest_index, resize_nearest, upsample_nearest,
 )
 from zdcsim_torch.ops import decode_kernels as dk
 from zdcsim_torch.ops import fused_decode_kernels as fdk
@@ -110,11 +110,40 @@ def _phase_convs(x, ks, conv):
     )
 
 
+def _conv_vjp(x: torch.Tensor, kernel: torch.Tensor, g: torch.Tensor):
+    """``(d x, d kernel)`` of the pad-1 :func:`_conv` of NHWC ``x`` and HWIO
+    ``kernel`` against the cotangent ``g``, without running its forward
+    (autograd of the naive form would)."""
+    xt, w, gt = x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2)
+    dx = torch.nn.grad.conv2d_input(xt.shape, w, gt, padding=1)
+    dw = torch.nn.grad.conv2d_weight(xt, w.shape, gt, padding=1)
+    return dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0)
+
+
+class _FusedUp2Conv4(torch.autograd.Function):
+    """The parity-phase forward; JAX's custom backward
+    (``zdcsim/models/proton_fast.py:98-112``): the VJP of the naive
+    upsample + conv (the upsample's as a sum over each 2x2 block), the
+    bias's gradient the sum of ``g``."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        ctx.save_for_backward(x, kernel)
+        return _phase_convs(x, dk._phase_kernels(kernel), _conv) + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        b, h, w, c = x.shape
+        dxu, dkernel = _conv_vjp(upsample_nearest(x), kernel, g)
+        return dxu.reshape(b, h, 2, w, 2, c).sum(dim=(2, 4)), dkernel, g.sum(dim=(0, 1, 2))
+
+
 def fused_upsample2_conv4(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``conv4x4(pad1, nearest_up2(x))`` without materialising the upsample:
     x ``[B, H, W, Cin]``, kernel HWIO ``[4, 4, Cin, Cout]`` ->
-    ``[B, 2H-1, 2W-1, Cout]``."""
-    return _phase_convs(x, dk._phase_kernels(kernel), _conv) + bias
+    ``[B, 2H-1, 2W-1, Cout]``. Its gradient is the naive form's."""
+    return _FusedUp2Conv4.apply(x, kernel, bias)
 
 
 # Per-output-channel symmetric int8 of a kernel: ``(q, s [cout])``.
@@ -237,13 +266,35 @@ def _row_phase_convs(x, kernel, n_resized_rows, conv):
     return out.reshape(b, max_n * q, *out.shape[3:])[:, : n_resized_rows - 1]
 
 
+class _FusedRowResizeConv4(torch.autograd.Function):
+    """The row-phase forward; JAX's custom backward
+    (``zdcsim/models/proton_fast.py:205-222``): the VJP of the naive resize +
+    conv, the bias's gradient the sum of ``g``."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, n_resized_rows, n_cols):
+        ctx.save_for_backward(x, kernel)
+        ctx.size = (n_resized_rows, n_cols)
+        xc = x.index_select(2, torch.from_numpy(nearest_index(n_cols, x.shape[2])).to(x.device))
+        return _row_phase_convs(xc, kernel, n_resized_rows, _conv) + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        dxr, dkernel = _conv_vjp(resize_nearest(x, ctx.size), kernel, g)
+        with torch.enable_grad():  # the resize's own backward: gathers (gather_nearest)
+            xd = x.detach().requires_grad_()
+            (dx,) = torch.autograd.grad(resize_nearest(xd, ctx.size), xd, dxr)
+        return dx, dkernel, g.sum(dim=(0, 1, 2)), None, None
+
+
 def fused_row_resize_conv4(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                            n_resized_rows: int, n_cols: int) -> torch.Tensor:
     """``conv4x4(pad1, resize_nearest(x, (n_resized_rows, n_cols)))`` with the
     row resize folded into per-phase strided convs (columns are gathered):
-    ``[B, n_resized_rows - 1, n_cols - 1, Cout]``. Forward only."""
-    xc = x.index_select(2, torch.from_numpy(nearest_index(n_cols, x.shape[2])).to(x.device))
-    return _row_phase_convs(xc, kernel, n_resized_rows, _conv) + bias
+    ``[B, n_resized_rows - 1, n_cols - 1, Cout]``. Its gradient is the
+    naive form's."""
+    return _FusedRowResizeConv4.apply(x, kernel, bias, n_resized_rows, n_cols)
 
 
 def fused_row_resize_conv4_int8(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -329,10 +380,10 @@ def mlp_apply(params: Dict[str, Any], noise: torch.Tensor, cond: torch.Tensor) -
     return x @ bp1["Dense_0"]["kernel"] + bp1["Dense_0"]["bias"]
 
 
-def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights, scales, site):
+def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights, scales, site, train):
     """LN1 -> Conv_0 -> GN0 -> resize + Conv_1 of the unfused backends:
-    ``[B, 55, 29, 128]`` in ``dtype``. ``scales`` and ``site`` as in
-    :func:`decode_apply`."""
+    ``[B, 55, 29, 128]`` in ``dtype``. ``scales``, ``site`` and ``train`` as
+    in :func:`decode_apply`."""
     use_ab = int8 and int8_backend in ("pallas_ab", "pallas")
     use_cd = int8 and int8_backend == "pallas"
     c0 = p["MLPBlock_1"]["Dense_0"]["kernel"].shape[1] // (18 * 10)
@@ -366,6 +417,8 @@ def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights, scales, site):
     if int8:
         return resize_conv4_int8_naive(x, qweights["conv1"], p["Conv_1"]["bias"], 56, 30,
                                        scales.get("conv1"))
+    if train:
+        return fused_row_resize_conv4(x, p["Conv_1"]["kernel"], p["Conv_1"]["bias"], 56, 30)
     x = _conv(resize_nearest(x, (56, 30)), p["Conv_1"]["kernel"], ((1, 1), (1, 1)))
     return x + p["Conv_1"]["bias"]
 
@@ -374,7 +427,7 @@ def decode_apply(
     params: Dict[str, Any], x: torch.Tensor, dtype: torch.dtype, int8: bool = False,
     int8_backend: str = "xla", qweights: Optional[Dict[str, Any]] = None,
     act_scales: Optional[Dict[str, torch.Tensor]] = None,
-    amax_out: Optional[Dict[str, torch.Tensor]] = None,
+    amax_out: Optional[Dict[str, torch.Tensor]] = None, train: bool = False,
 ) -> torch.Tensor:
     """The decode after the MLP, from the Dense_1 output ``x``
     (:func:`mlp_apply`): ``[B, 56, 30, 1]`` in ``dtype``. Arguments as for
@@ -401,7 +454,7 @@ def decode_apply(
         x = _dequant(_conv_i8(q, kq, ((1, 1), (1, 1))), sk, s.reshape(-1, 1, 1, 1),
                      p["Conv_1"]["bias"], dtype)
     else:
-        x = _conv0_conv1(p, x, dtype, int8, int8_backend, qweights, scales, site)
+        x = _conv0_conv1(p, x, dtype, int8, int8_backend, qweights, scales, site, train)
     x = site(leaky_relu(_group_norm(x, p["GroupNorm2d_1"]["GroupNorm_0"])), "conv2")
 
     if int8:
@@ -418,9 +471,9 @@ def fast_generator_apply(
     params: Dict[str, Any], noise: torch.Tensor, cond: torch.Tensor, int8: bool = False,
     int8_backend: str = "xla", qweights: Optional[Dict[str, Any]] = None,
     act_scales: Optional[Dict[str, torch.Tensor]] = None,
-    amax_out: Optional[Dict[str, torch.Tensor]] = None,
+    amax_out: Optional[Dict[str, torch.Tensor]] = None, train: bool = False,
 ) -> torch.Tensor:
-    """Inference forward of ``Generator`` for one expert: ``[B, 56, 30, 1]``.
+    """Forward of ``Generator`` for one expert: ``[B, 56, 30, 1]``.
 
     ``params`` is the expert's Flax-layout tree of tensors in the compute
     dtype; ``noise`` and ``cond`` are in that dtype too. ``qweights`` are
@@ -432,6 +485,11 @@ def fast_generator_apply(
     their kernels and do not read them. ``amax_out``: a dict that receives
     the f32 max|x| of each quant site's input under the same keys (the
     calibration capture; the sites that the backend runs in plain PyTorch).
+    ``train``: the float forward of JAX's training with
+    ``train.fast_generator`` (``zdcsim/train/step.py:176-182``), Conv_1 as
+    :func:`fused_row_resize_conv4` as JAX has it; the serving float path
+    keeps the plain resize + conv there. Both fused convs differentiate
+    through their naive forms.
     """
     return decode_apply(params, mlp_apply(params, noise, cond), noise.dtype, int8,
-                        int8_backend, qweights, act_scales, amax_out)
+                        int8_backend, qweights, act_scales, amax_out, train)

@@ -1,9 +1,9 @@
 """The training loop (counterpart of ``zdcsim/train/loop.py``).
 
 Per epoch: each batch of the train loader (``DeviceLoader``) goes through
-the dense step (``zdcsim_torch/train/step.py``) with that (epoch, batch)'s
-draws (``zdcsim_torch.utils.prng.fold_epoch_batch``); the step's metrics
-add up on the device and reach the host once an epoch
+the train step (``zdcsim_torch/train/step.py``, dense or switch) with that
+(epoch, batch)'s draws (``zdcsim_torch.utils.prng.fold_epoch_batch``); the
+step's metrics add up on the device and reach the host once an epoch
 (:func:`_finalize_metrics`). Every ``train.eval_every`` epochs, and at the
 last, the evaluator (``zdcsim_torch/train/evaluate.py``) scores the state on
 the test side with the epoch's eval draws; then the callbacks
@@ -141,7 +141,7 @@ def train(cfg, split=None, modules=None, return_state: bool = False,
             with trace(profile_dir if profile_epoch == epoch else None):
                 for b, batch in enumerate(train_loader.epoch(epoch)):
                     draws = draw_step_noise(fold_epoch_batch(seed, epoch, b, dev), modules,
-                                            batch_size, dev)
+                                            batch_size, dev, train_step.switch)
                     state, metrics = train_step(state, batch, draws, epoch)
                     acc = _accumulate(acc, metrics)
                     n_batches += 1
