@@ -10,8 +10,10 @@ test_fused_conv_gradients_match_naive``, ``:182 test_fast_generator_trains``,
 at those tests' tolerances. The fast generator's step is held at width
 0.125 (JAX's test runs full width; the CPU suite cannot). Against JAX's own
 step on JAX's draws (``test_torch_train_step.jax_draws``; proton width
-0.125, E=2, batch 8): the bf16 step at JAX's bf16 tolerance (rtol 0.1,
-atol 0.05), its spectral-norm stats within 1e-3 per expert by norm (the
+0.125, E=2, batch 8): the bf16 step's metrics within limits set between
+that gap and the float32 step's gap to JAX's bf16 step where the two
+separate (``BF16_SEPARATING``), the rest at JAX's bf16 tolerance (rtol
+0.1, atol 0.05) or tighter, its spectral-norm stats within 1e-3 per expert by norm (the
 power step reads bfloat16-rounded kernels, and the two steps' updated
 kernels, 2 lr apart where a gradient is near zero, can round to
 neighbouring bfloat16 values).
@@ -147,11 +149,37 @@ def jax_step_pair(options):
                   {k: np.asarray(v) for k, v in met.items()})
 
 
+# Relative errors of the port's bf16 step's metrics against JAX's bf16 step
+# (:func:`test_bf16_step_matches_jax`), each between the two readings of that
+# case: the port's bf16 step against JAX's, and the port's float32 step
+# against JAX's bf16 step. Readings (bf16 | f32): gen_loss 1.88e-3 | 5.12e-3,
+# intensity_loss 8.39e-5 | 2.47e-3, mean_intensities_experts 1.59e-4 |
+# 3.39e-3, std_intensities_experts 1.39e-2 | 2.24e-1, differentiation_loss
+# 2.53e-4 | 9.38e-3. These read the generator's bf16 forward.
+BF16_SEPARATING = {"gen_loss": 3e-3, "intensity_loss": 5e-4, "mean_intensities_experts": 7e-4,
+                   "std_intensities_experts": 5e-2, "differentiation_loss": 1.5e-3}
+# Held at about three times the bf16 reading; no limit separates these two
+# from the float32 step (bf16 | f32): disc_loss 8.92e-4 | 2.58e-4 (the
+# discriminator's bf16 forward is the float32 forward on bfloat16-rounded
+# inputs), aux_reg_loss 2.06e-4 | 3.03e-4, and 1.93e-4 with the aux
+# regressor left in float32. test_bf16_step_casts_at_each_use holds the casts.
+BF16_HELD = {"disc_loss": 3e-3, "aux_reg_loss": 1e-3}
+
+
 def test_bf16_step_matches_jax():
+    """The metrics in ``BF16_SEPARATING`` and ``BF16_HELD`` within their
+    relative limits of JAX's bf16 step (see there for the readings), the
+    rest at JAX's bf16 tolerance (rtol 0.1, atol 0.05); the discriminator's
+    parameters float32 and its spectral-norm stats within 1e-3 per expert
+    by norm."""
     (ps, pm), (js, jm) = jax_step_pair(["train.precision=bf16"])
     assert set(pm) == set(jm)
     for k, v in jm.items():
-        np.testing.assert_allclose(pm[k].numpy(), v, rtol=0.1, atol=0.05, err_msg=k)
+        rtol = {**BF16_SEPARATING, **BF16_HELD}.get(k)
+        if rtol is None:
+            np.testing.assert_allclose(pm[k].numpy(), v, rtol=0.1, atol=0.05, err_msg=k)
+        else:
+            np.testing.assert_allclose(pm[k].numpy(), v, rtol=rtol, atol=0, err_msg=k)
     assert all(v.dtype == torch.float32 for v in ps.disc.params.values())
     pairs = paired(train_state_to_jax(ps)["disc"]["stats"], js["disc"]["stats"])
     assert len(pairs) == 10  # u and sigma of 5 spectral-norm layers
@@ -160,6 +188,35 @@ def test_bf16_step_matches_jax():
         assert np.all(err <= 1e-3 * np.linalg.norm(b.reshape(len(b), -1), axis=1)), k
         if k.endswith("/u"):
             np.testing.assert_allclose(np.linalg.norm(a, axis=-1), 1.0, rtol=1e-5)
+
+
+def test_bf16_step_casts_at_each_use():
+    """In the bf16 step the generator and the aux regressor run on bfloat16
+    parameters and inputs, and the discriminator on float32 parameters and
+    inputs that are bfloat16-rounded (JAX's promotion through its float32
+    ``u``); in the float32 step all three run in float32."""
+    for precision, low in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cfg, mods = port_modules("proton", [f"train.precision={precision}"])
+        seen = {}
+
+        def record(name):
+            def hook(module, args):
+                seen.setdefault(name, []).append(
+                    (args[0], [p.dtype for p in module.parameters()]))
+            return hook
+
+        for name in ("generator", "discriminator", "aux_reg"):
+            getattr(mods, name).register_forward_pre_hook(record(name))
+        batch = {k: torch.from_numpy(v) for k, v in make_batch(mods.image_shape, 2).items()}
+        draws = draw_step_noise(torch.Generator().manual_seed(1), mods, B, "cpu")
+        build_train_step(mods, cfg)(init_state(mods, cfg, 0, "cpu"), batch, draws, 0)
+        assert seen.keys() == {"generator", "discriminator", "aux_reg"}
+        for name, calls in seen.items():
+            want = torch.float32 if name == "discriminator" else low
+            for x, dtypes in calls:
+                assert x.dtype == want and set(dtypes) == {want}, (precision, name)
+                if name == "discriminator" and precision == "bf16":
+                    assert torch.equal(x, x.to(torch.bfloat16).to(x.dtype)), name
 
 
 # ------ remat ------

@@ -41,6 +41,7 @@ import sys
 import time
 
 BF16_PEAK = 989e12  # H100 SXM dense bf16 (NVIDIA's data sheet)
+N_EXPERTS = 3  # train_bench.py:101
 
 
 def card_line() -> str:
@@ -122,7 +123,6 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (its test)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=512)
-    ap.add_argument("--experts", type=int, default=3)
     ap.add_argument("--width", type=float, default=1.0, help="the generator's width")
     ap.add_argument("--tile", type=int, default=128, help="the switch arm's dispatch tile")
     ap.add_argument("--steps", type=int, default=16, help="timed steps an arm")
@@ -138,7 +138,7 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
         device, card = torch.device("cuda"), card_line()
-    base = [f"train.batch_size={args.batch}", f"model.n_experts={args.experts}",
+    base = [f"train.batch_size={args.batch}", f"model.n_experts={N_EXPERTS}",
             f"model.generator.width={args.width}", "train.precision=bf16"]
     dense = bench_arm(base, device, args.seed, args.steps)
     switch = bench_arm(base + ["model.router.differentiable_gan_term=false",
@@ -149,7 +149,7 @@ def main(argv=None) -> int:
         "value": switch["samples_per_sec"],
         "unit": "samples/sec/chip",
         "vs_baseline": round(dense["ms_per_step"] / switch["ms_per_step"], 3),
-        "scale": {"batch": args.batch, "n_experts": args.experts, "precision": "bf16",
+        "scale": {"batch": args.batch, "n_experts": N_EXPERTS, "precision": "bf16",
                   "width": args.width, "tile": args.tile, "steps": args.steps, "card": card},
         "dense": dense,
         "switch": switch,

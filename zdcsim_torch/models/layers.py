@@ -79,9 +79,7 @@ def gather_nearest(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tens
     """``x.index_select(dim, index)`` for a nearest-resize ``index``
     (:func:`nearest_index`: nondecreasing); under autograd, with a backward
     that is deterministic on CUDA and needs no index accumulation."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _NearestGather.apply(x, dim, index)
-    return x.index_select(dim, index)
+    return _NearestGather.apply(x, dim, index)
 
 
 def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

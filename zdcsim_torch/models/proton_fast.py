@@ -45,7 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from zdcsim_torch.models.layers import (
-    group_norm_groups, leaky_relu, nearest_index, resize_nearest, upsample_nearest,
+    group_norm_groups, leaky_relu, nearest_index, nearest_index_on, resize_nearest,
+    upsample_nearest,
 )
 from zdcsim_torch.ops import decode_kernels as dk
 from zdcsim_torch.ops import fused_decode_kernels as fdk
@@ -275,7 +276,7 @@ class _FusedRowResizeConv4(torch.autograd.Function):
     def forward(ctx, x, kernel, bias, n_resized_rows, n_cols):
         ctx.save_for_backward(x, kernel)
         ctx.size = (n_resized_rows, n_cols)
-        xc = x.index_select(2, torch.from_numpy(nearest_index(n_cols, x.shape[2])).to(x.device))
+        xc = x.index_select(2, nearest_index_on(n_cols, x.shape[2], x.device))
         return _row_phase_convs(xc, kernel, n_resized_rows, _conv) + bias
 
     @staticmethod
@@ -485,11 +486,14 @@ def fast_generator_apply(
     their kernels and do not read them. ``amax_out``: a dict that receives
     the f32 max|x| of each quant site's input under the same keys (the
     calibration capture; the sites that the backend runs in plain PyTorch).
-    ``train``: the float forward of JAX's training with
-    ``train.fast_generator`` (``zdcsim/train/step.py:176-182``), Conv_1 as
-    :func:`fused_row_resize_conv4` as JAX has it; the serving float path
-    keeps the plain resize + conv there. Both fused convs differentiate
-    through their naive forms.
+    ``train``: Conv_1 of the float forward as :func:`fused_row_resize_conv4`,
+    JAX's form in serving and in training with ``train.fast_generator``
+    (``zdcsim/train/step.py:176-182``), which the train step follows. Serving
+    keeps the plain resize + conv there: on an H100 80GB HBM3 at 700 W the
+    fused form served the teacher 7.0-7.7% slower in ``f32`` and 16-27%
+    slower in ``bf16`` at tile 256 (``bench_torch.py --all --tiles 256
+    --n-showers 32768``, both dispatch forms, ``PERF.md`` §6). Both fused
+    convs differentiate through their naive forms.
     """
     return decode_apply(params, mlp_apply(params, noise, cond), noise.dtype, int8,
                         int8_backend, qweights, act_scales, amax_out, train)
