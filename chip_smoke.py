@@ -2,7 +2,7 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-19 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-20 on the CPU at small sizes
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
 Phases, each printing lines with the elapsed seconds:
@@ -179,7 +179,32 @@ Phases, each printing lines with the elapsed seconds:
     ``disc_loss`` is within rtol 0.1 / atol 0.05 of its float32 step's,
     and none of A-H is launched; then the switch step at
     ``TRAIN_CHECK`` (tile 4) on the card against the CPU, as phase 17
-    holds the dense one; a ``{"options": ...}`` line records the phase.
+    holds the dense one; a ``{"options": ...}`` line records the phase;
+20. the neutron family's training (``NEUTRON_TRAIN``: the preset
+    ``zdcsim/config/neutron.yaml``, ``GeneratorNeutron`` v1 with
+    ``norm=group``, ``DiscriminatorNeutron``, ``AuxRegNeutron``, width 1,
+    E=3, batch 512, the constant router GAN term) on a synthetic neutron
+    split of its own (``NEUTRON_LOOP`` events, seed 7), from the state after
+    one dense float32 step: the dense float32 step, the switch float32 step
+    (tile 128, ``dispatch_remat``), the dense bf16 step, and the dense
+    float32 step under ``norm=batch`` (masked BatchNorm statistics) from a
+    state of its own, each run once warm and ``NEUTRON_STEP_RUNS`` times
+    timed (median, peak memory, FLOPs), failing unless its last two runs
+    are ``torch.equal``, every metric is finite, every active expert's
+    kernels and spectral-norm ``u`` (and under ``norm=batch`` its running
+    statistics) moved and every inactive one's stayed, the switch step
+    agrees with the dense one on draws that make them one computation
+    (phase 19's limits), bf16's ``disc_loss`` is within rtol 0.1 / atol
+    0.05 of float32's, and none of A-H is launched; then the dense
+    ``group``, dense ``batch`` and switch ``group`` steps at
+    ``TRAIN_CHECK`` on the card against the CPU as phase 17 holds the
+    proton step; then one epoch of ``train()`` on the preset with
+    ``eval.fused_epilogue``: its eval must launch kernel E on 44x44
+    showers, every launch on the bulk ring, and agree with the plain
+    epilogue (``checked_evaluator``), its checkpoint must be written and
+    served by ``FastSim.from_checkpoint`` on ``f32`` behind a router that
+    reads every expert; E's launches there join E's record; a
+    ``{"neutron_train": ...}`` line records the phase.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
@@ -189,13 +214,15 @@ same of the eager dyn serve and the graph-replayed one on ``int8_pallas``
 and ``int8_fused`` (with the share of ``index_select``, the weight
 gather), and of one chunk of ``bench_torch.py``'s first rung, eager and
 replayed; in phase 16 of one chunk of the neutron w=0.125 student,
-eager and replayed; in phase 17 of one more full-width train step; and in
-phase 19 of one more dense bf16 and switch bf16 step.
+eager and replayed; in phase 17 of one more full-width train step; in
+phase 19 of one more dense bf16 and switch bf16 step; and in phase 20 of
+one more neutron dense f32 and dense bf16 step.
 
 The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
 ``int8`` gate (E), of the all-expert path (F) and of the ``int8_fused_front``
-(G) and ``int8_fused`` (H) serves, A's and C's ``k_sweep`` and
+(G) and ``int8_fused`` (H) serves (E's with the neutron loop's eval of
+phase 20 added), A's and C's ``k_sweep`` and
 ``eager_ms`` (the host loop's time), B's and D's
 ``int_mm_ms``, G's and H's ``conv_ms`` (their convs' times), and E's and
 F's ``body``, ``bulk_launches``, ``graph_ms``, ``old_body_ms`` and
@@ -227,7 +254,12 @@ epoch, evals of 2 showers; serves of 6 showers on ``int8`` and
 ``int8_pallas``, the fused precision taking full width only; no timed
 write), and phase 19 at ``REHEARSE_SWITCH`` (width 0.125, E=3, batch 4,
 tile 2; one switch f32 step without remat from ``init_state``, held
-against itself by both comparisons). Both modes print each
+against itself by both comparisons), and phase 20 at
+``REHEARSE_NEUTRON_TRAIN`` (width 0.125, E=3, batch 4, tile 2; one step
+of each variant but bf16 from ``init_state``, the switch held against
+itself, one dense step against itself as the card-against-CPU
+comparison, the loop on ``REHEARSE_NEUTRON_LOOP`` events, its checkpoint
+served on 6 showers). Both modes print each
 phase's seconds on one line before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
 """
@@ -278,6 +310,13 @@ SWITCH = (1.0, 3, 512, 128)  # phase 19: width, experts, batch, tile
 REHEARSE_SWITCH = (0.125, 3, 4, 2)
 CHECK_TILE = 4  # phase 19's switch step at TRAIN_CHECK
 STEP_RUNS = 3  # phase 19's timed runs of each variant after a warm one (none in the rehearsal)
+NEUTRON_TRAIN = (1.0, 3, 512, 128)  # phase 20: width, experts, batch, switch tile (the preset)
+REHEARSE_NEUTRON_TRAIN = (0.125, 3, 4, 2)
+NEUTRON_STEP_RUNS = 2  # phase 20's timed runs of each full-width step after a warm one
+NEUTRON_LOOP = 1280  # phase 20's synthetic events: 1024 train (2 steps of 512), 256 test
+REHEARSE_NEUTRON_LOOP = 10  # 8 train (2 steps of 4), 2 test
+NEUTRON_LOOP_SERVE = (2048, 2048, 64)  # showers, batch, tile of the checkpoint's f32 serve
+REHEARSE_NEUTRON_LOOP_SERVE = (6, 8, 2)
 LOOP_SERVE = (4096, 4096, 64)  # phase 18's serves from the checkpoint: showers, batch, tile
 REHEARSE_LOOP_SERVE = (6, 8, 2)
 # the evaluator's keys (zdcsim/train/evaluate.py:472-481): the CLI's --eval prints them
@@ -297,6 +336,7 @@ KERNEL_PATHS = {  # precision -> the kernels its decode launches
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores, as train_bench_torch.py takes it
 
 T0 = time.perf_counter()
 PHASE_S = {}  # phase -> seconds, printed on one line at the end
@@ -2181,13 +2221,14 @@ def step_flops(run):
 
 def step_on(step, state, data, draws, device, dtype):
     """``step`` from ``state`` on ``data`` and ``draws`` with every tensor on
-    ``device`` in ``dtype`` (the keep masks stay bool); synchronised."""
+    ``device`` in ``dtype`` (the keep masks, tuples of them, stay bool);
+    synchronised."""
     import torch
 
     move = lambda x: x.to(device, dtype)  # noqa: E731
     out = step(state.to(device, dtype), {k: move(v) for k, v in data.items()},
-               {**{k: move(draws[k]) for k in ("gumbel", "noise_1", "noise_2")},
-                "aux_keep": tuple(k.to(device) for k in draws["aux_keep"])}, 0)
+               {k: tuple(m.to(device) for m in v) if isinstance(v, tuple) else move(v)
+                for k, v in draws.items()}, 0)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return out
@@ -2939,11 +2980,326 @@ def loop(dev, rehearse, card, seed):
     return rec
 
 
+def stats_moved(old, new, active, what):
+    """Fail unless each BatchNorm running statistic of ``new`` (the
+    generator's or the aux regressor's ``stats``) moved from ``old`` on every
+    active expert and stayed on every inactive one."""
+    import torch
+
+    for k, v in new.items():
+        moved = (v != old[k]).flatten(1).any(dim=1)
+        if not bool(moved[active].all()) or bool(moved[~active].any()):
+            fail(f"{what} running statistic {k} moved on experts {moved.tolist()}, active "
+                 f"{active.tolist()}")
+
+
+def switch_draws_as_dense(rows, n_exp, batch):
+    """Draws on which the switch step and the dense step compute the same
+    thing: the switch G phase's first B rows on the D phase's masks (the
+    dense step draws the D phase and the G phase's first forward on one
+    key), and the dense masks each row's own in its routed expert's row.
+    Returns ``(switch draws, dense draws)``."""
+    import torch
+
+    rows = {**rows, "gen_keep_2": tuple(torch.cat([a, b[batch:]]) for a, b in
+                                        zip(rows["gen_keep_1"], rows["gen_keep_2"]))}
+    dense = {**rows, **{k: tuple(m[None].expand(n_exp, *m.shape) for m in rows[k])
+                        for k in ("aux_keep", "gen_keep_1")},
+             "gen_keep_2": tuple(m[None, batch:].expand(n_exp, *m[batch:].shape)
+                                 for m in rows["gen_keep_2"])}
+    return rows, dense
+
+
+def neutron_train(dev, rehearse, card, seed, profile=False):
+    """Phase 20: the neutron family's training. At ``NEUTRON_TRAIN`` (the
+    preset: ``GeneratorNeutron`` v1, ``norm=group``, width 1, E=3, batch
+    512; the constant router GAN term, so that the switch step computes the
+    dense step's function) from the state after one dense float32 step on a
+    synthetic neutron split of its own: the dense float32 step, the switch
+    float32 step (tile 128, ``dispatch_remat``), the dense bf16 step, and
+    the dense float32 step under ``norm=batch`` from a state of its own;
+    each run once warm and ``NEUTRON_STEP_RUNS`` times timed (median, peak
+    memory, FLOPs), its last two runs ``torch.equal`` leaf by leaf, every
+    metric finite, every active expert's kernels (and under ``norm=batch``
+    its running statistics) moved and every inactive one's stayed
+    (``check_step``, ``stats_moved``), none of A-H launched; the switch
+    step against the dense step (``switch_against_dense``) and bf16's
+    ``disc_loss`` within rtol 0.1 / atol 0.05 of float32's. Then the dense
+    ``group`` and ``batch`` steps and the switch ``group`` step at
+    ``TRAIN_CHECK`` on the card against the CPU (float32 on ``AGREE_F32``,
+    float64 on every check). Then ``train()`` on the preset for one epoch
+    (``NEUTRON_LOOP`` events) with ``eval.fused_epilogue``: its eval
+    launches kernel E on 44x44 showers, on the bulk ring, equal to the
+    plain epilogue (``checked_evaluator``); its checkpoint is served by
+    ``FastSim.from_checkpoint`` on ``f32`` behind a router drawn from
+    ``--seed`` that reads every expert (``spread_router``). Returns E's
+    ``(launches, bulk-ring launches)``."""
+    import logging
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import zdcsim_torch.train.loop as loop_mod
+    from zdcsim_torch.config import NEUTRON_OVERRIDES, load_config
+    from zdcsim_torch.convert import to_state_dict
+    from zdcsim_torch.data.dataset import get_train_test_data
+    from zdcsim_torch.data.loader import split_to_arrays
+    from zdcsim_torch.inference.engine import FastSim
+    from zdcsim_torch.models import build_moe
+    from zdcsim_torch.train.state import init_state, make_optimizers
+    from zdcsim_torch.train.step import build_train_step, draw_step_noise
+
+    phase = "20 neutron train"
+    width, n_exp, batch, tile = REHEARSE_NEUTRON_TRAIN if rehearse else NEUTRON_TRAIN
+    runs = 0 if rehearse else NEUTRON_STEP_RUNS
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n_events = REHEARSE_NEUTRON_LOOP if rehearse else NEUTRON_LOOP
+    data_over = [*NEUTRON_OVERRIDES, "dataset.synthetic=true",
+                 f"dataset.synthetic_n_samples={n_events}", "train.seed=7"]
+
+    def build(*over, width=width, n_exp=n_exp, batch=batch):
+        cfg = load_config([*NEUTRON_OVERRIDES, f"model.generator.width={width}",
+                           f"model.n_experts={n_exp}", f"train.batch_size={batch}",
+                           f"train.seed={seed}", "model.router.differentiable_gan_term=false",
+                           *over])
+        mods = build_moe(cfg)
+        return cfg, mods, build_train_step(mods, cfg)
+
+    split = get_train_test_data(load_config(data_over))
+    train_side = split_to_arrays(split, True)
+    data = {k: torch.as_tensor(v[:batch]).to(dev) for k, v in train_side.items()}
+    cfg, mods, dense = build()
+    rows, per_expert = switch_draws_as_dense(
+        draw_step_noise(torch.Generator(device=dev).manual_seed(seed + 20), mods, batch, dev,
+                        switch=True), n_exp, batch)
+    state = init_state(mods, cfg, seed + 20, dev)
+    switch_over = ("train.dispatch=switch", f"train.dispatch_tile={tile}",
+                   f"train.dispatch_remat={not rehearse}")
+    cfg_b, _, dense_b = build("model.norm=batch")
+    state_b = init_state(build_moe(cfg_b), cfg_b, seed + 21, dev)
+    if not rehearse:  # the comparisons after a step, Adam's moments not zero
+        state, _ = dense(state, data, per_expert, 0)
+        state_b, _ = dense_b(state_b, data, per_expert, 0)
+        sync()
+    variants = {"dense f32": (dense, per_expert, state), "switch f32": (
+        build(*switch_over)[2], rows, state)}
+    if not rehearse:
+        variants["dense bf16"] = (build("train.precision=bf16")[2], per_expert, state)
+    variants["dense f32 norm=batch"] = (dense_b, per_expert, state_b)
+    n_params = sum(v[0].numel() for v in state.gen.params.values())
+    log(phase, f"neutron MoE (GeneratorNeutron v1, norm=group) width {width}, E={n_exp}, batch "
+        f"{batch}: generator {n_params} parameters an expert; {len(train_side['cond'])} train "
+        f"events of 44x44 [{card}]")
+    wrappers = kernel_wrappers()
+    reset_counts(wrappers)
+    rec, outs = {"width": width, "n_experts": n_exp, "batch": batch, "tile": tile,
+                 "card": card}, {}
+    ema = float(cfg.train.ema_decay)
+    for name, (step, draws, start) in variants.items():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        times, last = [], []
+        for _ in range(1 + runs):
+            sync()
+            t = time.perf_counter()
+            out = step(start, data, draws, 0)
+            sync()
+            times.append(time.perf_counter() - t)
+            last = (last + [out])[-2:]
+        if runs:
+            check_repeat(phase, name, *last, card)
+        active = check_step(start, out[0], out[1], batch, ema)
+        stats_moved(start.gen.stats, out[0].gen.stats, active, f"{name}: the generator's")
+        stats_moved(start.aux.stats, out[0].aux.stats, active, f"{name}: the aux regressor's")
+        if name.endswith("norm=batch") and not (out[0].gen.stats and out[0].aux.stats):
+            fail(f"{name}: no BatchNorm running statistics in the state")
+        med = float(np.median(times[1:] or times))
+        r = {"step_s": times, "median_step_s": med, "repeats_equal": bool(runs) or None,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None,
+             "precision": step.precision["train.precision"], "switch": step.switch,
+             "routing": (out[1]["n_choosen_experts_mean_epoch"] * batch).round().int().tolist()}
+        if cuda:  # one more step, counted
+            flops = step_flops(lambda: step(start, data, draws, 0))
+            peak = BF16_OPS_PER_S if r["precision"] == "bf16" else F32_OPS_PER_S
+            r.update(tflop=flops / 1e12, tflop_per_s=flops / med / 1e12,
+                     bound_s=flops / peak)
+            if profile and name in ("dense f32", "dense bf16"):
+                profile_serve(lambda: step(start, data, draws, 0),
+                              f"one neutron {name} step at width {width}, E={n_exp}, batch "
+                              f"{batch}", card, phase)
+        rec[name] = r
+        outs[name] = out
+        log(phase, f"{name}: median of {runs} {med:.4f}s (warm run {times[0]:.4f}s), peak "
+            + ("not measured on the CPU" if r["peak_mem_gib"] is None else
+               f"{r['peak_mem_gib']:.3f} GiB")
+            + (f", {r['tflop']:.2f} TFLOP ({r['tflop_per_s']:.2f} TFLOP/s, "
+               f"{100 * r['bound_s'] / med:.1f}% of the {r['precision']} bound)"
+               if "tflop" in r else "")
+            + f"; routing {r['routing']}; gen_loss {float(out[1]['gen_loss']):.6f}, disc_loss "
+            f"{float(out[1]['disc_loss']):.6f} [{card}]")
+        del out, last
+    counts = {k: v for k, v in read_counts(wrappers).items() if v}
+    rec["kernel_launches"] = counts
+    log(phase, f"kernel launches {counts or 'none of A-H'}")
+    if counts:
+        fail(f"the neutron train steps launched hand-written kernels: {counts}")
+    # the rehearsal steps from init_state, where the two steps' spectral-norm
+    # iterations (2 against 4) part the discriminators far: it holds the
+    # switch step against itself, as phase 19's does
+    ref_name = "itself (no card)" if rehearse else "dense f32 (constant GAN term)"
+    agree = switch_against_dense(outs["switch f32" if rehearse else "dense f32"],
+                                 outs["switch f32"], make_optimizers(cfg))
+    rec["switch_against_dense"] = agree
+    n, total = agree["beyond_jax_tol"]
+    log(phase, f"switch f32 against {ref_name}: worst error / tolerance "
+        f"{ {k: agree[k] for k in ('metrics', 'params')} }; parameters beyond JAX's tolerance "
+        f"{n} of {total} ({n / total:.3e}, at most {SWITCH_BEYOND_SHARE:.0e}), each within 2 lr; "
+        f"Adam's first moments' worst relative norm error {agree['mu'][0]:.3e} at "
+        f"{agree['mu'][1]} (at most {SWITCH_MU_RTOL:.0e}); shares equal {agree['shares_equal']}")
+    if (agree["metrics"][0] > 1 or agree["params"][0] > 1 or n > SWITCH_BEYOND_SHARE * total
+            or agree["mu"][0] > SWITCH_MU_RTOL or not agree["shares_equal"]):
+        fail(f"the neutron switch step disagrees with the dense step: {agree}")
+    if "dense bf16" in outs:
+        a, b = float(outs["dense bf16"][1]["disc_loss"]), float(outs["dense f32"][1]["disc_loss"])
+        rec["dense bf16 disc_loss against f32"] = (a, b)
+        log(phase, f"dense bf16 disc_loss {a:.6f} against dense f32's {b:.6f}: within rtol 0.1 "
+            f"/ atol 0.05 {abs(a - b) <= 0.05 + 0.1 * abs(b)}")
+        if abs(a - b) > 0.05 + 0.1 * abs(b):
+            fail("the neutron bf16 step's disc_loss is not within rtol 0.1 / atol 0.05 of f32's")
+    del outs, variants, state, state_b, per_expert, rows, data
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- the card against the CPU at TRAIN_CHECK -------------------------------
+    rec["against_cpu"] = {}
+    checks = (("dense group", ()), ("dense batch", ("model.norm=batch",)),
+              ("switch group", ("train.dispatch=switch", f"train.dispatch_tile={CHECK_TILE}")))
+    for name, over in checks[:1] if rehearse else checks:  # no card: one CPU step against itself
+        t = time.perf_counter()
+        cw, ce, cb = REHEARSE_NEUTRON_TRAIN[:3] if rehearse else TRAIN_CHECK
+        c_cfg, c_mods, c_step = build(*over, width=cw, n_exp=ce, batch=cb)
+        state0 = init_state(c_mods, c_cfg, seed + 1, "cpu")
+        c_data = {k: torch.as_tensor(v[:cb]) for k, v in train_side.items()}
+        c_draws = draw_step_noise(torch.Generator().manual_seed(seed + 1), c_mods, cb, "cpu",
+                                  switch=c_step.switch)
+        dtypes = (torch.float32,) if rehearse else (torch.float32, torch.float64)
+        got = {}
+        for dt in dtypes:
+            ref = step_on(c_step, state0, c_data, c_draws, "cpu", dt)
+            ours = ref if rehearse else step_on(c_step, state0, c_data, c_draws, dev, dt)
+            worst = step_agreement(ref, ours, make_optimizers(c_cfg))
+            gated = AGREE_F32 if dt == torch.float32 and not rehearse else tuple(worst)
+            got[str(dt)[6:]] = worst
+            how = " (no card: the step against itself)" if rehearse else ""
+            log(phase, f"one {name} step at width {cw}, E={ce}, batch {cb} in {str(dt)[6:]} on "
+                f"{dev.type} against the CPU{how}: worst error / tolerance {fmt_worst(worst)}, "
+                f"held: {', '.join(gated)} ({time.perf_counter() - t:.2f}s) [{card}]")
+            bad = {k: worst[k] for k in gated if worst[k]["ratio"] > 1.0}
+            if bad:
+                fail(f"the {str(dt)[6:]} neutron {name} step on {dev.type} disagrees with the "
+                     f"CPU's: {bad}")
+            if dt == torch.float32 and not rehearse:
+                got["card_repeats_equal"] = check_repeat(
+                    phase, f"the float32 {name} step at width {cw} on {dev.type}", ours,
+                    step_on(c_step, state0, c_data, c_draws, dev, dt), card)
+        rec["against_cpu"][name] = got
+
+    # -- the loop on the preset: one epoch, an eval on E, a checkpoint, a serve --
+    tmp = tempfile.mkdtemp(prefix="zdcsim_neutron_loop_")
+    try:
+        cfg_l = load_config([*data_over, f"model.generator.width={width}",
+                             f"model.n_experts={n_exp}", f"train.batch_size={batch}",
+                             "eval.fused_epilogue=true", "train.epochs=1", "train.eval_every=1",
+                             "config.run_name=neutron_smoke", "train.save_experiment_data=true",
+                             "train.ws_threshold_model_save=1e30",
+                             f"train.save_experiments_dir={tmp}/"])
+        evals, states = [], {}
+        build_eval = loop_mod.build_evaluator
+        loop_mod.build_evaluator = checked_evaluator(evals, states, dev)
+        logger = logging.getLogger(loop_mod.__name__)
+        level = logger.level
+        logger.setLevel(logging.INFO)
+        splits = TimeSplits()
+        logger.addHandler(splits)
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        try:
+            history, state = loop_mod.train(cfg_l, return_state=True, device=dev)
+            sync()
+        finally:
+            loop_mod.build_evaluator = build_eval
+            logger.removeHandler(splits)
+            logger.setLevel(level)
+        train_s = time.perf_counter() - t
+        counts = {k: v for k, v in read_counts(wrappers).items() if v}
+        e_counts = (counts.get("expm1_channel_sums", 0),
+                    counts.get("expm1_channel_sums on the bulk ring", 0))
+        (h,), (ev,) = history, evals
+        times = splits.splits.get(0, {})
+        rec["loop"] = {"events": n_events, "train_s": train_s, "times_s": times, "eval": ev,
+                       "kernel_launches": counts, "history": {k: h[k] for k in (
+                           "gen_loss", "disc_loss", "router_loss", "ws_mean")}}
+        log(phase, f"train() on the preset, 1 epoch of {len(train_side['cond']) // batch} steps "
+            f"in {train_s:.2f}s (steps {times.get('steps', float('nan')):.4f}s, eval "
+            f"{times.get('eval', float('nan')):.4f}s with its plain comparison, callbacks "
+            f"{times.get('callbacks', float('nan')):.4f}s); eval of "
+            f"{len(split.y_test)} showers [{len(split.y_test)}, 44, 44]: E launched "
+            f"{ev['E_launches']} times, {ev['E_on_bulk_ring']} on the bulk ring, in "
+            f"{ev['eval_s']:.4f}s; ws_mean {ev['ws_mean']!r} against {ev['ws_mean_plain']!r} "
+            f"with the plain epilogue (rel {ev['rel']:.3e}, limit 1e-4); gen_loss "
+            f"{h['gen_loss']:.4f}, disc_loss {h['disc_loss']:.4f}; kernel launches {counts} "
+            f"[{card}]")
+        if cuda and (ev["E_launches"] < 1 or ev["E_on_bulk_ring"] != ev["E_launches"]):
+            fail(f"the neutron eval did not launch E on the bulk ring: {ev}")
+        if not (ev["rel"] <= 1e-4 and ev["routing_identical"]):
+            fail(f"the neutron eval on kernel E disagrees with the plain epilogue: {ev}")
+        if (set(counts) - {"expm1_channel_sums", "expm1_channel_sums on the bulk ring"}
+                or e_counts[0] != ev["E_launches"]):
+            fail(f"the neutron loop launched kernels outside its eval's E: {counts}")
+        if not all(np.isfinite(h[k]) for k in ("gen_loss", "disc_loss", "ws_mean")):
+            fail(f"the neutron loop's losses are not finite: {h}")
+        models = f"{cfg_l.config.experiment_dir}/models"
+        if not os.path.isfile(os.path.join(models, "state_epoch_0", "state.pt")):
+            fail(f"the neutron loop wrote no checkpoint under {models}")
+        del state, states
+        n, serve_batch, serve_tile = (REHEARSE_NEUTRON_LOOP_SERVE if rehearse
+                                      else NEUTRON_LOOP_SERVE)
+        rng = np.random.default_rng([seed, 20])
+        cond = rng.standard_normal((n, 9), dtype="float32")
+        noise = rng.standard_normal((n, 10), dtype="float32")
+        eng = FastSim.from_checkpoint(cfg_l, models, 0, precision="f32", batch_size=serve_batch,
+                                      device=dev)
+        eng.router.load_state_dict(to_state_dict(spread_router(rng)))
+        eng._build_switch(tile=serve_tile)
+        t = time.perf_counter()
+        imgs, ids = eng.simulate_switch(cond, noise=noise, return_experts=True)
+        sync()
+        dt = time.perf_counter() - t
+        used = torch.bincount(ids, minlength=n_exp).tolist()
+        imgs_np = imgs.cpu().numpy()
+        rec["loop"]["serve"] = {"showers": n, "s": dt, "routing": used}
+        log(phase, f"FastSim.from_checkpoint(epoch 0) f32 on the module (norm=group): {n} "
+            f"showers in {dt:.3f}s, routing {used}, finite {bool(np.isfinite(imgs_np).all())} "
+            f"[{card}]")
+        # every expert read: on the card (the rehearsal's 6 showers may miss one)
+        if (tuple(imgs.shape) != (n, 44, 44) or not np.isfinite(imgs_np).all()
+                or imgs_np.min() < 0 or (cuda and min(used) == 0)):
+            fail(f"the neutron checkpoint's serve: shape {tuple(imgs.shape)}, routing {used}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"neutron_train": rec}), flush=True)
+    return e_counts
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-13 and 15-19 on the CPU at small sizes with the "
+                    help="run phases 3-13 and 15-20 on the CPU at small sizes with the "
                          "plain versions")
     ap.add_argument("--profile", action="store_true",
                     help="profile one serve of each kernel path with torch.profiler")
@@ -3024,6 +3380,7 @@ def main(argv=None) -> int:
         timed("17 train", train, split, dev, rehearse, card, args.seed)
         timed("18 loop", loop, dev, rehearse, card, args.seed)
         timed("19 options", options, split, dev, rehearse, card, args.seed)
+        timed("20 neutron train", neutron_train, dev, rehearse, card, args.seed)
         log_phase_times()
         print(json.dumps({"rehearsal": True}), flush=True)
         return 0
@@ -3047,6 +3404,12 @@ def main(argv=None) -> int:
     timed("17 train", train, split, dev, rehearse, card, args.seed, args.profile)
     timed("18 loop", loop, dev, rehearse, card, args.seed)
     timed("19 options", options, split, dev, rehearse, card, args.seed, args.profile)
+    n_e, n_bulk = timed("20 neutron train", neutron_train, dev, rehearse, card, args.seed,
+                        args.profile)
+    e_rec = next(r for r in rec if r["name"] == "expm1_channel_sums")
+    e_rec["launches"] += n_e  # the neutron loop's eval is a main path of E too
+    e_rec["bulk_launches"] += n_bulk
+    e_rec["body"] = "bulk ring" if e_rec["bulk_launches"] == e_rec["launches"] else "direct"
     log_phase_times()
     log("done", f"wall {time.perf_counter() - T0:.2f}s [{card}]")
     print(json.dumps({"kernels": rec}), flush=True)

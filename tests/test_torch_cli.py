@@ -105,11 +105,15 @@ def test_cli_simulates(tmp_path):
     assert np.isfinite(out["showers"]).all() and out["showers"].min() >= 0
 
 
-def test_cli_refusals():
+def test_cli_refusals(tmp_path):
+    """A config that selects what the port does not run raises, naming its
+    item (``--config`` is read since item 10); CUDA unless ``--cpu``."""
     from zdcsim_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        main(["--config", "some.yaml"])
+    path = tmp_path / "attention.yaml"
+    path.write_text("model:\n  router:\n    version: router_attention\n")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        main(["--config", str(path)])
     if not sys.modules["torch"].cuda.is_available():  # CUDA unless --cpu
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--eval", "--override", *DATA])

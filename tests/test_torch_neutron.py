@@ -119,12 +119,24 @@ def test_v2_refuses_batch_norm_as_jax():
 
 
 def test_training_forward_is_not_ported():
+    """The training forms run (``tests/test_torch_neutron_train_modules.py``
+    holds them against JAX): without keep masks and under ``norm="group"``
+    the generator's training forward is its eval forward and has no
+    statistics; ``GeneratorNeutronV2``'s is its eval forward;
+    ``MaskedBatchNorm`` returns the new running statistics and leaves its
+    buffers as they were."""
     noise, cond = (torch.from_numpy(a) for a in inputs(0))
-    for module in (GeneratorNeutron(), GeneratorNeutronV2(width=0.125)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            module(noise, cond, train=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        MaskedBatchNorm(3)(torch.zeros(2, 3), train=True)
+    with torch.no_grad():
+        g = GeneratorNeutron(norm="group", width=0.125)
+        out, stats = g(noise, cond, train=True)
+        assert stats == {} and torch.equal(out, g(noise, cond))
+        v2 = GeneratorNeutronV2(width=0.125)
+        assert torch.equal(v2(noise, cond, train=True), v2(noise, cond))
+        bn = MaskedBatchNorm(3)
+        y, mean, var = bn(torch.arange(6.0).reshape(2, 3), train=True)
+    assert torch.allclose(mean, torch.tensor([0.15, 0.25, 0.35]))
+    assert torch.allclose(var, torch.full((3,), 0.9 + 0.1 * 2.25))
+    assert torch.equal(bn.running_mean, torch.zeros(3)) and y.shape == (2, 3)
 
 
 @pytest.fixture(scope="module")

@@ -321,18 +321,31 @@ def test_step_flops_scale_with_the_batch():
 
 
 def test_unported_options_raise():
-    """The neutron family's training raises, naming item 6b; the options of
-    items 6a and 6c, which raised until they were ported, build a step."""
+    """What still refuses: ``model.norm=batch`` under ``train.dispatch=switch``
+    raises JAX's ``ValueError`` (per-sub-batch statistics need the dense
+    step); the options of items 6a, 6b and 6c, which raised until they were
+    ported, build a step."""
+    from zdcsim_torch.config import NEUTRON_OVERRIDES
+    from zdcsim_torch.train.state import init_state
+
     cfg, mods = port_modules("tiny")
     for override in ("train.dispatch=switch", "train.precision=bf16", "train.remat=true",
                      "train.fast_generator=true"):
         step = build_train_step(mods, load_config(["model.n_experts=3", override]))
         assert step.switch == (override == "train.dispatch=switch"), override
         assert step.precision["train.precision"] == ("bf16" if "bf16" in override else "f32")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        build_moe(load_config(["model.architecture=neutron"]))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        build_train_step(mods, load_config(["model.architecture=neutron"]))
+    neutron = [*NEUTRON_OVERRIDES, "model.n_experts=2", "model.generator.width=0.125"]
+    for norm in ("group", "batch"):
+        ncfg = load_config([*neutron, f"model.norm={norm}", "train.dispatch=switch",
+                            "train.dispatch_tile=4"])
+        nmods = build_moe(ncfg)
+        step = build_train_step(nmods, ncfg)
+        assert step.switch and nmods.names["aux_reg"] == "AuxRegNeutron"
+    state = init_state(nmods, ncfg, 0, "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in make_batch((44, 44), 11).items()}
+    draws = draw_step_noise(torch.Generator().manual_seed(0), nmods, B, "cpu", switch=True)
+    with pytest.raises(ValueError, match="requires stats-free generator/aux"):
+        step(state, batch, draws, 0)
 
 
 def test_draw_step_noise_shapes_and_keep_rate():

@@ -5,9 +5,10 @@ the serving engine, ``--simulate OUT.npz`` serves the test split to a file,
 ``--checkpoint-epoch`` of ``train.checkpoint_experiment_dir`` where given.
 
 It runs on CUDA unless ``--cpu`` is given, and raises where no card is
-visible. ``--config`` (a YAML file) is not read: the GPU machine has no
-PyYAML (ROADMAP.md Queue 1 item 10); the defaults are
-``zdcsim_torch.config``'s, changed by ``--override``.
+visible. ``--config`` names a YAML file merged over the defaults
+(``zdcsim_torch.config.read_yaml``: the subset of YAML the configs use, no
+PyYAML), e.g. the neutron preset ``zdcsim/config/neutron.yaml``; then
+``--override`` applies.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="zdcsim_torch",
                                 description="ZDC fast simulation on PyTorch + CUDA")
     p.add_argument("--config", type=str, default=None,
-                   help="YAML config (not read by the port: ROADMAP.md Queue 1 item 10)")
+                   help="YAML config merged over the defaults (e.g. zdcsim/config/neutron.yaml)")
     p.add_argument(
         "--override", nargs="*", default=[], metavar="KEY=VALUE",
         help="dotlist overrides, e.g. model.n_experts=5 train.epochs=10",
@@ -83,10 +84,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
     )
     args = parse_args(argv)
-    if args.config is not None:
-        raise NotImplementedError("--config: reading a YAML config is not ported yet (the GPU "
-                                  "machine has no PyYAML): ROADMAP.md Queue 1 item 10; pass "
-                                  "--override key=value instead")
 
     import numpy as np
     import torch
@@ -94,7 +91,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from zdcsim_torch.config import load_config
     from zdcsim_torch.device import default_device
 
-    cfg = load_config(_inject_checkpoint_epoch(args.override, args.checkpoint_epoch))
+    cfg = load_config(_inject_checkpoint_epoch(args.override, args.checkpoint_epoch),
+                      config_path=args.config)
     device = default_device("cpu" if args.cpu else None)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)

@@ -1,23 +1,26 @@
-"""The port's configuration: plain dataclasses, no YAML.
+"""The port's configuration: plain dataclasses.
 
-The defaults are copied from the keys of ``zdcsim/config/default.yaml`` that
-the serving path, the fidelity gate's data split, the train step, the
-training loop, its evaluator and callbacks, and the CLI read
-(``tests/test_torch_artifact.py`` and ``tests/test_torch_loop.py`` hold them
-equal to ``zdcsim.config.load_config()``). The router's hidden widths are not a key
-of that file: they are fixed in ``zdcsim/models/router.py`` and copied here.
-The neutron preset of ``zdcsim/config/neutron.yaml`` is
-:data:`NEUTRON_OVERRIDES`, which a caller puts before its own overrides.
-PyYAML is not assumed: overrides use the same ``a.b=c`` dotlist syntax as
-``zdcsim.config.apply_overrides`` with a small scalar parser, and a key that
-does not exist raises.
+The defaults are copied from every key of ``zdcsim/config/default.yaml``
+(``tests/test_torch_config_yaml.py`` holds them equal to
+``zdcsim.config.load_config()``, key for key). The router's hidden widths
+are not a key of that file: they are fixed in ``zdcsim/models/router.py``
+and copied here. A YAML config (``--config``, JAX's ``load_config(path)``)
+merges over the defaults through :func:`read_yaml`, a reader of the subset
+of YAML that the configs use (no PyYAML: the GPU machine has none); then
+``a.b=c`` overrides, the dotlist syntax of ``zdcsim.config.apply_overrides``
+with a small scalar parser. A key that does not exist raises, and so does a
+value that selects what the port does not run (``model.router.version``
+other than ``router_v1``). The neutron preset of
+``zdcsim/config/neutron.yaml`` is also :data:`NEUTRON_OVERRIDES`, which a
+caller puts before its own overrides.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
-from typing import Any, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 
 @dataclass
@@ -43,6 +46,7 @@ class AuxRegConfig:
 
 @dataclass
 class RouterConfig:
+    version: str = "router_v1"  # router_attention is not ported (ROADMAP.md Queue 1 item 9)
     widths: Tuple[int, ...] = (128, 64, 32)
     lr_r: float = 1.0e-4
     ed_strength: float = 0.0
@@ -76,6 +80,10 @@ class ModelConfig:
 class DatasetConfig:
     zdc_type: str = "proton"
     input_image_shape: Tuple[int, int] = (56, 30)
+    # the reference's pickles (read only with synthetic=false: ROADMAP.md Queue 1 item 6d)
+    DATA_IMAGES_PATH: str = "data/data_proton_photonsum_proton_1_2312.pkl"
+    DATA_COND_PATH: str = "data/data_cond_photonsum_proton_1_2312.pkl"
+    DATA_POSITIONS_PATH: str = "data/data_coord_photonsum_proton_1_2312.pkl"
     MIN_INTENSITY_THRESHOLD: Optional[float] = 1  # photon-sum filter; None disables
     MAX_INTENSITY_THRESHOLD: Optional[float] = None
     read_n_samples: Optional[int] = None  # stratified subsample size; None keeps all
@@ -101,11 +109,13 @@ class WandbConfig:
     log_experiments: bool = False  # a wandb run (a no-op where wandb is not installed)
     plot_images: bool = False  # the eval figures (not ported: ROADMAP.md Queue 1 item 7)
     run_name: Optional[str] = None  # stamped with the experiment directory
+    api_key: str = ""
 
 
 @dataclass
 class TrainConfig:
     batch_size: int = 512
+    batch_size_aggregate: Optional[int] = None  # JAX keeps it for the config surface; unread
     seed: int = 42
     save_experiment_data: bool = False  # the scales and split indices, and checkpoints
     checkpoint_experiment_dir: Optional[str] = None  # resume from this experiment ...
@@ -139,6 +149,7 @@ class EvalConfig:
 
 @dataclass
 class ParallelConfig:
+    data_axis: str = "data"  # the mesh's data axis (multi-GPU: ROADMAP.md Queue 1 item 8)
     n_devices: Optional[int] = None  # None: one card here (multi-GPU: ROADMAP.md Queue 1 item 8)
     expert_parallel: int = 1
 
@@ -152,9 +163,10 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    limit_samples: Optional[int] = None  # a key the reference reads and never declares
 
 
-# zdcsim/config/neutron.yaml as overrides (its data paths are not read here)
+# zdcsim/config/neutron.yaml as overrides (its data paths are read only from the file)
 NEUTRON_OVERRIDES = (
     "model.architecture=neutron", "model.norm=group", "dataset.zdc_type=neutron",
     "dataset.input_image_shape=[44, 44]",
@@ -180,41 +192,212 @@ def _parse_value(raw: str) -> Any:
     return s
 
 
+def _set(cfg: Config, key: str, value: Any) -> None:
+    """Set the dotted ``key``; a path that does not exist, or that names a
+    section, raises ``KeyError``."""
+    parts = key.strip().split(".")
+    node = cfg
+    for part in parts[:-1]:
+        if not dataclasses.is_dataclass(node) or not hasattr(node, part):
+            raise KeyError(f"Config path not found: '{key}'")
+        node = getattr(node, part)
+    if (not dataclasses.is_dataclass(node) or not hasattr(node, parts[-1])
+            or dataclasses.is_dataclass(getattr(node, parts[-1]))):
+        raise KeyError(f"Config path not found: '{key}'")
+    setattr(node, parts[-1], tuple(value) if isinstance(value, list) else value)
+
+
 def apply_overrides(cfg: Config, overrides: Optional[Iterable[str]]) -> Config:
     for item in overrides or []:
         if "=" not in item:
             raise ValueError(f"Override must look like key=value, got: '{item}'")
         key, _, raw = item.partition("=")
-        parts = key.strip().split(".")
-        node = cfg
-        for part in parts[:-1]:
-            if not dataclasses.is_dataclass(node) or not hasattr(node, part):
-                raise KeyError(f"Config path not found: '{key}'")
-            node = getattr(node, part)
-        if not hasattr(node, parts[-1]) or dataclasses.is_dataclass(getattr(node, parts[-1])):
-            raise KeyError(f"Config path not found: '{key}'")
-        value = _parse_value(raw)
-        if isinstance(value, list):
-            value = tuple(value)
-        setattr(node, parts[-1], value)
+        _set(cfg, key, _parse_value(raw))
     return cfg
 
 
-def load_config(overrides: Optional[List[str]] = None) -> Config:
-    """Defaults, then ``a.b=c`` overrides (the neutron preset is
-    ``[*NEUTRON_OVERRIDES, ...]``), then the checks of the JAX loader that
-    concern the keys held here, the norm, and ``build_moe``'s generator rule."""
+def apply_tree(cfg: Config, tree: Dict[str, Any], prefix: str = "") -> Config:
+    """Merge a nested mapping (a YAML config) over ``cfg``, key by key."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            apply_tree(cfg, v, f"{prefix}{k}.")
+        else:
+            _set(cfg, f"{prefix}{k}", v)
+    return cfg
+
+
+# -- the YAML subset of the configs ------------------------------------------
+
+# PyYAML's YAML 1.1 resolvers (yaml/resolver.py), for the forms a config holds
+_YAML_NULL = {"", "~", "null", "Null", "NULL"}
+_YAML_BOOL = {**{w: True for w in ("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On",
+                                   "ON")},
+              **{w: False for w in ("no", "No", "NO", "false", "False", "FALSE", "off", "Off",
+                                    "OFF")}}
+_YAML_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_YAML_FLOAT = re.compile(r"^(?:[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|\.[0-9_]+(?:[eE][-+][0-9]+)?)$")
+_YAML_SPECIAL_FLOAT = {".inf": float("inf"), ".Inf": float("inf"), ".INF": float("inf"),
+                       "+.inf": float("inf"), "-.inf": float("-inf"), "-.Inf": float("-inf"),
+                       "-.INF": float("-inf"), ".nan": float("nan"), ".NaN": float("nan"),
+                       ".NAN": float("nan")}
+
+
+def _yaml_error(path: str, lineno: int, msg: str) -> ValueError:
+    return ValueError(f"{path}:{lineno}: {msg} (the port reads nested maps of scalars, "
+                      "quoted strings and flow lists)")
+
+
+def _strip_comment(line: str) -> str:
+    """``line`` without a ``#`` comment (one at the start or after a space,
+    outside quotes)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'" and (i == 0 or line[i - 1] in " [,:"):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _split_flow(inner: str, where) -> List[str]:
+    """The items of a flow list's inside, split at top-level commas."""
+    items, quote, start = [], None, 0
+    for i, ch in enumerate(inner):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "\"'":
+            quote = ch
+        elif ch in "[]{}":
+            raise where("nested flow collections")
+        elif ch == ",":
+            items.append(inner[start:i])
+            start = i + 1
+    items.append(inner[start:])
+    if items and not items[-1].strip():  # a trailing comma
+        items.pop()
+    return items
+
+
+def _yaml_scalar(text: str, where) -> Any:
+    """One plain, quoted or flow-list value, resolved as PyYAML resolves it."""
+    s = text.strip()
+    if s.startswith("["):
+        if not s.endswith("]"):
+            raise where(f"unclosed flow list {s!r}")
+        return [_yaml_scalar(x, where) for x in _split_flow(s[1:-1], where)]
+    if s and s[0] in "\"'":
+        if len(s) < 2 or s[-1] != s[0]:
+            raise where(f"unclosed quoted string {s!r}")
+        body = s[1:-1]
+        if s[0] == "'":
+            return body.replace("''", "'")
+
+        def unescape(m):
+            if m.group(1) not in "\"\\":
+                raise where(f"escape sequences other than \\\" and \\\\ in {s!r}")
+            return m.group(1)
+
+        return re.sub(r"\\(.)", unescape, body)
+    if s and (s[0] in "{&*!|>%@`" or s.startswith("- ")):
+        raise where(f"unsupported YAML {s!r}")
+    if s in _YAML_NULL:
+        return None
+    if s in _YAML_BOOL:
+        return _YAML_BOOL[s]
+    if _YAML_INT.match(s):
+        return int(s.replace("_", ""))
+    if _YAML_FLOAT.match(s):
+        return float(s.replace("_", ""))
+    if s in _YAML_SPECIAL_FLOAT:
+        return _YAML_SPECIAL_FLOAT[s]
+    return s
+
+
+def read_yaml(path: str) -> Dict[str, Any]:
+    """The nested mapping of the YAML file ``path``, as ``yaml.safe_load``
+    reads it, for the subset that the configs use: block mappings indented
+    by spaces, plain and quoted scalars (YAML 1.1's null, bool, int and
+    float forms), flow lists of scalars and ``#`` comments. Anything else
+    (block lists, anchors, multi-line scalars, tabs, a document marker)
+    raises ``ValueError`` naming the line."""
+    root: Dict[str, Any] = {}
+    # open mappings: (indent of their keys, None until the first key), the mapping
+    stack: List[List[Any]] = [[0, root]]
+    empty: List[Tuple[Dict[str, Any], str]] = []  # keys with no value of their own
+    opened = False  # the previous key opened a nested mapping
+    with open(path, encoding="utf-8") as f:
+        for lineno, raw in enumerate(f, 1):
+            where = lambda msg, n=lineno: _yaml_error(path, n, msg)  # noqa: E731
+            line = _strip_comment(raw.rstrip("\n")).rstrip()
+            if not line.strip():
+                continue
+            body = line.lstrip(" ")
+            indent = len(line) - len(body)
+            if body[0] == "\t" or line.startswith(("---", "...")) and indent == 0:
+                raise where("tabs or document markers")
+            if opened:
+                if indent <= stack[-2][0]:  # the key opened nothing: YAML's null
+                    stack.pop()
+                else:
+                    stack[-1][0] = indent
+                opened = False
+            while indent < stack[-1][0]:
+                stack.pop()
+            if indent != stack[-1][0]:
+                raise where(f"indentation {indent} matches no open mapping")
+            node = stack[-1][1]
+            m = re.match(r"^(\"[^\"]*\"|'[^']*'|[^\"'#:\s][^:]*?)\s*:(?:\s+(.*))?$", body)
+            if not m:
+                raise where(f"not a 'key: value' line: {body!r}")
+            key = _yaml_scalar(m.group(1), where) if m.group(1)[0] in "\"'" else m.group(1)
+            if key in node:
+                raise where(f"duplicate key {key!r}")
+            if m.group(2) is None or not m.group(2).strip():
+                node[key] = {}
+                empty.append((node, key))
+                stack.append([None, node[key]])
+                opened = True
+            else:
+                node[key] = _yaml_scalar(m.group(2), where)
+    for node, key in empty:
+        if node[key] == {}:
+            node[key] = None
+    return root
+
+
+def load_config(overrides: Optional[List[str]] = None,
+                config_path: Optional[str] = None) -> Config:
+    """Defaults, then the YAML file ``config_path`` merged over them
+    (:func:`read_yaml`), then ``a.b=c`` overrides (the neutron preset is
+    also ``[*NEUTRON_OVERRIDES, ...]``), then the checks of the JAX loader
+    that concern the keys held here, the norm, the router's version and
+    ``build_moe``'s generator rule."""
     from zdcsim_torch.models import generator_spec
 
-    cfg = apply_overrides(Config(), overrides)
+    cfg = Config()
+    if config_path is not None:
+        apply_tree(cfg, read_yaml(config_path) or {})
+    cfg = apply_overrides(cfg, overrides)
     if cfg.model.architecture not in ("proton", "neutron"):
         raise ValueError(f"model.architecture must be proton|neutron, got {cfg.model.architecture}")
+    if cfg.dataset.zdc_type not in ("proton", "neutron"):
+        raise ValueError(f"dataset.zdc_type must be proton|neutron, got {cfg.dataset.zdc_type}")
     if int(cfg.model.n_experts) < 1:
         raise ValueError("model.n_experts must be >= 1")
     if len(tuple(cfg.dataset.input_image_shape)) != 2:
         raise ValueError("dataset.input_image_shape must be [H, W]")
     if cfg.model.norm not in ("batch", "group", "none"):
         raise ValueError(f"model.norm must be batch|group|none, got {cfg.model.norm}")
+    if cfg.model.router.version == "router_attention":
+        raise NotImplementedError("model.router.version=router_attention (AttentionRouterNetwork) "
+                                  "is not ported yet: ROADMAP.md Queue 1 item 9")
+    if cfg.model.router.version != "router_v1":
+        raise ValueError(f"model.router.version must be router_v1|router_attention, got "
+                         f"{cfg.model.router.version!r}")
     if (cfg.train.checkpoint_experiment_dir is None) != (cfg.train.epoch_to_load is None):
         raise ValueError("train.checkpoint_experiment_dir and train.epoch_to_load must be set "
                          "together (resume) or both left null")

@@ -86,7 +86,8 @@ import torch
 
 from zdcsim_torch.config import Config, load_config
 from zdcsim_torch.convert import (
-    expert, from_jax_params, from_state_dict, stats_from_jax, to_state_dict, tree_to_torch,
+    expert, from_jax_params, from_state_dict, stats_from_jax, stats_to_jax, to_state_dict,
+    tree_to_torch,
 )
 from zdcsim_torch.device import default_device
 from zdcsim_torch.inference.switch_dispatch import tiled_switch_decode
@@ -98,6 +99,7 @@ from zdcsim_torch.models.neutron_fast import (
 from zdcsim_torch.models.proton import Generator
 from zdcsim_torch.models.proton_fast import fast_generator_apply, quantize_weights
 from zdcsim_torch.models.router import RouterNetwork
+from zdcsim_torch.utils.artifact import _unflatten
 
 # precision -> int8 backend of fast_generator_apply (None: the float decode)
 _BACKENDS = {"f32": None, "bf16": None, "int8": "xla", "int8_pallas_ab": "pallas_ab",
@@ -702,16 +704,22 @@ class FastSim:
     @classmethod
     def from_state(cls, modules, state, use_ema: bool = True, **kwargs) -> "FastSim":
         """An engine serving ``state``'s generator (its EMA unless ``use_ema``
-        is off) behind its router. ``modules`` is the ``MoEModules`` the state
+        is off) behind its router, with the state's generator statistics
+        (a ``norm="batch"`` neutron generator's running averages: folded, as
+        JAX's ``from_state``). ``modules`` is the ``MoEModules`` the state
         was trained with, of a generator class ``build_moe`` builds (the
         tiny test stand-ins are not served); ``kwargs`` go to the
         constructor, whose ``cfg`` defaults to ``load_config()`` with the
-        modules' geometry."""
+        modules' geometry, for the proton generator (the neutron family's
+        needs the run's ``cfg``)."""
         from zdcsim_torch.models import GENERATORS
 
         if modules.generator.__class__ not in GENERATORS.values():
             raise ValueError(f"FastSim serves the generators of build_moe, not "
                              f"{modules.names.get('generator', type(modules.generator).__name__)}")
+        if "cfg" not in kwargs and not isinstance(modules.generator, Generator):
+            raise ValueError("FastSim.from_state of a neutron generator needs the run's cfg "
+                             "(its norm and width)")
         if "cfg" not in kwargs:
             h, w = modules.image_shape
             kwargs["cfg"] = load_config([
@@ -719,7 +727,7 @@ class FastSim:
                 f"model.cond_dim={modules.cond_dim}", f"dataset.input_image_shape=[{h}, {w}]"])
         gen = state.ema_gen_params if use_ema else state.gen.params
         return cls(from_state_dict(gen, stacked=True), from_state_dict(state.router.params),
-                   **kwargs)
+                   gen_stats=stats_to_jax(_unflatten(state.gen.stats)), **kwargs)
 
     @classmethod
     def from_checkpoint(cls, cfg: Config, dir_models: str, epoch: int, **kwargs) -> "FastSim":

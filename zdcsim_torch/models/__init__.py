@@ -10,6 +10,14 @@ on its slice (``torch.unbind``, whose backward stacks the slices' gradients),
 and the outputs are stacked. The generator broadcasts noise and conditions to
 every expert; the discriminator and the aux regressor take each expert's own
 ``[E, B, ...]`` slice, as JAX's ``in_axes=(0, None, None)`` and ``(0, None)``.
+
+The neutron family's generator and aux regressor have a training form
+(``train_form``): dropout on given keep masks and, under ``model.norm=batch``
+(``MoEModules.masked``), ``MaskedBatchNorm`` statistics over each expert's
+routed sub-batch, as JAX's ``generator_masked`` / ``aux_reg_masked``. Their
+stats (BatchNorm running means and variances) sit in the train state keyed
+by Flax's ``batch_stats`` paths joined by ``|``, and reach the modules as
+their buffers (:func:`bn_buffers`).
 """
 
 from __future__ import annotations
@@ -21,7 +29,9 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
-from zdcsim_torch.models.neutron import GeneratorNeutron, GeneratorNeutronV2
+from zdcsim_torch.models.neutron import (
+    AuxRegNeutron, DiscriminatorNeutron, GeneratorNeutron, GeneratorNeutronV2,
+)
 from zdcsim_torch.models.proton import AuxReg, Discriminator, Generator
 from zdcsim_torch.models.router import RouterNetwork
 
@@ -65,11 +75,31 @@ def stack_trees(trees: Sequence[Tree]) -> Tree:
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+_BUFFERS = {"mean": "running_mean", "var": "running_var"}
+
+
+def bn_buffers(stats: Optional[Tree]) -> Tree:
+    """BatchNorm stats keyed by Flax path (``MaskedBatchNorm_0|mean``) -> the
+    modules' buffer names (``MaskedBatchNorm_0.running_mean``)."""
+    out = {}
+    for k, v in (stats or {}).items():
+        path, _, leaf = k.rpartition("|")
+        out[f"{path.replace('|', '.')}.{_BUFFERS[leaf]}"] = v
+    return out
+
+
+def _per_expert(x: Optional[Sequence[torch.Tensor]], e: int):
+    return None if x is None else tuple(k[e] for k in x)
+
+
 @dataclass
 class MoEModules:
     """One expert's generator, discriminator and aux regressor, the router,
     and the geometry (counterpart of ``zdcsim/models/__init__.py:82``). The
-    modules hold no weights of their own: the train state does, stacked."""
+    modules hold no weights of their own: the train state does, stacked.
+    ``masked``: the generator's and the aux regressor's BatchNorm take each
+    expert's routing mask (neutron ``model.norm=batch``: JAX's
+    ``generator_masked`` / ``aux_reg_masked``)."""
 
     generator: nn.Module
     discriminator: nn.Module
@@ -80,11 +110,15 @@ class MoEModules:
     cond_dim: int
     image_shape: Tuple[int, int]
     names: Dict[str, str] = field(default_factory=dict)
+    masked: bool = False
 
-    def generate(self, params: Tree, noise: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        """Every expert on the same ``noise``, ``cond``: ``[E, B, H, W, 1]``."""
-        return torch.stack([self.generate_one(p, noise, cond)
-                            for p in expert_slices(params, self.n_experts)])
+    def generate(self, params: Tree, noise: torch.Tensor, cond: torch.Tensor,
+                 stats: Optional[Tree] = None) -> torch.Tensor:
+        """Every expert on the same ``noise``, ``cond`` in eval (BatchNorm on
+        the running ``stats``): ``[E, B, H, W, 1]``."""
+        return torch.stack([self.generate_one(p, noise, cond, s) for p, s in
+                            zip(expert_slices(params, self.n_experts),
+                                expert_slices(stats or {}, self.n_experts))])
 
     def discriminate(self, params: Tree, stats: Tree, img: torch.Tensor, cond: torch.Tensor,
                      train: bool = True) -> Tuple[torch.Tensor, torch.Tensor, Tree]:
@@ -99,20 +133,44 @@ class MoEModules:
     def regress(self, params: Tree, img: torch.Tensor,
                 keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """Expert ``e`` regresses ``img[e]`` with its keep masks ``keep[i][e]``
-        (``None``: the eval form): ``[E, B, 2]``."""
-        def keep_of(e):
-            return None if keep is None else tuple(k[e] for k in keep)
+        (``None``: no dropout), a regressor without stats: ``[E, B, 2]``."""
+        return self.regress_all(params, {}, img, keep)[0]
 
-        slices = zip(expert_slices(params, self.n_experts), img.unbind(0))
-        return torch.stack([self.regress_one(p, x, keep_of(e)) for e, (p, x) in enumerate(slices)])
+    def regress_all(self, params: Tree, stats: Tree, img: torch.Tensor,
+                    keep: Optional[Sequence[torch.Tensor]] = None,
+                    masks: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Tree]:
+        """:meth:`regress` in training form with the stacked ``stats`` and,
+        where :attr:`masked`, each expert's routing mask ``masks[e]``:
+        ``([E, B, 2], new stats stacked)``."""
+        outs = [self.regress_train(p, s, x, _per_expert(keep, e),
+                                   masks[e] if self.masked else None)
+                for e, (p, s, x) in enumerate(zip(expert_slices(params, self.n_experts),
+                                                  expert_slices(stats, self.n_experts),
+                                                  img.unbind(0)))]
+        preds, new = zip(*outs)
+        return torch.stack(preds), stack_trees(new) if new[0] else {}
 
     # One expert on a chunk (``params``/``stats``: its slice, :func:`expert_slices`),
     # the handles of the switch step (JAX's ``generator_single``,
     # ``discriminator_single``, ``aux_reg_single``).
 
-    def generate_one(self, params: Tree, noise: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        """``[T, H, W, 1]``."""
-        return functional_call(self.generator, params, (noise, cond))
+    def generate_one(self, params: Tree, noise: torch.Tensor, cond: torch.Tensor,
+                     stats: Optional[Tree] = None) -> torch.Tensor:
+        """``[T, H, W, 1]`` in eval (no dropout; BatchNorm on the running
+        ``stats``)."""
+        return functional_call(self.generator, {**params, **bn_buffers(stats)}, (noise, cond))
+
+    def generate_train(self, params: Tree, stats: Optional[Tree], noise: torch.Tensor,
+                       cond: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None,
+                       mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Tree]:
+        """``([T, H, W, 1], new stats)`` in training form, with the rows'
+        keep masks (``None``: no dropout) and the BatchNorm routing ``mask``
+        ``[T]``; a generator without a training form runs its forward and
+        returns no stats."""
+        if not getattr(self.generator, "train_form", False):
+            return self.generate_one(params, noise, cond), {}
+        return functional_call(self.generator, {**params, **bn_buffers(stats)},
+                               (noise, cond, True, keep, mask))
 
     def discriminate_one(self, params: Tree, stats: Tree, img: torch.Tensor, cond: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -123,8 +181,19 @@ class MoEModules:
 
     def regress_one(self, params: Tree, img: torch.Tensor,
                     keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        """``[T, 2]`` with the chunk rows' keep masks (``None``: the eval form)."""
-        return functional_call(self.aux_reg, params, (img, keep))
+        """``[T, 2]`` with the chunk rows' keep masks (``None``: the eval form;
+        the stats-free regressors of the switch step)."""
+        return self.regress_train(params, {}, img, keep)[0]
+
+    def regress_train(self, params: Tree, stats: Optional[Tree], img: torch.Tensor,
+                      keep: Optional[Sequence[torch.Tensor]] = None,
+                      mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Tree]:
+        """``([T, 2], new stats)`` in training form (the proton ``AuxReg``:
+        its forward with ``keep``, no stats)."""
+        if not getattr(self.aux_reg, "train_form", False):
+            return functional_call(self.aux_reg, params, (img, keep)), {}
+        return functional_call(self.aux_reg, {**params, **bn_buffers(stats)},
+                               (img, keep, True, mask))
 
     def route(self, params: Tree, cond: torch.Tensor) -> torch.Tensor:
         """The router's logits ``[B, E]``."""
@@ -132,26 +201,28 @@ class MoEModules:
 
 
 def build_moe(cfg) -> MoEModules:
-    """The proton family's MoE of training from a config (``build_moe``,
-    ``zdcsim/models/__init__.py:114``). The neutron family's discriminator
-    and aux regressor are not ported yet."""
+    """The MoE of training from a config (``build_moe``,
+    ``zdcsim/models/__init__.py:114``): the family's generator (``generator_spec``),
+    discriminator and aux regressor, and the router. The neutron family's
+    ``model.norm`` reaches its generator and aux regressor; under ``batch``
+    their BatchNorm statistics are masked per expert (``masked``)."""
     m = cfg.model
-    if m.architecture != "proton":
-        raise NotImplementedError(
-            "training the neutron family (DiscriminatorNeutron, AuxRegNeutron, MaskedBatchNorm's "
-            "training form) is not ported yet: ROADMAP.md Queue 1 item 6b")
     gen_cls, kwargs = generator_spec(m.architecture, m.generator.version, m.norm,
                                      m.generator.width)
     shape = tuple(cfg.dataset.input_image_shape)
+    neutron = m.architecture == "neutron"
     with torch.device("meta"):
         modules = (gen_cls(noise_dim=m.noise_dim, cond_dim=m.cond_dim, **kwargs),
-                   Discriminator(cond_dim=m.cond_dim, image_shape=shape), AuxReg(),
+                   (DiscriminatorNeutron if neutron else Discriminator)(
+                       cond_dim=m.cond_dim, image_shape=shape),
+                   AuxRegNeutron(norm=m.norm) if neutron else AuxReg(),
                    RouterNetwork(n_experts=m.n_experts, cond_dim=m.cond_dim,
                                  widths=m.router.widths))
     return MoEModules(*modules, n_experts=int(m.n_experts), noise_dim=int(m.noise_dim),
                       cond_dim=int(m.cond_dim), image_shape=shape,
                       names={k: type(v).__name__ for k, v in
-                             zip(("generator", "discriminator", "aux_reg", "router"), modules)})
+                             zip(("generator", "discriminator", "aux_reg", "router"), modules)},
+                      masked=neutron and m.norm == "batch")
 
 
 def count_parameters(params: Tree) -> int:

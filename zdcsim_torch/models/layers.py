@@ -9,6 +9,7 @@ PyTorch's 1e-5; ``MaskedBatchNorm`` keeps its own 1e-5.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -125,17 +126,29 @@ class GroupNorm2d(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval form of the JAX ``MaskedBatchNorm`` (``zdcsim/models/layers.py:98``):
-    ``(x - mean) * rsqrt(var + 1e-5) * scale + bias`` per feature, computed in
-    float32 and cast back to the input's dtype. ``weight``/``bias`` hold
-    Flax's ``scale``/``bias``; the buffers ``running_mean``/``running_var``
-    hold its ``batch_stats`` ``mean``/``var``. Flax stores the biased
-    variance, and eval uses it as stored. The feature axis is 1 (``[B, C]``
-    or NCHW ``[B, C, H, W]``).
+    """The JAX ``MaskedBatchNorm`` (``zdcsim/models/layers.py:98``) on a
+    feature axis of 1 (``[B, C]`` or NCHW ``[B, C, H, W]``). ``weight``/``bias``
+    hold Flax's ``scale``/``bias``; the buffers ``running_mean``/``running_var``
+    hold its ``batch_stats`` ``mean``/``var`` (the biased variance, as Flax
+    stores it).
 
-    The training form (masked sub-batch statistics) is not ported:
-    ``train=True`` raises.
-    """
+    Eval (``train=False``): ``(x - mean) * rsqrt(var + 1e-5) * scale + bias``
+    on the running statistics; returns ``y``.
+
+    Train: the statistics of the batch, in float32 and in two passes, each
+    sample weighted by ``mask`` (``[B]``, the expert's routing mask; ``None``:
+    every sample): ``mean = sum(m x) / cnt``, ``var = sum(m (x - mean)^2) /
+    cnt``, ``cnt = max(sum(m) * spatial, 1)``. The rows outside the mask
+    come out exactly zero (left normalised by another sub-batch's
+    statistics, they grow through stacked layers until ``inf * 0`` poisons
+    the masked losses). Returns ``(y, new running mean, new running
+    var)``, ``0.9 old + 0.1 batch``, detached: the buffers are not written,
+    so the caller keeps the statistics, as ``_SpectralNorm`` returns its
+    ``u``. Either form computes in float32, or in the input's dtype where
+    that is wider (float64: JAX's float32 rule for every dtype it runs), and
+    casts ``y`` back to the input's dtype."""
+
+    momentum = 0.9
 
     def __init__(self, features: int):
         super().__init__()
@@ -144,15 +157,35 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "MaskedBatchNorm's training form (masked sub-batch statistics) is not ported "
-                "yet (ROADMAP.md Queue 1 item 6)")
-        f32 = lambda t: t.to(torch.float32)  # noqa: E731
-        y = F.batch_norm(f32(x), f32(self.running_mean), f32(self.running_var), f32(self.weight),
-                         f32(self.bias), training=False, eps=BN_EPS)
-        return y.to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False, mask: Optional[torch.Tensor] = None):
+        wide = torch.promote_types(x.dtype, torch.float32)
+        up = lambda t: t.to(wide)  # noqa: E731
+        if not train:
+            y = F.batch_norm(up(x), up(self.running_mean), up(self.running_var),
+                             up(self.weight), up(self.bias), training=False, eps=BN_EPS)
+            return y.to(x.dtype)
+        xf = up(x)
+        axes = (0,) + tuple(range(2, x.ndim))
+        feat = (1, -1) + (1,) * (x.ndim - 2)  # a per-feature vector against x
+        spatial = float(math.prod(x.shape[2:]))
+        if mask is None:
+            m, s1, w_sum = None, xf.sum(axes), float(x.shape[0])
+        else:
+            m = up(mask).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+            s1, w_sum = (xf * m).sum(axes), m.sum()
+        cnt = torch.clamp(torch.as_tensor(w_sum * spatial, dtype=wide, device=x.device), min=1.0)
+        mean = s1 / cnt
+        centered = xf - mean.reshape(feat)
+        sq = centered * centered
+        var = (sq if m is None else sq * m).sum(axes) / cnt
+        y = centered * torch.rsqrt(var + BN_EPS).reshape(feat)
+        y = y * up(self.weight).reshape(feat) + up(self.bias).reshape(feat)
+        if m is not None:
+            y = y * m
+        keep = self.momentum
+        new_mean = keep * up(self.running_mean) + (1.0 - keep) * mean.detach()
+        new_var = keep * up(self.running_var) + (1.0 - keep) * var.detach()
+        return y.to(x.dtype), new_mean, new_var
 
 
 def max_pool(x: torch.Tensor, window: Tuple[int, int],

@@ -67,15 +67,18 @@ class Generator(nn.Module):
 class Discriminator(nn.Module):
     """Hinge discriminator with spectral norm (``zdcsim/models/proton.py:74``):
     SN Conv3x3 32 (GN 8 groups) -> pool 2x2 -> SN Conv3x3 16 (GN 8) -> pool
-    (2, 1) -> flatten in NHWC order ++ cond -> SN FC128 (LN) -> SN FC64 (LN) =
-    latent -> SN FC1. ``forward(img, cond, stats, train)`` returns ``(score
-    [B, 1], latent [B, 64], new stats)`` (see ``layers._SpectralNorm``)."""
+    ``pool_1`` ((2, 1); the neutron discriminator's is (2, 2)) -> flatten in
+    NHWC order ++ cond -> SN FC128 (LN) -> SN FC64 (LN) = latent -> SN FC1.
+    ``forward(img, cond, stats, train)`` returns ``(score [B, 1], latent [B,
+    64], new stats)`` (see ``layers._SpectralNorm``)."""
 
-    def __init__(self, cond_dim: int = 9, image_shape: Tuple[int, int] = PROTON_SHAPE):
+    def __init__(self, cond_dim: int = 9, image_shape: Tuple[int, int] = PROTON_SHAPE,
+                 pool_1: Tuple[int, int] = (2, 1)):
         super().__init__()
+        self.pool_1 = tuple(pool_1)
         h, w = image_shape
         h, w = (h - 2) // 2, (w - 2) // 2  # SN conv 3x3 VALID, pool 2x2
-        h, w = (h - 2) // 2, w - 2  # SN conv 3x3 VALID, pool (2, 1)
+        h, w = (h - 2) // pool_1[0], (w - 2) // pool_1[1]  # SN conv 3x3 VALID, pool_1
         self.SNConv_0 = SNConv(1, 32, 3, "SNConv_0")
         self.GroupNorm2d_0 = GroupNorm2d(32, groups=8)
         self.SNConv_1 = SNConv(32, 16, 3, "SNConv_1")
@@ -97,7 +100,7 @@ class Discriminator(nn.Module):
 
         x = img.permute(0, 3, 1, 2)
         x = max_pool(leaky_relu(self.GroupNorm2d_0(sn(self.SNConv_0, x))), (2, 2))  # 27x14
-        x = max_pool(leaky_relu(self.GroupNorm2d_1(sn(self.SNConv_1, x))), (2, 1))  # 12x12
+        x = max_pool(leaky_relu(self.GroupNorm2d_1(sn(self.SNConv_1, x))), self.pool_1)  # 12x12
         # the SNDense_0 kernel reads the features in JAX's NHWC order
         x = torch.cat([x.permute(0, 2, 3, 1).reshape(x.shape[0], -1), cond], dim=1)
         x = leaky_relu(self.LayerNorm_0(sn(self.SNDense_0, x)))

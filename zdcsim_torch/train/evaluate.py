@@ -9,7 +9,9 @@ over the runs of the channel-averaged W1, overall and per expert, beside
 the scale-normalised ``ws_mean_rel``, the real-vs-real floor of two seeded
 random halves, the routing counts and, given expert labels, the router's
 classification metrics. As in JAX the router and the generator are the
-state's parameters, not the EMA.
+state's parameters, not the EMA, and the generator runs in eval: no
+dropout, and a ``norm=batch`` neutron generator's BatchNorm on the state's
+running statistics.
 
 Per chunk of ``eval.chunk_size`` conditions (the last padded with repeats
 of the first rows, the sums trimmed back) the generation runs the tiled
@@ -38,7 +40,7 @@ import torch
 from torch.func import functional_call
 
 from zdcsim_torch.inference.switch_dispatch import tiled_switch_decode
-from zdcsim_torch.models import MoEModules, expert_slices
+from zdcsim_torch.models import MoEModules, bn_buffers, expert_slices
 from zdcsim_torch.ops.channels import sum_channels
 from zdcsim_torch.ops.epilogue_kernels import expm1_channel_sums
 from zdcsim_torch.ops.routing import gumbel_noise
@@ -47,7 +49,8 @@ from zdcsim_torch.train.step import f32_matmuls
 
 
 def _decode(module: torch.nn.Module, params, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """One expert's log-space showers ``[T, H, W]``."""
+    """One expert's log-space showers ``[T, H, W]`` (``params``: its
+    parameters and buffers)."""
     return functional_call(module, params, (z, c))[..., 0]
 
 
@@ -73,14 +76,14 @@ def build_evaluator(modules: MoEModules, cfg, chunk_size: Optional[int] = None):
             return expm1_channel_sums(img_log)
         return sum_channels(torch.expm1(img_log))
 
-    def gen_chunk(params, experts, cond, idx, noise):
+    def gen_chunk(params, stats, experts, cond, idx, noise):
         b = cond.shape[0]
         tile = math.gcd(b, 64)
         if tile >= 2:
             decoders = [functools.partial(_decode, modules.generator, p) for p in experts]
             sel = tiled_switch_decode(decoders, idx, cond, noise, (h_img, w_img), tile=tile)
         else:  # every expert, then the routed gather
-            imgs = modules.generate(params, noise, cond)  # [E, B, H, W, 1]
+            imgs = modules.generate(params, noise, cond, stats)  # [E, B, H, W, 1]
             sel = imgs[idx, torch.arange(b, device=idx.device), ..., 0]
         return channels_of_log(sel)
 
@@ -129,8 +132,9 @@ def build_evaluator(modules: MoEModules, cfg, chunk_size: Optional[int] = None):
             if gumbel.shape != (n, E):
                 raise ValueError(f"gumbel must be [{n}, {E}], got {tuple(gumbel.shape)}")
 
-        r_params, g_params = state.router.params, state.gen.params
-        experts = expert_slices(g_params, E)
+        r_params, g_params, g_stats = state.router.params, state.gen.params, state.gen.stats
+        experts = [{**p, **bn_buffers(st)} for p, st in zip(expert_slices(g_params, E),
+                                                             expert_slices(g_stats, E))]
         slices = [slice(c * csize, (c + 1) * csize) for c in range(chunks)]
         with f32_matmuls():
             idx_parts, org_parts = [], []
@@ -145,7 +149,8 @@ def build_evaluator(modules: MoEModules, cfg, chunk_size: Optional[int] = None):
             ch_org = torch.cat(org_parts)[:n_true]
             ws_runs, ws_exp_runs = [], []
             for j in range(n_calc):
-                ch_gen = torch.cat([gen_chunk(g_params, experts, cond[sl], idx[sl], noise[j, sl])
+                ch_gen = torch.cat([gen_chunk(g_params, g_stats, experts, cond[sl], idx[sl],
+                                              noise[j, sl])
                                     for sl in slices])[:n_true]
                 overall, per_exp = ws_all(ch_org, ch_gen, idx_true)
                 ws_runs.append(overall)

@@ -4,8 +4,9 @@
 Each component's per-expert parameters live stacked on a leading ``[E,
 ...]`` axis of one flat tree (``{state_dict name: tensor}``, PyTorch
 layout), with one Adam state; its stats (the discriminator's spectral-norm
-``u`` and ``sigma``) are a flat tree keyed by Flax's ``batch_stats`` paths
-joined by ``|``. Adam is a plain function on ``(count, mu, nu)`` with
+``u`` and ``sigma``, the neutron ``norm=batch`` generator's and aux
+regressor's BatchNorm ``mean`` and ``var``) are a flat tree keyed by Flax's
+``batch_stats`` paths joined by ``|``. Adam is a plain function on ``(count, mu, nu)`` with
 optax's arithmetic, so optax's state maps onto it leaf for leaf
 (``zdcsim_torch.convert``), and the per-expert mask selects parameters,
 moments and stats. The count is one scalar shared by the experts that always
@@ -24,7 +25,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from zdcsim_torch.models import MoEModules
-from zdcsim_torch.models.layers import _SpectralNorm
+from zdcsim_torch.models.layers import MaskedBatchNorm, _SpectralNorm
 
 Tree = Dict[str, torch.Tensor]
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam as make_optimizers builds it
@@ -175,15 +176,21 @@ def _init_params(module: torch.nn.Module, n_experts: Optional[int],
 
 def _init_stats(module: torch.nn.Module, n_experts: int, generator: torch.Generator,
                 device) -> Tree:
-    """Each spectral-norm layer's ``u ~ N(0, 1)`` of shape ``[E, 1, out]``
-    and ``sigma = 1`` of shape ``[E]``."""
+    """Flax's initial ``batch_stats``, stacked on a leading ``[E]`` axis: each
+    spectral-norm layer's ``u ~ N(0, 1)`` of shape ``[E, 1, out]`` and
+    ``sigma = 1`` of shape ``[E]``; each ``MaskedBatchNorm``'s ``mean`` 0 and
+    ``var`` 1 of shape ``[E, features]``."""
     out = {}
-    for _, m in module.named_modules():
+    for path, m in module.named_modules():
         if isinstance(m, _SpectralNorm):
             ku, ks = m.stats_keys()
             n_out = getattr(m, m.inner).weight.shape[0]
             out[ku] = torch.randn((n_experts, 1, n_out), generator=generator, device=device)
             out[ks] = torch.ones((n_experts,), device=device)
+        elif isinstance(m, MaskedBatchNorm):
+            shape, key = (n_experts, m.weight.shape[0]), path.replace(".", "|")
+            out[f"{key}|mean"] = torch.zeros(shape, device=device)
+            out[f"{key}|var"] = torch.ones(shape, device=device)
     return out
 
 
@@ -203,10 +210,11 @@ def init_state(modules: MoEModules, cfg, seed: int = 0,
 
     gen_params = _init_params(modules.generator, e, gen, dev)
     return MoETrainState(
-        gen=comp(gen_params, {}),
+        gen=comp(gen_params, _init_stats(modules.generator, e, gen, dev)),
         disc=comp(_init_params(modules.discriminator, e, gen, dev),
                   _init_stats(modules.discriminator, e, gen, dev)),
-        aux=comp(_init_params(modules.aux_reg, e, gen, dev), {}),
+        aux=comp(_init_params(modules.aux_reg, e, gen, dev),
+                 _init_stats(modules.aux_reg, e, gen, dev)),
         router=comp(_init_params(modules.router, None, gen, dev), {}),
         ema_gen_params={k: v.clone() for k, v in gen_params.items()},
         step=torch.zeros((), dtype=torch.int32, device=dev))

@@ -31,11 +31,28 @@ update and again after the G update (re-masked); the G phase scores with
 the updated discriminator's parameters and the old stats.
 
 The step draws nothing: the Gumbel noise, the two generator noises and the
-aux regressor's dropout keep masks are inputs (:func:`draw_step_noise` makes
-them from an explicit ``torch.Generator``), so the CPU tests hand the port
-JAX's draws. The dense step takes one keep mask per (expert, row), the
-switch step one per row (JAX draws per (expert, chunk); each row's lane is
-what matters).
+dropout keep masks of the aux regressor and of the neutron generator are
+inputs (:func:`draw_step_noise` makes them from an explicit
+``torch.Generator``), so the CPU tests hand the port JAX's draws. The dense
+step takes one keep mask per (expert, row), the switch step one per row
+(JAX draws per (expert, chunk); each row's lane is what matters). JAX's
+dense step draws the generator's dropout of the D phase's fakes and of the
+G phase's first forward on one key (``k_g1``) and of the second on another
+(``k_g2``): so ``gen_keep_1`` serves two forwards and ``gen_keep_2`` one.
+Its switch step draws the D phase's on ``k_g1`` over the B rows and the G
+phase's on ``k_g2`` over the 2B rows of both noises: so there
+``gen_keep_1`` is ``[B, ...]`` and ``gen_keep_2`` ``[2B, ...]``.
+
+The neutron family (``zdcsim/train/step.py:147-153, 221-424``): the
+generators' ``Dropout(0.2)`` and ``AuxRegNeutron``'s run on those keep
+masks; under ``model.norm=batch`` each expert's ``MaskedBatchNorm`` takes
+its routing mask (``MoEModules.masked``: statistics over its routed
+sub-batch, unrouted rows zero) and returns new running statistics. The D
+phase's generator statistics are dropped; the G phase's second forward
+starts from the first's (``gst1 -> gst2``), and the aux regressor's come
+from its one forward; both reach the state for the active experts only.
+The switch step refuses a state with such statistics (``ValueError``,
+JAX's): per-sub-batch statistics need the dense step.
 
 Options (``zdcsim/train/step.py:147-219``): ``train.precision=bf16`` casts
 the floating parameters and inputs of the generator and the aux regressor
@@ -67,7 +84,7 @@ import torch
 
 from zdcsim_torch.convert import flax_view
 from zdcsim_torch.inference.switch_dispatch import tiled_switch_apply
-from zdcsim_torch.models import MoEModules, expert_slices
+from zdcsim_torch.models import MoEModules, expert_slices, stack_trees
 from zdcsim_torch.models.proton_fast import fast_generator_apply
 from zdcsim_torch.ops.losses import (
     adaptive_load_balancing_loss, alb_annealing_weight, differentiation_loss,
@@ -83,17 +100,11 @@ from zdcsim_torch.train.state import (
 Tree = Dict[str, torch.Tensor]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1 item {item}")
-
-
 def check_options(cfg) -> None:
-    """Raise for what this step does not run: ``NotImplementedError`` naming
-    its ``ROADMAP.md`` item for the neutron family, ``ValueError`` for an
-    unknown dispatch or precision."""
+    """Raise ``ValueError`` for an unknown dispatch or precision. Both
+    families train with every option of JAX's single-device step
+    (``fast_generator`` reaches the proton generator only, as in JAX)."""
     t = cfg.train
-    if cfg.model.architecture != "proton":
-        raise _not_ported("training the neutron family", "6b")
     if str(t.dispatch) not in ("dense", "switch"):
         raise ValueError(f"train.dispatch must be dense|switch, got {t.dispatch!r}")
     if str(t.precision) not in ("f32", "bf16"):
@@ -179,25 +190,50 @@ def draw_step_noise(generator: torch.Generator, modules: MoEModules, batch_size:
                     switch: bool = False) -> Dict[str, object]:
     """One step's random draws on ``device`` (CUDA unless the caller asks for
     the CPU) from ``generator`` (on that device): ``gumbel [B, E]``,
-    ``noise_1``, ``noise_2 [B, noise_dim]`` (N(0, 1)) and ``aux_keep``, the
-    aux regressor's dropout keep masks (bool, kept with probability ``1 -
-    rate``, as ``flax.linen.Dropout`` draws them): ``[E, B, *shape]`` per
-    Dropout layer for the dense step, ``[B, *shape]`` (one mask per row,
-    that of the row's routed expert) for the switch step (``switch``, as
-    ``train_step.switch`` says)."""
+    ``noise_1``, ``noise_2 [B, noise_dim]`` (N(0, 1)), then the dropout keep
+    masks (bool, kept with probability ``1 - rate``, as ``flax.linen.Dropout``
+    draws them), a tuple of one mask per Dropout layer (``dropout_shapes``):
+    ``aux_keep``, the aux regressor's, and ``gen_keep_1``, ``gen_keep_2``,
+    the generator's (empty where it has no dropout). The dense step's are
+    ``[E, B, *shape]``; the switch step's (``switch``, as
+    ``train_step.switch`` says) one per row, that of the row's routed
+    expert: ``[B, *shape]``, and ``[2B, *shape]`` for ``gen_keep_2``."""
     from zdcsim_torch.device import default_device
 
     dev = default_device(device)
     b, e = int(batch_size), modules.n_experts
-    aux = modules.aux_reg
-    lead = (b,) if switch else (e, b)
+
+    def keep(module, lead):
+        return tuple(torch.rand((*lead, *shape), generator=generator, device=dev)
+                     < 1.0 - module.rate for shape in getattr(module, "dropout_shapes", ()))
+
+    gen = modules.generator
     return {
         "gumbel": gumbel_noise((b, e), generator, dev),
         "noise_1": torch.randn((b, modules.noise_dim), generator=generator, device=dev),
         "noise_2": torch.randn((b, modules.noise_dim), generator=generator, device=dev),
-        "aux_keep": tuple(torch.rand((*lead, *shape), generator=generator, device=dev)
-                          < 1.0 - aux.rate for shape in aux.dropout_shapes),
+        "aux_keep": keep(modules.aux_reg, (b,) if switch else (e, b)),
+        "gen_keep_1": keep(gen, (b,) if switch else (e, b)),
+        "gen_keep_2": keep(gen, (2 * b,) if switch else (e, b)),
     }
+
+
+def _keep_masks(draws, name: str, module, lead, switch: bool) -> Tuple[torch.Tensor, ...]:
+    """``draws[name]``, checked against ``module``'s Dropout layers and the
+    leading shape ``lead``; a module without dropout takes none."""
+    shapes = tuple(getattr(module, "dropout_shapes", ()))
+    keep = tuple(draws.get(name, ()))
+    if not shapes:
+        return ()
+    if len(keep) != len(shapes) or any(tuple(k.shape) != (*lead, *s)
+                                       for k, s in zip(keep, shapes)):
+        who = "aux" if name == "aux_keep" else "generator"
+        per = "row" if switch else "(expert, row)"
+        raise ValueError(f"the {'switch' if switch else 'dense'} step takes one {who} keep mask "
+                         f"per {per} for each Dropout layer, {[(*lead, *s) for s in shapes]}, "
+                         f"got {[tuple(k.shape) for k in keep]} in draws[{name!r}]: "
+                         "draw_step_noise(..., switch=train_step.switch)")
+    return keep
 
 
 def build_train_step(modules: MoEModules, cfg):
@@ -239,22 +275,30 @@ def build_train_step(modules: MoEModules, cfg):
     def cast(tree, f=c16):
         return {k: f(v) for k, v in tree.items()} if bf16 else tree
 
-    def gen_one(p, noise, cond):
-        """One expert (``p``: its slice, cast) on ``noise``, ``cond``."""
+    def gen_one(p, stats, noise, cond, keep, mask):
+        """One expert (``p``: its slice, cast; ``stats``: its slice) in
+        training form on ``noise``, ``cond``: ``(showers, new stats)``."""
         if fast_gen:
-            out = fast_generator_apply(flax_view(p), c16(noise), c16(cond), train=True)
+            out, new = fast_generator_apply(flax_view(p), c16(noise), c16(cond), train=True), {}
         else:
-            out = modules.generate_one(p, c16(noise), c16(cond))
-        return out.to(noise.dtype)
+            out, new = modules.generate_train(p, stats, c16(noise), c16(cond), keep, mask)
+        return out.to(noise.dtype), new
 
-    def gen_forward(params, noise, cond):
-        return torch.stack([gen_one(p, noise, cond) for p in expert_slices(cast(params), E)])
+    def gen_forward(params, stats, noise, cond, keep, masks):
+        """Every expert: ``([E, B, H, W, 1], new stats stacked)``."""
+        outs = [gen_one(p, st, noise, cond, tuple(k[e] for k in keep),
+                        masks[e] if masks is not None else None)
+                for e, (p, st) in enumerate(zip(expert_slices(cast(params), E),
+                                                expert_slices(stats, E)))]
+        fakes, new = zip(*outs)
+        return torch.stack(fakes), stack_trees(new) if new[0] else {}
 
     def disc_forward(params, stats, img, cond):
         return modules.discriminate(cast(params, r16), stats, r16(img), r16(cond))
 
-    def aux_forward(params, img, keep):
-        return modules.regress(cast(params), c16(img), keep).to(img.dtype)
+    def aux_forward(params, stats, img, keep, masks):
+        pred, new = modules.regress_all(cast(params), stats, c16(img), keep, masks)
+        return pred.to(img.dtype), new
 
     if bool(t.remat):
         gen_forward, disc_forward, aux_forward = (
@@ -359,10 +403,15 @@ def build_train_step(modules: MoEModules, cfg):
         intensity, positions = batch["intensity"], batch["positions"]
         noise_1, noise_2, gumbel = draws["noise_1"], draws["noise_2"], draws["gumbel"]
         B = real.shape[0]
+        aux_keep = _keep_masks(draws, "aux_keep", modules.aux_reg, (E, B), False)
+        gen_keep_1, gen_keep_2 = (_keep_masks(draws, k, modules.generator, (E, B), False)
+                                  for k in ("gen_keep_1", "gen_keep_2"))
         tau = tau_schedule(epoch, *taus).to(real.device)
         idx, masks, w, active, active_f = route(state, cond, gumbel, tau)
-        with torch.no_grad():
-            fake_1 = gen_forward(state.gen.params, noise_1, cond)  # [E, B, H, W, 1]
+        bn_masks = masks if modules.masked else None  # each expert's routed sub-batch
+        with torch.no_grad():  # [E, B, H, W, 1]; its BatchNorm statistics are dropped
+            fake_1, _ = gen_forward(state.gen.params, state.gen.stats, noise_1, cond, gen_keep_1,
+                                    bn_masks)
 
         # ------ discriminator update ------
         d_params = _leaves(state.disc.params)
@@ -377,8 +426,8 @@ def build_train_step(modules: MoEModules, cfg):
 
         # ------ generator + aux update against the updated discriminator ------
         g_params, a_params = _leaves(state.gen.params), _leaves(state.aux.params)
-        fake1 = gen_forward(g_params, noise_1, cond)
-        fake2 = gen_forward(g_params, noise_2, cond)
+        fake1, gst1 = gen_forward(g_params, state.gen.stats, noise_1, cond, gen_keep_1, bn_masks)
+        fake2, gst2 = gen_forward(g_params, gst1, noise_2, cond, gen_keep_2, bn_masks)
         s1, l1, dst1 = disc_forward(disc_new.params, disc_new.stats, fake1, cond)
         s2, l2, dst2 = disc_forward(disc_new.params, dst1, fake2, cond)
         hinge_e = per_expert(hinge_generator_loss, s1[..., 0], masks)
@@ -388,16 +437,19 @@ def build_train_step(modules: MoEModules, cfg):
         ints = [intensity_regularization(fake1[e], intensity, in_strength, masks[e])
                 for e in range(E)]
         int_loss_e, sums1, std_int_e, mean_int_e = (torch.stack(t) for t in zip(*ints))
-        aux_pred = aux_forward(a_params, fake1, draws["aux_keep"])  # [E, B, 2]
+        aux_pred, ast = aux_forward(a_params, state.aux.stats, fake1, aux_keep,
+                                    bn_masks)  # [E, B, 2]
         aux_loss_e = per_expert(lambda p, m: log_cosh_loss(positions, p, m),
                                 aux_pred, masks) * aux_strength
         gen_total_e = (hinge_e + div_e + int_loss_e + aux_loss_e) * w * active_f
         grads = _grad(gen_total_e.sum(), {**{("g", k): v for k, v in g_params.items()},
                                            **{("a", k): v for k, v in a_params.items()}})
         gen_new = masked_expert_update(lrs["gen"], state.gen,
-                                       {k: grads[("g", k)] for k in g_params}, active)
+                                       {k: grads[("g", k)] for k in g_params}, active,
+                                       new_stats=gst2)
         aux_new = masked_expert_update(lrs["aux"], state.aux,
-                                       {k: grads[("a", k)] for k in a_params}, active)
+                                       {k: grads[("a", k)] for k in a_params}, active,
+                                       new_stats=ast)
         # the G step's discriminator forwards advance the power iteration too
         disc_new = remask_stats(disc_new, dst2, active)
 
@@ -416,8 +468,15 @@ def build_train_step(modules: MoEModules, cfg):
     def dispatch(fns, idx, inputs):
         return tiled_switch_apply(fns, idx, inputs, tile=tile, remat=switch_remat)
 
-    def gen_fns(params):
-        return [lambda ch, p=p: gen_one(p, ch["z"], ch["c"])
+    def named(prefix, keep):
+        return {f"{prefix}{i}": k for i, k in enumerate(keep)}
+
+    def of_chunk(ch, prefix, n):
+        return tuple(ch[f"{prefix}{i}"] for i in range(n)) if n else None
+
+    def gen_fns(params, n_keep):
+        return [lambda ch, p=p: gen_one(p, {}, ch["z"], ch["c"], of_chunk(ch, "gk", n_keep),
+                                        None)[0]
                 for p in expert_slices(cast(params), E)]
 
     def disc_fns(params, stats):
@@ -426,8 +485,7 @@ def build_train_step(modules: MoEModules, cfg):
 
     def aux_fns(params, n_keep):
         return [lambda ch, p=p: modules.regress_one(
-                    p, c16(ch["img"]), tuple(ch[f"keep{i}"] for i in range(n_keep))
-                ).to(ch["img"].dtype)
+                    p, c16(ch["img"]), of_chunk(ch, "ak", n_keep)).to(ch["img"].dtype)
                 for p in expert_slices(cast(params), E)]
 
     def step_switch(state: MoETrainState, batch: Tree, draws, epoch: int
@@ -441,18 +499,18 @@ def build_train_step(modules: MoEModules, cfg):
         intensity, positions = batch["intensity"], batch["positions"]
         noise_1, noise_2, gumbel = draws["noise_1"], draws["noise_2"], draws["gumbel"]
         B = real.shape[0]
-        keep = draws["aux_keep"]
-        if any(k.shape[0] != B or k.ndim != 1 + len(s)
-               for k, s in zip(keep, modules.aux_reg.dropout_shapes)):
-            raise ValueError("the switch step takes one aux keep mask per row, [B, *shape]: "
-                             "draw_step_noise(..., switch=True)")
+        aux_keep = _keep_masks(draws, "aux_keep", modules.aux_reg, (B,), True)
+        gen_keep_1 = _keep_masks(draws, "gen_keep_1", modules.generator, (B,), True)
+        gen_keep_2 = _keep_masks(draws, "gen_keep_2", modules.generator, (2 * B,), True)
+        n_gk = len(gen_keep_1)
         tau = tau_schedule(epoch, *taus).to(real.device)
         idx, masks, w, active, active_f = route(state, cond, gumbel, tau)
         idx2, cond2 = torch.cat([idx, idx]), torch.cat([cond, cond])
 
         # ------ discriminator update ------
         with torch.no_grad():
-            fake_1 = dispatch(gen_fns(state.gen.params), idx, {"z": noise_1, "c": cond})
+            fake_1 = dispatch(gen_fns(state.gen.params, n_gk), idx,
+                              {"z": noise_1, "c": cond, **named("gk", gen_keep_1)})
         d_params = _leaves(state.disc.params)
         s, _ = dispatch(disc_fns(d_params, state.disc.stats), idx2,
                         {"img": torch.cat([real, fake_1]), "c": cond2})
@@ -466,14 +524,15 @@ def build_train_step(modules: MoEModules, cfg):
 
         # ------ generator + aux update against the updated discriminator ------
         g_params, a_params = _leaves(state.gen.params), _leaves(state.aux.params)
-        fakes = dispatch(gen_fns(g_params), idx2,
-                         {"z": torch.cat([noise_1, noise_2]), "c": cond2})
+        fakes = dispatch(gen_fns(g_params, n_gk), idx2,
+                         {"z": torch.cat([noise_1, noise_2]), "c": cond2,
+                          **named("gk", gen_keep_2)})
         fake1 = fakes[:B]
         s, latents = dispatch(disc_fns(disc_new.params, state.disc.stats), idx2,
                               {"img": fakes, "c": cond2})
         s1, l1, l2 = s[:B, 0], latents[:B], latents[B:]
-        aux_pred = dispatch(aux_fns(a_params, len(keep)), idx,
-                            {"img": fake1, **{f"keep{i}": k for i, k in enumerate(keep)}})
+        aux_pred = dispatch(aux_fns(a_params, len(aux_keep)), idx,
+                            {"img": fake1, **named("ak", aux_keep)})
         hinge_e = per_mask(lambda m: hinge_generator_loss(s1, m), masks)
         div_e = per_mask(lambda m: sdi_gan_regularization(
             l1, l2, noise_1, noise_2, std, di_strength, m, sdi_quirk), masks)
