@@ -257,9 +257,9 @@ tile 2; one switch f32 step without remat from ``init_state``, held
 against itself by both comparisons), and phase 20 at
 ``REHEARSE_NEUTRON_TRAIN`` (width 0.125, E=3, batch 4, tile 2; one step
 of each variant but bf16 from ``init_state``, the switch held against
-itself, one dense step against itself as the card-against-CPU
-comparison, the loop on ``REHEARSE_NEUTRON_LOOP`` events, its checkpoint
-served on 6 showers). Both modes print each
+itself, no card-against-CPU comparison (phases 17 and 19 rehearse it),
+the loop on ``REHEARSE_NEUTRON_LOOP`` events, its checkpoint served on 6
+showers). Both modes print each
 phase's seconds on one line before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
 """
@@ -314,7 +314,7 @@ NEUTRON_TRAIN = (1.0, 3, 512, 128)  # phase 20: width, experts, batch, switch ti
 REHEARSE_NEUTRON_TRAIN = (0.125, 3, 4, 2)
 NEUTRON_STEP_RUNS = 2  # phase 20's timed runs of each full-width step after a warm one
 NEUTRON_LOOP = 1280  # phase 20's synthetic events: 1024 train (2 steps of 512), 256 test
-REHEARSE_NEUTRON_LOOP = 10  # 8 train (2 steps of 4), 2 test
+REHEARSE_NEUTRON_LOOP = 9  # 7 train (1 step of 4), 2 test
 NEUTRON_LOOP_SERVE = (2048, 2048, 64)  # showers, batch, tile of the checkpoint's f32 serve
 REHEARSE_NEUTRON_LOOP_SERVE = (6, 8, 2)
 LOOP_SERVE = (4096, 4096, 64)  # phase 18's serves from the checkpoint: showers, batch, tile
@@ -3177,31 +3177,30 @@ def neutron_train(dev, rehearse, card, seed, profile=False):
     rec["against_cpu"] = {}
     checks = (("dense group", ()), ("dense batch", ("model.norm=batch",)),
               ("switch group", ("train.dispatch=switch", f"train.dispatch_tile={CHECK_TILE}")))
-    for name, over in checks[:1] if rehearse else checks:  # no card: one CPU step against itself
+    # no card: phases 17 and 19 rehearse the comparison, this one leaves it out
+    for name, over in () if rehearse else checks:
         t = time.perf_counter()
-        cw, ce, cb = REHEARSE_NEUTRON_TRAIN[:3] if rehearse else TRAIN_CHECK
+        cw, ce, cb = TRAIN_CHECK
         c_cfg, c_mods, c_step = build(*over, width=cw, n_exp=ce, batch=cb)
         state0 = init_state(c_mods, c_cfg, seed + 1, "cpu")
         c_data = {k: torch.as_tensor(v[:cb]) for k, v in train_side.items()}
         c_draws = draw_step_noise(torch.Generator().manual_seed(seed + 1), c_mods, cb, "cpu",
                                   switch=c_step.switch)
-        dtypes = (torch.float32,) if rehearse else (torch.float32, torch.float64)
         got = {}
-        for dt in dtypes:
+        for dt in (torch.float32, torch.float64):
             ref = step_on(c_step, state0, c_data, c_draws, "cpu", dt)
-            ours = ref if rehearse else step_on(c_step, state0, c_data, c_draws, dev, dt)
+            ours = step_on(c_step, state0, c_data, c_draws, dev, dt)
             worst = step_agreement(ref, ours, make_optimizers(c_cfg))
-            gated = AGREE_F32 if dt == torch.float32 and not rehearse else tuple(worst)
+            gated = AGREE_F32 if dt == torch.float32 else tuple(worst)
             got[str(dt)[6:]] = worst
-            how = " (no card: the step against itself)" if rehearse else ""
             log(phase, f"one {name} step at width {cw}, E={ce}, batch {cb} in {str(dt)[6:]} on "
-                f"{dev.type} against the CPU{how}: worst error / tolerance {fmt_worst(worst)}, "
+                f"{dev.type} against the CPU: worst error / tolerance {fmt_worst(worst)}, "
                 f"held: {', '.join(gated)} ({time.perf_counter() - t:.2f}s) [{card}]")
             bad = {k: worst[k] for k in gated if worst[k]["ratio"] > 1.0}
             if bad:
                 fail(f"the {str(dt)[6:]} neutron {name} step on {dev.type} disagrees with the "
                      f"CPU's: {bad}")
-            if dt == torch.float32 and not rehearse:
+            if dt == torch.float32:
                 got["card_repeats_equal"] = check_repeat(
                     phase, f"the float32 {name} step at width {cw} on {dev.type}", ours,
                     step_on(c_step, state0, c_data, c_draws, dev, dt), card)

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import SWITCH_BEYOND_SHARE
+from chip_smoke import SWITCH_BEYOND_SHARE, switch_draws_as_dense
 from test_torch_neutron_train_step import (
     B, E, LRS, MOMENT_RTOL, SHAPE, assert_metrics_close, captured_keep, make_batch, overrides,
     paired,
@@ -161,7 +161,7 @@ def test_switch_matches_the_dense_step():
     draws that make them one computation: the G phase's first B rows on
     ``gen_keep_1`` (the dense step draws the D phase and the first G-phase
     forward on one key), the dense masks each row's own in its routed
-    expert's row. Metrics at rtol 2e-4 / atol 1e-5, parameters at rtol 2e-3
+    expert's row (``chip_smoke.switch_draws_as_dense``, phase 20's). Metrics at rtol 2e-4 / atol 1e-5, parameters at rtol 2e-3
     / atol 2e-5 (JAX's test) but for at most ``SWITCH_BEYOND_SHARE`` of
     them, each within ``2 lr`` (``chip_smoke.py`` phase 19's rule: Adam
     moves a parameter whose gradient is zero up to rounding by about ``lr``
@@ -174,13 +174,8 @@ def test_switch_matches_the_dense_step():
     mods = build_moe(cfg)
     state = init_state(mods, cfg, seed=1, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in make_batch(13).items()}
-    rows = draw_step_noise(torch.Generator().manual_seed(2), mods, B, "cpu", switch=True)
-    rows["gen_keep_2"] = tuple(torch.cat([a, b[B:]]) for a, b in zip(rows["gen_keep_1"],
-                                                                      rows["gen_keep_2"]))
-    dense_draws = {**rows, **{k: tuple(m[None].expand(E, *m.shape) for m in rows[k])
-                              for k in ("aux_keep", "gen_keep_1")},
-                   "gen_keep_2": tuple(m[None, B:].expand(E, *m[B:].shape)
-                                       for m in rows["gen_keep_2"])}
+    rows, dense_draws = switch_draws_as_dense(
+        draw_step_noise(torch.Generator().manual_seed(2), mods, B, "cpu", switch=True), E, B)
     cfg_c = load_config(overrides("group", "model.router.differentiable_gan_term=false"))
     sd, md = build_train_step(mods, cfg_c)(state, batch, dense_draws, 0)
     ss, ms = build_train_step(build_moe(load_config(overrides("group", *SWITCH))),

@@ -11,7 +11,7 @@ dropout keep masks of the generator (on ``k_g1``: the D phase's fakes and
 the G phase's first forward, ``gen_keep_1``; on ``k_g2``: the second,
 ``gen_keep_2``) and of the aux regressor (``k_aux``), captured from
 re-stackings of JAX's classes (:func:`neutron_draws`). Epochs 0 and 40 (the
-router frozen).
+router frozen); the state's round trip through ``convert`` exact.
 
 Tolerances are ``tests/test_torch_train_step.py``'s: metrics rtol 1e-4,
 parameters at ``2 lr``, the EMA's change rtol 1e-4 (beside 1% of ``2 lr``
@@ -43,7 +43,7 @@ import torch
 from unittest import mock
 
 import zdcsim_torch.train.step as port_step_module
-from test_torch_train_step import LRS, assert_metrics_match, leaves, paired
+from test_torch_train_step import LRS, as_jax_state, assert_metrics_match, leaves, paired
 from zdcsim.config import load_config as jax_load_config
 from zdcsim.models import build_moe as jax_build_moe
 from zdcsim.models.neutron import AuxRegNeutron as JaxAuxRegNeutron
@@ -143,6 +143,7 @@ class Run:
         cfg = jax_load_config(overrides=overrides(norm))
         mods = jax_build_moe(cfg)
         state = init_state_jit(mods, cfg, jax.random.PRNGKey(3))
+        self.jax_state = jax.tree_util.tree_map(np.array, state)
         self.before = train_state_to_jax(train_state_from_jax(state, "cpu"))
         self.batch = make_batch(11)
         key = jax.random.PRNGKey(17)
@@ -239,6 +240,23 @@ def test_stats_match_jax(run, epoch):
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6, err_msg=f"{comp} {k}")
             before = dict(leaves(run.before[comp]["stats"]))[k]
             assert not np.array_equal(a, before), (comp, k)
+
+
+def test_state_round_trips_through_the_port(run):
+    """``train_state_to_jax(train_state_from_jax(s))`` gives back JAX's neutron
+    state exactly (the discriminator's and aux regressor's trees, the
+    generator's and aux regressor's BatchNorm statistics under ``batch``),
+    and again from the port's stepped state."""
+    ref_leaves, ref_tree = jax.tree_util.tree_flatten(run.jax_state)
+    got_leaves, got_tree = jax.tree_util.tree_flatten(as_jax_state(run.before))
+    assert got_tree == ref_tree
+    for a, b in zip(got_leaves, ref_leaves):
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    assert bool(run.before["gen"]["stats"]) == bool(run.before["aux"]["stats"]) == (
+        run.norm == "batch")
+    ours = train_state_to_jax(run.port[0][0])
+    for k, a, b in paired(train_state_to_jax(train_state_from_jax(ours, "cpu")), ours):
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
 
 
 def test_ema_and_step_match_jax(run):

@@ -88,10 +88,6 @@ def bn_buffers(stats: Optional[Tree]) -> Tree:
     return out
 
 
-def _per_expert(x: Optional[Sequence[torch.Tensor]], e: int):
-    return None if x is None else tuple(k[e] for k in x)
-
-
 @dataclass
 class MoEModules:
     """One expert's generator, discriminator and aux regressor, the router,
@@ -139,11 +135,11 @@ class MoEModules:
     def regress_all(self, params: Tree, stats: Tree, img: torch.Tensor,
                     keep: Optional[Sequence[torch.Tensor]] = None,
                     masks: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Tree]:
-        """:meth:`regress` in training form with the stacked ``stats`` and,
-        where :attr:`masked`, each expert's routing mask ``masks[e]``:
-        ``([E, B, 2], new stats stacked)``."""
-        outs = [self.regress_train(p, s, x, _per_expert(keep, e),
-                                   masks[e] if self.masked else None)
+        """:meth:`regress` in training form with the stacked ``stats`` and
+        each expert's BatchNorm routing mask ``masks[e]`` (``None``: the
+        statistics of the whole batch): ``([E, B, 2], new stats stacked)``."""
+        outs = [self.regress_train(p, s, x, None if keep is None else tuple(k[e] for k in keep),
+                                   None if masks is None else masks[e])
                 for e, (p, s, x) in enumerate(zip(expert_slices(params, self.n_experts),
                                                   expert_slices(stats, self.n_experts),
                                                   img.unbind(0)))]

@@ -26,8 +26,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from zdcsim_torch.models.layers import (
-    NORM_EPS, GroupNorm2d, MaskedBatchNorm, MLPBlock, dropout, leaky_relu, max_pool,
-    nearest_index_on,
+    NORM_EPS, GroupNorm2d, MaskedBatchNorm, MLPBlock, dropout, gather_nearest, leaky_relu,
+    max_pool, nearest_index_on,
 )
 from zdcsim_torch.models.proton import Discriminator, generator_width
 
@@ -38,15 +38,13 @@ DROPOUT_RATE = 0.2
 Stats = Dict[str, torch.Tensor]
 
 
-def _norm_layers(module: nn.Module, norm: str, features: Sequence[int]) -> list:
-    """Add the norm after each of ``features``' layers under its Flax name:
-    ``MaskedBatchNorm_i`` (``"batch"``), ``LayerNorm_i`` after a Dense layer
-    (an int feature count) or ``GroupNorm2d_j`` after a conv (a one-tuple)
-    (``"group"``), none (``"none"``). Returns the names, in order."""
+def _norm_layers(module: nn.Module, norm: str, layers: Sequence[Tuple[int, bool]]) -> list:
+    """Add the norm after each layer of ``layers`` (``(features, is a conv)``)
+    under its Flax name: ``MaskedBatchNorm_i`` (``"batch"``), ``LayerNorm_i``
+    after a Dense layer or ``GroupNorm2d_j`` after a conv (``"group"``),
+    none (``"none"``). Returns the names, in order."""
     names, n_ln, n_gn = [], 0, 0
-    for i, f in enumerate(features):
-        conv = isinstance(f, tuple)
-        c = f[0] if conv else f
+    for i, (c, conv) in enumerate(layers):
         if norm == "batch":
             name, mod = f"MaskedBatchNorm_{i}", MaskedBatchNorm(c)
         elif norm == "group" and conv:
@@ -119,8 +117,9 @@ class GeneratorNeutron(_Normed):
         self.Conv_1 = nn.Conv2d(w(256), w(128), 3)
         self.Conv_2 = nn.Conv2d(w(128), w(64), 2)
         self.Conv_3 = nn.Conv2d(w(64), 1, 2)
-        self.norm_names = _norm_layers(self, norm, (256, self.c0 * 13 * 13, (w(256),),
-                                                    (w(128),), (w(64),)))
+        self.norm_names = _norm_layers(self, norm, ((256, False), (self.c0 * 13 * 13, False),
+                                                    (w(256), True), (w(128), True),
+                                                    (w(64), True)))
         self.dropout_shapes = ((256,), (self.c0 * 13 * 13,), (24, 24, w(256)),
                                (46, 46, w(128)), (45, 45, w(64)))
 
@@ -189,10 +188,11 @@ class GeneratorNeutronV2(nn.Module):
         x = x.reshape(-1, 12, 12, self.c0).permute(0, 3, 1, 2)
         x = F.interpolate(x, scale_factor=2, mode="nearest")  # 24x24
         x = self._norm_leaky(0, self.Conv_0(x))  # 23x23
-        # nearest-exact 23 -> 44, index tensors made on the device
+        # nearest-exact 23 -> 44, index tensors made on the device; the
+        # backward by gathers, reproducible on CUDA (``gather_nearest``)
         rows = nearest_index_on(NEUTRON_SHAPE[0], x.shape[2], x.device)
         cols = nearest_index_on(NEUTRON_SHAPE[1], x.shape[3], x.device)
-        x = x.index_select(2, rows).index_select(3, cols)
+        x = gather_nearest(gather_nearest(x, 2, rows), 3, cols)
         x = self._norm_leaky(1, self.Conv_1(x))  # 43x43
         x = self._norm_leaky(2, self.Conv_2(x))  # 43x43
         return torch.relu(self.Conv_3(x)).permute(0, 2, 3, 1)  # 44x44
@@ -235,7 +235,7 @@ class AuxRegNeutron(_Normed):
         for i in range(4):
             self.add_module(f"Conv_{i}", nn.Conv2d(chans[i], chans[i + 1], 3))
         self.Conv_4 = nn.Conv2d(256, 64, 1, bias=False)
-        self.norm_names = _norm_layers(self, norm, [(c,) for c in chans[1:]] + [(64,)])
+        self.norm_names = _norm_layers(self, norm, [(c, True) for c in (*chans[1:], 64)])
         self.Dense_0 = nn.Linear(64, output_dim)
 
     def forward(self, img: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None,

@@ -100,7 +100,8 @@ class Discriminator(nn.Module):
 
         x = img.permute(0, 3, 1, 2)
         x = max_pool(leaky_relu(self.GroupNorm2d_0(sn(self.SNConv_0, x))), (2, 2))  # 27x14
-        x = max_pool(leaky_relu(self.GroupNorm2d_1(sn(self.SNConv_1, x))), self.pool_1)  # 12x12
+        # 12x12 (the neutron discriminator's 9x9)
+        x = max_pool(leaky_relu(self.GroupNorm2d_1(sn(self.SNConv_1, x))), self.pool_1)
         # the SNDense_0 kernel reads the features in JAX's NHWC order
         x = torch.cat([x.permute(0, 2, 3, 1).reshape(x.shape[0], -1), cond], dim=1)
         x = leaky_relu(self.LayerNorm_0(sn(self.SNDense_0, x)))

@@ -6,10 +6,10 @@ Each component's per-expert parameters live stacked on a leading ``[E,
 layout), with one Adam state; its stats (the discriminator's spectral-norm
 ``u`` and ``sigma``, the neutron ``norm=batch`` generator's and aux
 regressor's BatchNorm ``mean`` and ``var``) are a flat tree keyed by Flax's
-``batch_stats`` paths joined by ``|``. Adam is a plain function on ``(count, mu, nu)`` with
-optax's arithmetic, so optax's state maps onto it leaf for leaf
-(``zdcsim_torch.convert``), and the per-expert mask selects parameters,
-moments and stats. The count is one scalar shared by the experts that always
+``batch_stats`` paths joined by ``|``. Adam is a plain function on
+``(count, mu, nu)`` with optax's arithmetic, so optax's state maps onto it
+leaf for leaf (``zdcsim_torch.convert``), and the per-expert mask selects
+parameters, moments and stats. The count is one scalar shared by the experts that always
 advances, as optax's.
 
 Every function returns new tensors and leaves its inputs as they are.

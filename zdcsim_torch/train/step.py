@@ -287,7 +287,7 @@ def build_train_step(modules: MoEModules, cfg):
     def gen_forward(params, stats, noise, cond, keep, masks):
         """Every expert: ``([E, B, H, W, 1], new stats stacked)``."""
         outs = [gen_one(p, st, noise, cond, tuple(k[e] for k in keep),
-                        masks[e] if masks is not None else None)
+                        None if masks is None else masks[e])
                 for e, (p, st) in enumerate(zip(expert_slices(cast(params), E),
                                                 expert_slices(stats, E)))]
         fakes, new = zip(*outs)
