@@ -249,16 +249,16 @@ split of 2560 events, E on 8 of its showers, the w=0.125 neutron
 student's gate on 128 conditions with one draw), and phase 17 at
 ``REHEARSE_TRAIN`` (2 steps at width 0.125, E=3, batch 4; with no card,
 the first step is held against itself by the comparison), and phase 18 at
-``REHEARSE_LOOP`` (width 0.125, E=3, batch 4 on 12 events: 2 steps an
+``REHEARSE_LOOP`` (width 0.125, E=3, batch 4 on 9 events: 1 step an
 epoch, evals of 2 showers; serves of 6 showers on ``int8`` and
 ``int8_pallas``, the fused precision taking full width only; no timed
 write), and phase 19 at ``REHEARSE_SWITCH`` (width 0.125, E=3, batch 4,
 tile 2; one switch f32 step without remat from ``init_state``, held
 against itself by both comparisons), and phase 20 at
-``REHEARSE_NEUTRON_TRAIN`` (width 0.125, E=3, batch 4, tile 2; one step
-of each variant but bf16 from ``init_state``, the switch held against
-itself, no card-against-CPU comparison (phases 17 and 19 rehearse it),
-the loop on ``REHEARSE_NEUTRON_LOOP`` events, its checkpoint served on 6
+``REHEARSE_NEUTRON_TRAIN`` (width 0.125, E=3, batch 4; one dense step
+under ``norm=batch`` from ``init_state``; no switch-against-dense or
+card-against-CPU comparison, which phases 17 and 19 rehearse; the loop
+on ``REHEARSE_NEUTRON_LOOP`` events, its checkpoint served on 6
 showers). Both modes print each
 phase's seconds on one line before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
@@ -305,7 +305,7 @@ SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
 TRAIN = (1.0, 3, 512, 6)  # phase 17: width, experts, batch, steps (half at epoch 0, half at 1)
 TRAIN_CHECK = (0.125, 3, 16)  # phase 17's card-against-CPU step: width, experts, batch
 LOOP = (1.0, 3, 512, 2560)  # phase 18: width, experts, batch, synthetic events (2048 / 512)
-REHEARSE_LOOP = (0.125, 3, 4, 12)  # 2 steps an epoch, an eval of 2 showers
+REHEARSE_LOOP = (0.125, 3, 4, 9)  # 1 step an epoch (7 train events), an eval of 2 showers
 SWITCH = (1.0, 3, 512, 128)  # phase 19: width, experts, batch, tile
 REHEARSE_SWITCH = (0.125, 3, 4, 2)
 CHECK_TILE = 4  # phase 19's switch step at TRAIN_CHECK
@@ -3080,15 +3080,17 @@ def neutron_train(dev, rehearse, card, seed, profile=False):
                    f"train.dispatch_remat={not rehearse}")
     cfg_b, _, dense_b = build("model.norm=batch")
     state_b = init_state(build_moe(cfg_b), cfg_b, seed + 21, dev)
-    if not rehearse:  # the comparisons after a step, Adam's moments not zero
+    # the rehearsal runs one step, under norm=batch (the loop below steps
+    # the preset); the card, each variant after a step, Adam's moments not 0
+    variants = {"dense f32 norm=batch": (dense_b, per_expert, state_b)}
+    if not rehearse:
         state, _ = dense(state, data, per_expert, 0)
         state_b, _ = dense_b(state_b, data, per_expert, 0)
         sync()
-    variants = {"dense f32": (dense, per_expert, state), "switch f32": (
-        build(*switch_over)[2], rows, state)}
-    if not rehearse:
-        variants["dense bf16"] = (build("train.precision=bf16")[2], per_expert, state)
-    variants["dense f32 norm=batch"] = (dense_b, per_expert, state_b)
+        variants = {"dense f32": (dense, per_expert, state),
+                    "switch f32": (build(*switch_over)[2], rows, state),
+                    "dense bf16": (build("train.precision=bf16")[2], per_expert, state),
+                    "dense f32 norm=batch": (dense_b, per_expert, state_b)}
     n_params = sum(v[0].numel() for v in state.gen.params.values())
     log(phase, f"neutron MoE (GeneratorNeutron v1, norm=group) width {width}, E={n_exp}, batch "
         f"{batch}: generator {n_params} parameters an expert; {len(train_side['cond'])} train "
@@ -3146,22 +3148,20 @@ def neutron_train(dev, rehearse, card, seed, profile=False):
     log(phase, f"kernel launches {counts or 'none of A-H'}")
     if counts:
         fail(f"the neutron train steps launched hand-written kernels: {counts}")
-    # the rehearsal steps from init_state, where the two steps' spectral-norm
-    # iterations (2 against 4) part the discriminators far: it holds the
-    # switch step against itself, as phase 19's does
-    ref_name = "itself (no card)" if rehearse else "dense f32 (constant GAN term)"
-    agree = switch_against_dense(outs["switch f32" if rehearse else "dense f32"],
-                                 outs["switch f32"], make_optimizers(cfg))
-    rec["switch_against_dense"] = agree
-    n, total = agree["beyond_jax_tol"]
-    log(phase, f"switch f32 against {ref_name}: worst error / tolerance "
-        f"{ {k: agree[k] for k in ('metrics', 'params')} }; parameters beyond JAX's tolerance "
-        f"{n} of {total} ({n / total:.3e}, at most {SWITCH_BEYOND_SHARE:.0e}), each within 2 lr; "
-        f"Adam's first moments' worst relative norm error {agree['mu'][0]:.3e} at "
-        f"{agree['mu'][1]} (at most {SWITCH_MU_RTOL:.0e}); shares equal {agree['shares_equal']}")
-    if (agree["metrics"][0] > 1 or agree["params"][0] > 1 or n > SWITCH_BEYOND_SHARE * total
-            or agree["mu"][0] > SWITCH_MU_RTOL or not agree["shares_equal"]):
-        fail(f"the neutron switch step disagrees with the dense step: {agree}")
+    if not rehearse:  # phase 19's rehearsal runs the comparison
+        agree = switch_against_dense(outs["dense f32"], outs["switch f32"],
+                                     make_optimizers(cfg))
+        rec["switch_against_dense"] = agree
+        n, total = agree["beyond_jax_tol"]
+        log(phase, f"switch f32 against dense f32 (constant GAN term): worst error / "
+            f"tolerance { {k: agree[k] for k in ('metrics', 'params')} }; parameters beyond "
+            f"JAX's tolerance {n} of {total} ({n / total:.3e}, at most "
+            f"{SWITCH_BEYOND_SHARE:.0e}), each within 2 lr; Adam's first moments' worst relative "
+            f"norm error {agree['mu'][0]:.3e} at {agree['mu'][1]} (at most "
+            f"{SWITCH_MU_RTOL:.0e}); shares equal {agree['shares_equal']}")
+        if (agree["metrics"][0] > 1 or agree["params"][0] > 1 or n > SWITCH_BEYOND_SHARE * total
+                or agree["mu"][0] > SWITCH_MU_RTOL or not agree["shares_equal"]):
+            fail(f"the neutron switch step disagrees with the dense step: {agree}")
     if "dense bf16" in outs:
         a, b = float(outs["dense bf16"][1]["disc_loss"]), float(outs["dense f32"][1]["disc_loss"])
         rec["dense bf16 disc_loss against f32"] = (a, b)
