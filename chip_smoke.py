@@ -2,7 +2,7 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-20 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-21 on the CPU at small sizes
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
 Phases, each printing lines with the elapsed seconds:
@@ -123,8 +123,8 @@ Phases, each printing lines with the elapsed seconds:
     its record's ``cases``;
 17. training (``zdcsim_torch.train``): the full-width proton MoE (E=3,
     batch 512, f32 with TF32 off, ``TRAIN``) from ``init_state`` on the card
-    steps 6 times through the dense step on the gate split's train side
-    (``DeviceLoader``; 3 steps at epoch 0, 3 at epoch 1), failing unless
+    steps 4 times through the dense step on the gate split's train side
+    (``DeviceLoader``; 2 steps at epoch 0, 2 at epoch 1), failing unless
     every metric is finite, every active expert's kernels and spectral-norm
     ``u`` moved and every inactive one's leaves stayed, the EMA is ``0.99
     ema + 0.01 params`` and each ``u`` has unit norm; each step's losses,
@@ -204,7 +204,31 @@ Phases, each printing lines with the elapsed seconds:
     epilogue (``checked_evaluator``), its checkpoint must be written and
     served by ``FastSim.from_checkpoint`` on ``f32`` behind a router that
     reads every expert; E's launches there join E's record; a
-    ``{"neutron_train": ...}`` line records the phase.
+    ``{"neutron_train": ...}`` line records the phase;
+21. distillation, the attention router and a run directory's gate: (a) the
+    full-width teacher served on ``int8`` behind a seeded
+    ``AttentionRouterNetwork`` (``ROUTER_SERVE``), its routing equal to the
+    router's argmax on the CPU (a difference allowed only at a near tie),
+    and one dense float32 step with that router at ``TRAIN_CHECK`` on the
+    card against the CPU at phase 17's limits; (b) the committed proton
+    teacher (the bf16 ``fast_generator_apply``) and neutron teacher
+    (``GeneratorNeutron(norm="group")`` in bf16) each distilled into a
+    w=0.125 student (``DISTILL``: batch 512, 25 updates a call, the
+    scripts' cosine-decayed Adam) for two calls from one state, failing
+    unless they are ``torch.equal``, every metric finite and the loss on
+    the call's first draw lower after the call; the median call time, the
+    peak memory, the student's parameters; then one call of
+    ``DISTILL_CHECK`` on the card against the CPU (float32 teacher) within
+    ``distill_agreement``'s limits; (c) each student written by
+    ``save_serving_artifact`` into a temporary directory, read back and served
+    on ``int8`` behind a seeded router, routing identical to the
+    in-memory student and per-shower log1p sums within rtol 0.15; (d)
+    phase 18's run directory (kept until here) gated by
+    ``fidelity_torch.run_gate`` on the first ``RUNDIR_GATE`` conditions of
+    the gate's split with one draw on ``int8_pallas`` and ``int8_fused``:
+    the value finite, ``fidelity.py``'s record keys with the warning, E on
+    the bulk ring and A-D or H launched, their launches joining the
+    kernels line; a ``{"distill": ...}`` line records the phase.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
@@ -222,7 +246,8 @@ The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
 ``int8`` gate (E), of the all-expert path (F) and of the ``int8_fused_front``
 (G) and ``int8_fused`` (H) serves (E's with the neutron loop's eval of
-phase 20 added), A's and C's ``k_sweep`` and
+phase 20 added, and A-E's and H's with phase 21's gates of the run
+directory), A's and C's ``k_sweep`` and
 ``eager_ms`` (the host loop's time), B's and D's
 ``int_mm_ms``, G's and H's ``conv_ms`` (their convs' times), and E's and
 F's ``body``, ``bulk_launches``, ``graph_ms``, ``old_body_ms`` and
@@ -259,7 +284,11 @@ against itself by both comparisons), and phase 20 at
 under ``norm=batch`` from ``init_state``; no switch-against-dense or
 card-against-CPU comparison, which phases 17 and 19 rehearse; the loop
 on ``REHEARSE_NEUTRON_LOOP`` events, its checkpoint served on 6
-showers). Both modes print each
+showers), and phase 21 at ``REHEARSE_*`` (the attention router's serve of
+6 showers without its train step, which phase 17's comparison rehearses;
+the neutron family alone distilled at batch 2, one update a call, with no
+card-against-CPU call, its artifact's round trip on 6 showers; the run
+directory's gate on 16 conditions on ``int8_pallas``). Both modes print each
 phase's seconds on one line before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
 """
@@ -270,6 +299,7 @@ import argparse
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -302,14 +332,14 @@ NEUTRON = {name: os.path.join(HERE, "artifacts", "gate", f"neutron_{name}_servin
 # phase 16: showers, batch, tile (the teacher and the random norm=batch tree; the students)
 NEUTRON_SERVE = {"teacher": (16384, 4096, 64), "student": (65536, 32768, 128)}
 SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
-TRAIN = (1.0, 3, 512, 6)  # phase 17: width, experts, batch, steps (half at epoch 0, half at 1)
+TRAIN = (1.0, 3, 512, 4)  # phase 17: width, experts, batch, steps (half at epoch 0, half at 1)
 TRAIN_CHECK = (0.125, 3, 16)  # phase 17's card-against-CPU step: width, experts, batch
 LOOP = (1.0, 3, 512, 2560)  # phase 18: width, experts, batch, synthetic events (2048 / 512)
 REHEARSE_LOOP = (0.125, 3, 4, 9)  # 1 step an epoch (7 train events), an eval of 2 showers
 SWITCH = (1.0, 3, 512, 128)  # phase 19: width, experts, batch, tile
 REHEARSE_SWITCH = (0.125, 3, 4, 2)
 CHECK_TILE = 4  # phase 19's switch step at TRAIN_CHECK
-STEP_RUNS = 3  # phase 19's timed runs of each variant after a warm one (none in the rehearsal)
+STEP_RUNS = 2  # phase 19's timed runs of each variant after a warm one (none in the rehearsal)
 NEUTRON_TRAIN = (1.0, 3, 512, 128)  # phase 20: width, experts, batch, switch tile (the preset)
 REHEARSE_NEUTRON_TRAIN = (0.125, 3, 4, 2)
 NEUTRON_STEP_RUNS = 2  # phase 20's timed runs of each full-width step after a warm one
@@ -319,6 +349,15 @@ NEUTRON_LOOP_SERVE = (2048, 2048, 64)  # showers, batch, tile of the checkpoint'
 REHEARSE_NEUTRON_LOOP_SERVE = (6, 8, 2)
 LOOP_SERVE = (4096, 4096, 64)  # phase 18's serves from the checkpoint: showers, batch, tile
 REHEARSE_LOOP_SERVE = (6, 8, 2)
+DISTILL = (0.125, 512, 25)  # phase 21: the students' width, batch, inner steps of a call
+REHEARSE_DISTILL = (0.125, 2, 1)
+DISTILL_LR = (2e-3, 3000)  # the experiment scripts' Adam: lr, cosine decay steps
+DISTILL_CHECK = (TRAIN_CHECK[2], 1)  # the card-against-CPU call: batch, inner steps
+ROUTER_SERVE = (4096, 4096, 64)  # phase 21: the attention router's serve: showers, batch, tile
+REHEARSE_ROUTER_SERVE = (6, 8, 2)
+RUNDIR_GATE = 2048  # phase 21: the run directory's gate on the first test conditions
+REHEARSE_RUNDIR_GATE = 16
+NEAR_TIE = 1e-5  # a routing difference is allowed only where the top two logits are this close
 # the evaluator's keys (zdcsim/train/evaluate.py:472-481): the CLI's --eval prints them
 EVAL_KEYS = {"ws_mean", "ws_std", "ws_mean_exp", "ws_std_exp", "ws_mean_rel", "ws_real_floor",
              "eval_expert_counts", "epoch"}
@@ -2774,7 +2813,7 @@ def checked_evaluator(evals, states, dev):
     return build
 
 
-def loop(dev, rehearse, card, seed):
+def loop(dev, rehearse, card, seed, keep_run=False):
     """Phase 18: the training loop (``zdcsim_torch.train.loop.train``) at
     ``LOOP`` on a synthetic split of its own (seed 7): 2 epochs, an eval each
     epoch on kernel E, the split and the checkpoints saved (every eval under
@@ -2789,7 +2828,9 @@ def loop(dev, rehearse, card, seed):
     ``--seed`` in agreement with ``int8``, and the CLI's ``--eval
     --checkpoint-epoch`` prints the evaluator's keys. Prints each epoch's
     seconds of steps, metrics sync, eval and callbacks, a synchronous
-    checkpoint write's, and the peak memory."""
+    checkpoint write's, and the peak memory. With ``keep_run`` the temporary
+    directory stays (``rec["tmp"]``; phase 21 gates the run directory,
+    ``rec["run_dir"]``, and removes it)."""
     import contextlib
     import io
     import logging
@@ -2902,6 +2943,7 @@ def loop(dev, rehearse, card, seed):
             path = save_checkpoint(os.path.join(tmp, "timing"), kept, restored)
             rec["checkpoint_write_s"] = time.perf_counter() - t
             rec["checkpoint_bytes"] = os.path.getsize(os.path.join(path, "state.pt"))
+            shutil.rmtree(os.path.join(tmp, "timing"), ignore_errors=True)
             log(phase, f"one synchronous checkpoint write (host copy + torch.save of "
                 f"{rec['checkpoint_bytes']} bytes): {rec['checkpoint_write_s']:.4f}s [{card}]")
         del state, restored, flat, saved, states
@@ -2974,8 +3016,10 @@ def loop(dev, rehearse, card, seed):
             f"{printed.get('ws_mean')!r}")
         if rc != 0 or set(printed) != EVAL_KEYS:
             fail(f"the CLI's --eval printed {sorted(printed)}, not the evaluator's keys")
+        rec.update(run_dir=exp_dir, tmp=tmp)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not keep_run:
+            shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"loop": rec}), flush=True)
     return rec
 
@@ -3294,11 +3338,405 @@ def neutron_train(dev, rehearse, card, seed, profile=False):
 
 
 
+def seeded_attention_router(rng, n_experts=3, embed_dim=64):
+    """An ``AttentionRouterNetwork`` in the Flax layout, drawn from ``rng``:
+    LeCun normal kernels and zero biases as Flax initialises ``nn.Dense``,
+    the norm's scale 1 and bias 0, and N(0, 1) queries (Flax draws them at
+    0.02; at unit scale the logits spread and every expert is read)."""
+    import numpy as np
+
+    def dense(n_in, n_out):
+        return {"kernel": (rng.standard_normal((n_in, n_out)) / np.sqrt(n_in)).astype("float32"),
+                "bias": np.zeros(n_out, "float32")}
+
+    return {"Dense_0": dense(9, 128), "Dense_1": dense(128, embed_dim),
+            "LayerNorm_0": {"scale": np.ones(embed_dim, "float32"),
+                            "bias": np.zeros(embed_dim, "float32")},
+            "expert_queries": rng.standard_normal((n_experts, embed_dim)).astype("float32")}
+
+
+def attention_router(gp, split, dev, rehearse, card, seed):
+    """Phase 21 (a): the full-width teacher served on ``int8`` behind a
+    seeded ``AttentionRouterNetwork`` (``model.router.version=
+    router_attention``), its routing against the router's own argmax on the
+    CPU (a difference allowed only at a near tie, ``NEAR_TIE``); then, on the
+    card, one dense float32 train step with that router at ``TRAIN_CHECK``
+    against the CPU at phase 17's limits (``AGREE_F32``)."""
+    import numpy as np
+    import torch
+
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.convert import to_state_dict
+    from zdcsim_torch.data.loader import split_to_arrays
+    from zdcsim_torch.inference.engine import FastSim
+    from zdcsim_torch.models import build_moe
+    from zdcsim_torch.models.router import AttentionRouterNetwork
+    from zdcsim_torch.train.state import init_state, make_optimizers
+    from zdcsim_torch.train.step import build_train_step, draw_step_noise
+
+    phase = "21 distill"
+    attn = "model.router.version=router_attention"
+    n, batch, tile = REHEARSE_ROUTER_SERVE if rehearse else ROUTER_SERVE
+    rng = np.random.default_rng([seed, 21])
+    cond = rng.standard_normal((n, 9), dtype="float32")
+    noise = rng.standard_normal((n, 10), dtype="float32")
+    router = seeded_attention_router(rng)
+    eng = FastSim(gp, router, batch_size=batch, precision="int8", device=dev,
+                  cfg=load_config([attn]))
+    eng._build_switch(tile=tile)
+    if type(eng.router) is not AttentionRouterNetwork:
+        fail(f"FastSim built {type(eng.router).__name__} for {attn}")
+    t = time.perf_counter()
+    imgs, ids = eng.simulate_bulk(cond, noise=noise, return_experts=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    net = AttentionRouterNetwork(3)
+    net.load_state_dict(to_state_dict(router))
+    with torch.no_grad():
+        logits = net(torch.as_tensor(cond))[1]
+    top = logits.topk(2, dim=-1).values
+    gap = (top[:, 0] - top[:, 1]).numpy()
+    ids_np, ref = ids.cpu().numpy(), logits.argmax(-1).numpy()
+    differ = ids_np != ref
+    used = np.bincount(ids_np, minlength=3).tolist()
+    imgs_np = imgs.cpu().numpy()
+    rec = {"serve": {"showers": n, "batch": batch, "tile": tile, "s": dt, "routing": used,
+                     "differs_from_cpu": int(differ.sum()),
+                     "min_gap": float(gap.min())}}
+    log(phase, f"int8 serve behind a seeded AttentionRouterNetwork: {n} showers in {dt:.3f}s, "
+        f"routing {used}; equal to the CPU router's argmax at {n - int(differ.sum())} of {n} "
+        f"(differences only where the top two logits are within {NEAR_TIE}: smallest gap "
+        f"{gap.min():.3e}) [{card}]")
+    if differ.any() and float(gap[differ].max()) > NEAR_TIE:
+        fail(f"the attention router's routing on {dev.type} differs from its argmax on the CPU "
+             f"away from a tie: gaps {gap[differ].tolist()[:5]}")
+    if not rehearse and min(used) <= 0:
+        fail(f"the attention router left an expert unread: {used}")
+    if imgs_np.shape != (n, 56, 30) or not np.isfinite(imgs_np).all() or imgs_np.min() < 0:
+        fail("the attention router's serve: showers not finite/non-negative of shape (n, 56, 30)")
+    del eng, imgs
+    if rehearse:  # phase 17 rehearses the comparison; the CPU tests hold this step against JAX
+        return rec
+
+    # one dense float32 step with the attention router, the card against the CPU
+    width, n_exp, b = TRAIN_CHECK
+    cfg = load_config([f"model.generator.width={width}", f"model.n_experts={n_exp}",
+                       f"train.batch_size={b}", f"train.seed={seed}", attn])
+    mods = build_moe(cfg)
+    state0 = init_state(mods, cfg, seed + 3, "cpu")
+    step = build_train_step(mods, cfg)
+    data = {k: torch.as_tensor(v[:b]) for k, v in split_to_arrays(split, True).items()}
+    draws = draw_step_noise(torch.Generator().manual_seed(seed + 3), mods, b, "cpu")
+    t = time.perf_counter()
+    ref = step_on(step, state0, data, draws, "cpu", torch.float32)
+    ours = step_on(step, state0, data, draws, dev, torch.float32)
+    worst = step_agreement(ref, ours, make_optimizers(cfg))
+    gated = AGREE_F32
+    moved = [k for k, v in ours[0].router.params.items()
+             if not torch.equal(v.cpu(), state0.router.params[k])]
+    finite = all(bool(torch.isfinite(v).all()) for v in ours[1].values())
+    rec["train"] = {"width": width, "n_experts": n_exp, "batch": b, "against_cpu": worst,
+                    "router_leaves_moved": len(moved)}
+    log(phase, f"one dense float32 step with the attention router at width {width}, E={n_exp}, "
+        f"batch {b} on {dev.type} against the CPU: worst error / tolerance "
+        f"{fmt_worst(worst)}, held: {', '.join(gated)}; router leaves moved {len(moved)} of "
+        f"{len(state0.router.params)}, metrics finite {finite} "
+        f"({time.perf_counter() - t:.2f}s) [{card}]")
+    bad = {k: worst[k] for k in gated if worst[k]["ratio"] > 1.0}
+    if bad or not finite or len(moved) != len(state0.router.params):
+        fail(f"the attention router's train step on {dev.type}: {bad or ''} finite {finite}, "
+             f"moved {moved}")
+    return rec
+
+
+def distill_agreement(ref, ours, lr, k):
+    """How far one distill call (``ours``: ``(params, opt_state, metrics)``)
+    is from a reference call on the same state and draws:
+    ``{check: {"ratio", "at"}}``, each ratio at most 1 to pass. Metrics rtol
+    1e-4; Adam's moments rtol 1e-4 / atol 1e-6 elementwise; the parameters
+    within ``2 lr k`` (Adam moves an element whose gradient is at its
+    float32 rounding by up to ``lr`` a step either way, as phase 17 holds
+    the train step's). ``params_outside`` (a share, not held) counts the
+    parameters beyond rtol 1e-4 / atol 1e-6."""
+    import torch
+
+    (rp, ro, rm), (p, o, m) = ref, ours
+    cpu = lambda t: t.detach().to("cpu", torch.float32)  # noqa: E731
+    worst = {}
+
+    def note(what, err, tol, at):
+        r = torch.where(err == 0, 0.0, err / tol).nan_to_num(nan=float("inf"))
+        ratio = float(r.max())
+        if what not in worst or ratio > worst[what]["ratio"]:
+            worst[what] = {"ratio": ratio, "at": at}
+
+    for key, v in rm.items():
+        note("metrics", (cpu(m[key]) - cpu(v)).abs(), 1e-4 * cpu(v).abs(), key)
+    outside = total = 0
+    for key, v in rp.items():
+        err = (cpu(p[key]) - cpu(v)).abs()
+        note("params", err, torch.full_like(err, 2 * lr * k), key)
+        outside += int((err > 1e-6 + 1e-4 * cpu(v).abs()).sum())
+        total += err.numel()
+    for moment in ("mu", "nu"):
+        for key, v in getattr(ro, moment).items():
+            note("moments", (cpu(getattr(o, moment)[key]) - cpu(v)).abs(),
+                 1e-6 + 1e-4 * cpu(v).abs(), f"{moment} {key}")
+    note("count", torch.tensor(float(int(o.count) != int(ro.count))), torch.tensor(0.0), "count")
+    worst["params_outside"] = {"ratio": 0.0, "at": f"{outside / total:.3e} of {total}"}
+    return worst
+
+
+def distill_family(family, teacher_trees, cond_pool, dev, rehearse, card, seed):
+    """Phase 21 (b) for one family: the committed teacher (the proton
+    artifact's bf16 ``fast_generator_apply``, or the neutron teacher's
+    ``GeneratorNeutron(norm="group")`` module in bf16) distilled into a
+    w=0.125 student at ``DISTILL`` for two calls from one state on one
+    seed: ``torch.equal``, every metric finite, the loss on the call's first
+    draw lower after the call than before; the median call time, the peak memory and the student's parameter
+    count; then one call at ``DISTILL_CHECK`` on the card against the CPU
+    (the float32 teacher in both), ``distill_agreement``. ``teacher_trees``:
+    the teacher's ``(gen_params, router_params)``, or ``None`` to load the
+    family's artifact. Returns ``(student
+    params, the teacher's router, the student's config, record)``."""
+    import numpy as np
+    import torch
+
+    import distill_torch as dt
+    from fidelity_torch import GATE_OVERRIDES
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.convert import from_jax_params, to_state_dict
+    from zdcsim_torch.inference.distill import (
+        build_distill_step, distill_loss, draw_distill, module_teacher, proton_teacher,
+        router_argmax,
+    )
+    from zdcsim_torch.models import build_moe
+    from zdcsim_torch.train.state import _init_params, adam_init, cosine_decay_schedule
+    from zdcsim_torch.utils.artifact import load_serving_artifact
+
+    phase = "21 distill"
+    width, batch, inner = REHEARSE_DISTILL if rehearse else DISTILL
+    lr, decay = DISTILL_LR
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    gp, rp = teacher_trees or load_serving_artifact(dt.TEACHERS[family])[::2]
+    base = [*dt.family_overrides(family), *GATE_OVERRIDES]
+    cfg = load_config(base)
+    cfg_w = load_config([*base, f"model.generator.width={width}",
+                         *(["model.norm=none"] if family == "neutron" else [])])
+    gen, router_sd = from_jax_params(gp, rp)
+    teacher_mods = build_moe(cfg) if family == "neutron" else None
+    t_sd = to_state_dict(gp, stacked=True) if family == "neutron" else None
+
+    def teacher_on(device, dtype):
+        if family == "proton":
+            return proton_teacher(gen, device, dtype)
+        return module_teacher(teacher_mods, {k: v.to(device) for k, v in t_sd.items()},
+                              dtype=dtype)
+
+    student = build_moe(cfg_w)
+    s0 = _init_params(student.generator, student.n_experts,
+                      torch.Generator(device=dev).manual_seed(seed), dev)
+    n_params = sum(int(v.numel()) for v in s0.values())
+    teacher, router = teacher_on(dev, torch.bfloat16), router_argmax(cfg.model, router_sd, dev)
+    step = build_distill_step(student.generate, teacher, router,
+                              cosine_decay_schedule(lr, decay), student.noise_dim,
+                              inner_steps=inner)
+    pool = torch.as_tensor(np.asarray(cond_pool, np.float32)).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rows, z = draw_distill(torch.Generator(device=dev).manual_seed(seed + 1), len(pool), batch,
+                           student.noise_dim, 1, dev)[0]  # the call's first draw
+
+    def loss_on_first(params):
+        with torch.no_grad():
+            c = pool[rows]
+            return float(distill_loss(student.generate(params, z, c), teacher(z, c),
+                                      router(c))[0])
+
+    loss0 = loss_on_first(s0)
+    outs, times = [], []
+    for _ in range(2):
+        sync()
+        t = time.perf_counter()
+        outs.append(step(s0, adam_init(s0), pool, batch,
+                         torch.Generator(device=dev).manual_seed(seed + 1)))
+        sync()
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else None
+    (p1, o1, m1), (p2, o2, m2) = outs
+    equal = all(torch.equal(p1[k], p2[k]) and torch.equal(o1.mu[k], o2.mu[k])
+                and torch.equal(o1.nu[k], o2.nu[k]) for k in p1) and all(
+        torch.equal(m1[k], m2[k]) for k in m1)
+    metrics = {k: float(v) for k, v in m1.items()}
+    loss1 = loss_on_first(p1)
+    finite = all(np.isfinite(v) for v in metrics.values())
+    med = float(np.median(times))
+    rec = {"family": family, "width": width, "batch": batch, "inner_steps": inner,
+           "call_s": times, "median_call_s": med, "peak_mem_gib": peak,
+           "student_params": n_params, "student_params_per_expert": n_params // student.n_experts,
+           "loss_before": loss0, "loss_after": loss1, "metrics": metrics, "calls_equal": equal,
+           "card": card}
+    mem = "not measured on the CPU" if peak is None else f"{peak:.3f} GiB"
+    log(phase, f"{family} distillation into a w={width} student ({n_params} parameters, "
+        f"{n_params // student.n_experts} an expert), batch {batch}, {inner} inner steps a call: "
+        f"calls {[round(x, 4) for x in times]}s, median {med:.4f}s ({med / inner * 1e3:.2f} ms "
+        f"an update), peak memory {mem}; two calls from one state torch.equal {equal}; loss "
+        f"on the call's first draw {loss0:.5f} before the call, {loss1:.5f} after; the last "
+        f"update's metrics {metrics} [{card}]")
+    if not (equal and finite and loss1 < loss0):
+        fail(f"{family} distillation: calls equal {equal}, finite {finite}, loss {loss0} -> "
+             f"{loss1}")
+
+    # one call on the card against the CPU, from one state on one set of draws
+    # (no card: left out; tests/test_torch_distill.py holds distill_agreement)
+    if not rehearse:
+        b, k = DISTILL_CHECK
+        t = time.perf_counter()
+        s0_cpu = _init_params(student.generator, student.n_experts,
+                              torch.Generator().manual_seed(seed + 2), "cpu")
+        draws = draw_distill(torch.Generator().manual_seed(seed + 3), len(pool), b,
+                             student.noise_dim, k, "cpu")
+
+        def call(device):
+            st = build_distill_step(student.generate, teacher_on(device, torch.float32),
+                                    router_argmax(cfg.model, router_sd, device),
+                                    cosine_decay_schedule(lr, decay), student.noise_dim,
+                                    inner_steps=k)
+            p = {n: v.to(device) for n, v in s0_cpu.items()}
+            return st(p, adam_init(p), pool.to(device), b,
+                      draws=[(r.to(device), z.to(device)) for r, z in draws])
+
+        worst = distill_agreement(call(torch.device("cpu")), call(dev), lr, k)
+        rec["against_cpu"] = {"batch": b, "inner_steps": k, **worst}
+        log(phase, f"{family}: one call of {k} update(s) at batch {b} (float32 teacher) on "
+            f"{dev.type} against the CPU: worst error / tolerance {fmt_worst(worst)} "
+            f"({time.perf_counter() - t:.2f}s) [{card}]")
+        bad = {key: v for key, v in worst.items() if v["ratio"] > 1.0}
+        if bad:
+            fail(f"the {family} distill call on {dev.type} disagrees with the CPU's: {bad}")
+    return p1, rp, cfg_w, rec
+
+
+def round_trip(family, params, rp, cfg_w, rng, dev, rehearse, card):
+    """Phase 21 (c): the student written by ``save_serving_artifact`` into a
+    temporary directory, read back by ``load_serving_artifact`` and served by
+    ``FastSim`` on ``int8`` against the in-memory student (the same trees,
+    not quantised by the codec), both behind one seeded router: routing
+    identical and per-shower log1p sums within rtol 0.15 (phase 16's
+    ``int8`` rule). The file is removed afterwards. Returns its size."""
+    import tempfile
+
+    import torch
+
+    from zdcsim_torch.convert import from_state_dict, to_state_dict, tree_to_torch
+    from zdcsim_torch.inference.engine import FastSim
+    from zdcsim_torch.utils.artifact import load_serving_artifact, save_serving_artifact
+
+    phase = "21 distill"
+    n, batch, tile = REHEARSE_LOOP_SERVE if rehearse else LOOP_SERVE
+    gp = from_state_dict(params, stacked=True)
+    meta = {"weights": "distilled-student", "width": cfg_w.model.generator.width,
+            **({"family": "neutron", "norm": "none"} if family == "neutron" else {})}
+    with tempfile.TemporaryDirectory(prefix="zdcsim_distill_") as tmp:
+        path = os.path.join(tmp, f"{family}_student_serving_weights.npz")
+        save_serving_artifact(path, tree_to_torch(gp), {}, to_state_dict(rp), meta=meta)
+        size = os.path.getsize(path)
+        gp2, _, rp2, meta = load_serving_artifact(path)
+    cond = rng.standard_normal((n, 9), dtype="float32")
+    noise = rng.standard_normal((n, 10), dtype="float32")
+    router = to_state_dict(seeded_router(rng))
+    served = []
+    for what, tree in (("in memory", gp), ("read back", gp2)):
+        eng = FastSim(tree, rp2, batch_size=batch, precision="int8", device=dev, cfg=cfg_w)
+        eng.router.load_state_dict(router)
+        eng._build_switch(tile=tile)
+        served.append(eng.simulate_bulk(cond, noise=noise, return_experts=True))
+        del eng
+    (ref_imgs, ref_ids), (imgs, ids) = served
+    log(phase, f"{family} student written by save_serving_artifact ({size} bytes, meta "
+        f"{meta}) and read back; both served on int8, {n} showers, routing "
+        f"{torch.bincount(ids.cpu(), minlength=3).tolist()} [{card}]")
+    check_agrees(phase, f"the {family} student read back", imgs, ids, log1p_sums(ref_imgs),
+                 ref_ids.cpu().numpy(), ref_name="the in-memory student")
+    return size
+
+
+def rundir_gate(loop_rec, cond, real, dev, rehearse, card):
+    """Phase 21 (d): phase 18's run directory gated by
+    ``fidelity_torch.run_gate`` on the first ``RUNDIR_GATE`` conditions of
+    the gate's split, one draw, on ``int8_pallas`` and ``int8_fused``
+    (``int8_pallas`` alone in the rehearsal, whose run is not full width),
+    counts set to 0 before each: the value finite, ``fidelity.py``'s record
+    keys with the short-training warning, E on the bulk ring and the path's
+    decode kernels launched. Returns ``(launches by kernel, records)``."""
+    import numpy as np
+    import torch
+
+    import fidelity_torch as ft
+
+    phase = "21 distill"
+    n = REHEARSE_RUNDIR_GATE if rehearse else RUNDIR_GATE
+    over = [f"model.generator.width={loop_rec['width']}", f"model.n_experts={loop_rec['n_experts']}"]
+    wrappers = kernel_wrappers()
+    launches, recs = {}, {}
+    for precision in ("int8_pallas",) + (() if rehearse else ("int8_fused",)):
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        rec = ft.run_gate(loop_rec["run_dir"], precision, dev, data=(cond[:n], real[:n]),
+                          n_draws=1, overrides=over)
+        wall = time.perf_counter() - t
+        c = {k: v for k, v in read_counts(wrappers).items() if v}
+        recs[precision] = {**rec, "wall_s": wall, "launches": c}
+        log(phase, f"run_gate({loop_rec['run_dir']}, {precision}) on {n} test conditions, one "
+            f"draw: {wall:.2f}s wall (the checkpoint restored and served), value {rec['value']}, "
+            f"checkpoint {rec['checkpoint']}, kernel launches {c or 'none'} [{card}]")
+        keys = set(rec) - {"device"}
+        if keys != set(ft.RECORD_KEYS) | {"warning"} or not np.isfinite(rec["value"]):
+            fail(f"the run directory's gate record: keys {sorted(keys)}, value {rec['value']}")
+        if dev.type == "cuda":
+            e = c.get("expm1_channel_sums", 0)
+            names = KERNEL_PATHS[precision]
+            if e < 1 or c.get("expm1_channel_sums on the bulk ring", 0) != e or \
+                    min(c.get(k, 0) for k in names) <= 0:
+                fail(f"the {precision} gate of the run directory did not launch E on the bulk "
+                     f"ring and {names}: {c}")
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, recs
+
+
+def distill_phase(gp, rp, split, cond, real, loop_rec, dev, rehearse, card, seed):
+    """Phase 21: the attention router (a), the distillation of both families
+    (b) on the gate split's train conditions (the neutron split's are the
+    same rows, ``tests/test_torch_distill.py``), their artifacts' round trip
+    (c) and the run directory's gate (d); a ``{"distill": ...}`` line
+    records it. Returns the kernel launches of (d)."""
+    import numpy as np
+
+    phase = "21 distill"
+    rec = {"router_attention": attention_router(gp, split, dev, rehearse, card, seed)}
+    rng = np.random.default_rng([seed, 212])
+    # the rehearsal distils the neutron family alone (the proton teacher's
+    # forward is the serving path's; tests/test_torch_distill.py holds its step)
+    for family in ("neutron",) if rehearse else ("proton", "neutron"):
+        params, t_rp, cfg_w, r = distill_family(
+            family, (gp, rp) if family == "proton" else None, split.y_train, dev, rehearse,
+            card, seed)
+        r["artifact_bytes"] = round_trip(family, params, t_rp, cfg_w, rng, dev, rehearse, card)
+        rec[family] = r
+        del params
+    launches, rec["rundir_gate"] = rundir_gate(loop_rec, cond, real, dev, rehearse, card)
+    log(phase, f"the run directory's gates launched {launches} [{card}]")
+    print(json.dumps({"distill": rec}), flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-13 and 15-20 on the CPU at small sizes with the "
+                    help="run phases 3-13 and 15-21 on the CPU at small sizes with the "
                          "plain versions")
     ap.add_argument("--profile", action="store_true",
                     help="profile one serve of each kernel path with torch.profiler")
@@ -3377,9 +3815,14 @@ def main(argv=None) -> int:
         timed("15 engine API", engine_api, gp, router, dev, rehearse, card, args.seed)
         timed("16 neutron", neutron, dev, rehearse, card, args.seed)
         timed("17 train", train, split, dev, rehearse, card, args.seed)
-        timed("18 loop", loop, dev, rehearse, card, args.seed)
-        timed("19 options", options, split, dev, rehearse, card, args.seed)
-        timed("20 neutron train", neutron_train, dev, rehearse, card, args.seed)
+        loop_rec = timed("18 loop", loop, dev, rehearse, card, args.seed, keep_run=True)
+        try:
+            timed("19 options", options, split, dev, rehearse, card, args.seed)
+            timed("20 neutron train", neutron_train, dev, rehearse, card, args.seed)
+            timed("21 distill", distill_phase, gp, rp, split, cond, real, loop_rec, dev,
+                  rehearse, card, args.seed)
+        finally:
+            shutil.rmtree(loop_rec["tmp"], ignore_errors=True)
         log_phase_times()
         print(json.dumps({"rehearsal": True}), flush=True)
         return 0
@@ -3401,13 +3844,21 @@ def main(argv=None) -> int:
     e_case = timed("16 neutron", neutron, dev, rehearse, card, args.seed, args.profile)
     next(r for r in rec if r["name"] == "expm1_channel_sums")["cases"].append(e_case)
     timed("17 train", train, split, dev, rehearse, card, args.seed, args.profile)
-    timed("18 loop", loop, dev, rehearse, card, args.seed)
-    timed("19 options", options, split, dev, rehearse, card, args.seed, args.profile)
-    n_e, n_bulk = timed("20 neutron train", neutron_train, dev, rehearse, card, args.seed,
-                        args.profile)
+    loop_rec = timed("18 loop", loop, dev, rehearse, card, args.seed, keep_run=True)
+    try:
+        timed("19 options", options, split, dev, rehearse, card, args.seed, args.profile)
+        n_e, n_bulk = timed("20 neutron train", neutron_train, dev, rehearse, card, args.seed,
+                            args.profile)
+        gate_launches = timed("21 distill", distill_phase, gp, rp, split, cond, real, loop_rec,
+                              dev, rehearse, card, args.seed)
+    finally:
+        shutil.rmtree(loop_rec["tmp"], ignore_errors=True)
     e_rec = next(r for r in rec if r["name"] == "expm1_channel_sums")
     e_rec["launches"] += n_e  # the neutron loop's eval is a main path of E too
     e_rec["bulk_launches"] += n_bulk
+    for r in rec:  # the run directory's gates are a main path of E, A-D and H too
+        r["launches"] += gate_launches.get(r["name"], 0)
+    e_rec["bulk_launches"] += gate_launches.get("expm1_channel_sums on the bulk ring", 0)
     e_rec["body"] = "bulk ring" if e_rec["bulk_launches"] == e_rec["launches"] else "direct"
     log_phase_times()
     log("done", f"wall {time.perf_counter() - T0:.2f}s [{card}]")

@@ -5,6 +5,7 @@
     python3 fidelity_torch.py artifacts/gate/student_w0.125_serving_weights.npz
     python3 fidelity_torch.py artifact int8_pallas     # target, then precision
     python3 fidelity_torch.py artifact int8 --device cpu
+    python3 fidelity_torch.py <run_dir> [precision] [--epoch N] [--weights raw|ema]
 
 Serves a committed serving artifact (proton or neutron) on the gate's test
 split and prints, on its last line, one JSON object with ``fidelity.py``'s
@@ -23,8 +24,18 @@ The path: the artifact -> the test split of the synthetic dataset
 (``zdcsim_torch.ops.epilogue_kernels``) -> the floor -> ``N_DRAWS`` serves
 through ``FastSim.simulate_bulk`` (noise from ``torch.Generator`` seeded
 ``100 + d``, so the draws are not JAX's) -> generated channel sums and W1.
-Gating a run directory of training checkpoints is not ported (ROADMAP.md
-Queue 1 item 7) and raises ``NotImplementedError``.
+
+A run directory of the port's training checkpoints (``cli_torch.py`` with
+``train.save_experiment_data``: ``<run_dir>/models/state_epoch_<n>/``)
+gates as ``fidelity.py:110-138, 172-181, 225-234`` gates one: its latest
+epoch unless ``--epoch``, the EMA weights unless ``--weights raw``, the
+split that the run saved, served by ``FastSim.from_checkpoint``; the record
+names ``<run_dir>@<epoch>`` and warns below ``CALIBRATION_EPOCHS``. The
+config is the gate's data recipe with the run's resume keys
+(``fidelity.py:202-207``) and any ``--override`` (a run of another model
+than the default, e.g. ``model.generator.width=0.125``). A directory of
+the JAX package's Orbax checkpoints raises a ``FileNotFoundError`` that
+names the format: the port reads only its own.
 """
 
 from __future__ import annotations
@@ -50,6 +61,11 @@ DEFAULT_RUN_GLOBS = (
 )
 ARTIFACT_PATH = "artifacts/gate/gate_serving_weights.npz"
 N_DRAWS = 3
+# the keys of fidelity.py's record (:241-262); a run directory's adds "warning"
+# below CALIBRATION_EPOCHS, and the port's adds "device"
+RECORD_KEYS = ("metric", "value", "unit", "vs_baseline", "ws_mean", "ws_mean_rel",
+               "ws_real_floor", "criterion_x_floor", "checkpoint", "weights", "precision",
+               "n_test")
 # the data recipe the gate's weights trained on (fidelity.py:202-206)
 GATE_OVERRIDES = (
     "dataset.synthetic=true", "dataset.synthetic_n_samples=25600",
@@ -80,6 +96,15 @@ def _resolve_target(arg1: Optional[str]) -> Tuple[Optional[str], Optional[str]]:
     if exp_dir is None and os.path.exists(ARTIFACT_PATH):
         return ARTIFACT_PATH, None
     return None, exp_dir
+
+
+def _resolve_latest_epoch(exp_dir: str) -> Optional[int]:
+    """The highest saved epoch of a run directory (``fidelity.py:124``):
+    its ``models/state_epoch_<n>`` directories, or ``None``."""
+    from zdcsim_torch.train.checkpoint import latest_epoch
+    from zdcsim_torch.utils.io import DIR_MODELS
+
+    return latest_epoch(DIR_MODELS.format(EXPERIMENT_DIR_NAME=exp_dir))
 
 
 def _artifact_model_config(meta: Dict[str, str]) -> List[str]:
@@ -176,12 +201,19 @@ def fidelity_record(ch_real, ch_gens: Sequence, meta: Optional[Dict[str, str]] =
 
 def run_gate(target: Optional[str] = None, precision: str = "int8", device=None,
              data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-             n_draws: int = N_DRAWS) -> Dict[str, object]:
-    """Gate one artifact; returns the JSON record.
+             n_draws: int = N_DRAWS, epoch: Optional[int] = None, weights: str = "ema",
+             overrides: Sequence[str] = (), loaded: Optional[Tuple] = None
+             ) -> Dict[str, object]:
+    """Gate one artifact or run directory; returns the JSON record.
 
     ``data`` is ``(cond, real)`` as :func:`gate_split` returns it, to gate
-    several artifacts on one split (or on part of it); ``None`` builds it.
-    The engine runs chunks of 2048 conditions, or one chunk of fewer.
+    several targets on one split (or on part of it); ``None`` builds it.
+    ``epoch`` (latest if ``None``) and ``weights`` (``ema`` or ``raw``)
+    choose a run directory's checkpoint; ``overrides`` follow the gate's
+    config. ``loaded``: ``(gen_params, gen_stats, router_params, meta)`` as
+    ``load_serving_artifact`` returns them, gated in place of a file
+    (``target`` then only names it). The engine runs chunks of 2048
+    conditions, or one chunk of fewer.
     """
     import torch
 
@@ -191,22 +223,38 @@ def run_gate(target: Optional[str] = None, precision: str = "int8", device=None,
     from zdcsim_torch.ops.channels import sum_channels
     from zdcsim_torch.ops.epilogue_kernels import expm1_channel_sums
     from zdcsim_torch.utils.artifact import load_serving_artifact
+    from zdcsim_torch.utils.io import DIR_MODELS
 
-    art_path, exp_dir = _resolve_target(target)
-    if exp_dir is not None:
-        raise NotImplementedError(
-            f"{exp_dir}: gating a run directory of training checkpoints is not ported yet "
-            "(ROADMAP.md Queue 1 item 7); gate a serving artifact (*.npz or 'artifact')")
-    if art_path is None:
+    if weights not in ("ema", "raw"):
+        raise ValueError(f"weights must be ema|raw, got {weights!r}")
+    art_path, exp_dir = (target, None) if loaded is not None else _resolve_target(target)
+    if art_path is None and exp_dir is None:
         raise FileNotFoundError(f"no gate run directory and no artifact at {ARTIFACT_PATH}")
-    gp, gs, rp, meta = load_serving_artifact(art_path)
-    cfg = load_config([*GATE_OVERRIDES, *_artifact_model_config(meta)])
-    cond, real = gate_split(cfg) if data is None else data
     dev = default_device(device)
+    if exp_dir is not None:
+        epoch = _resolve_latest_epoch(exp_dir) if epoch is None else int(epoch)
+        if epoch is None:
+            raise FileNotFoundError(f"no state_epoch_* checkpoints under {exp_dir}")
+        meta = {"epoch": str(epoch), "weights": weights}
+        cfg = load_config([*GATE_OVERRIDES, f"train.checkpoint_experiment_dir={exp_dir}",
+                           f"train.epoch_to_load={epoch}", *overrides])
+        cond, real = gate_split(cfg) if data is None else data
+        engine = FastSim.from_checkpoint(
+            cfg, DIR_MODELS.format(EXPERIMENT_DIR_NAME=exp_dir), epoch,
+            use_ema=weights == "ema", batch_size=min(2048, len(cond)), precision=precision,
+            device=dev)
+        checkpoint = f"{exp_dir}@{epoch}"
+        label = f"{os.path.basename(os.path.normpath(exp_dir))}@{epoch}"
+    else:
+        gp, gs, rp, meta = load_serving_artifact(art_path) if loaded is None else loaded
+        cfg = load_config([*GATE_OVERRIDES, *_artifact_model_config(meta), *overrides])
+        cond, real = gate_split(cfg) if data is None else data
+        engine = FastSim(gp, rp, batch_size=min(2048, len(cond)), precision=precision,
+                         device=dev, cfg=cfg, gen_stats=gs)
+        label = os.path.basename(art_path)
+        checkpoint = f"{art_path} (from {meta.get('source', '?')})"
 
     ch_real = expm1_channel_sums(torch.as_tensor(real).to(dev))
-    engine = FastSim(gp, rp, batch_size=min(2048, len(cond)), precision=precision, device=dev,
-                     cfg=cfg, gen_stats=gs)
     ch_gens = []
     for d in range(n_draws):
         gen = torch.Generator(device=dev).manual_seed(100 + d)
@@ -214,13 +262,13 @@ def run_gate(target: Optional[str] = None, precision: str = "int8", device=None,
         ch_gens.append(sum_channels(showers))
         if d == 0:
             hist = torch.bincount(ids, minlength=engine.n_experts).tolist()
-            print(f"fidelity_torch: {os.path.basename(art_path)} {precision}: routing of the "
+            print(f"fidelity_torch: {label} {precision}: routing of the "
                   f"{len(cond)} test conditions to experts {hist}", flush=True)
     record = fidelity_record(ch_real, ch_gens, meta)
     epoch = int(float(meta.get("epoch", -1)))
     student = meta.get("weights") == "distilled-student"
     record.update({
-        "checkpoint": f"{art_path} (from {meta.get('source', '?')})",
+        "checkpoint": checkpoint,
         "weights": "ema" if meta.get("weights", "ema") == "ema" else "raw",
         "precision": precision,
         "n_test": int(len(cond)),
@@ -245,12 +293,26 @@ def run_gate(target: Optional[str] = None, precision: str = "int8", device=None,
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description="Fidelity gate of the PyTorch port.")
     ap.add_argument("target", nargs="?", default=None,
-                    help="'artifact', a serving artifact *.npz, or nothing for the default")
+                    help="'artifact', a serving artifact *.npz, a run directory of the port's "
+                         "checkpoints, or nothing for the default")
     ap.add_argument("precision", nargs="?", default="int8",
                     help="FastSim precision (default int8, as fidelity.py)")
+    ap.add_argument("--epoch", type=int, default=None,
+                    help="a run directory's checkpoint epoch (default: the latest)")
+    ap.add_argument("--weights", choices=("ema", "raw"), default="ema",
+                    help="a run directory's EMA or raw generator weights (default ema)")
+    ap.add_argument("--override", nargs="*", default=[],
+                    help="config overrides a.b=c after the gate's (a run's model options)")
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: CUDA)")
     args = ap.parse_args(argv)
-    print(json.dumps(run_gate(args.target, args.precision, args.device)), flush=True)
+    try:
+        record = run_gate(args.target, args.precision, args.device, epoch=args.epoch,
+                          weights=args.weights, overrides=args.override)
+    except FileNotFoundError as e:  # fidelity.py's record of nothing to gate
+        print(json.dumps({"metric": "fastsim_fidelity", "value": None, "error": str(e)}),
+              flush=True)
+        return 1
+    print(json.dumps(record), flush=True)
     return 0
 
 

@@ -106,15 +106,20 @@ def test_cli_simulates(tmp_path):
 
 
 def test_cli_refusals(tmp_path):
-    """A config that selects what the port does not run raises, naming its
-    item (``--config`` is read since item 10); CUDA unless ``--cpu``."""
+    """A ``--config`` that selects the attention router loads and builds it
+    (the CLI gets past its config to the device); CUDA unless ``--cpu``."""
     from zdcsim_torch.cli import main
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.models import build_moe
 
     path = tmp_path / "attention.yaml"
     path.write_text("model:\n  router:\n    version: router_attention\n")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(["--config", str(path)])
+    cfg = load_config(DATA, config_path=str(path))
+    assert cfg.model.router.version == "router_attention"
+    assert build_moe(cfg).names["router"] == "AttentionRouterNetwork"
     if not sys.modules["torch"].cuda.is_available():  # CUDA unless --cpu
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--config", str(path), "--eval", "--override", *DATA])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--eval", "--override", *DATA])
 

@@ -99,13 +99,18 @@ def test_neutron_preset_file_equals_the_overrides():
 
 
 def test_config_values_that_select_the_unported_raise(tmp_path):
-    """``router_attention`` names item 9; an unknown key or version raises as
-    an override does; overrides apply after the file."""
+    """``router_attention`` loads (the attention router is ported) and builds,
+    equal to JAX's config; an unknown key or version raises as an override
+    does; overrides apply after the file."""
+    from zdcsim_torch.models import build_moe
+
     path = tmp_path / "c.yaml"
     path.write_text("model:\n  router:\n    version: router_attention\n")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        load_config(config_path=str(path))
-    assert load_config(["model.router.version=router_v1"], config_path=str(path))
+    cfg = load_config(config_path=str(path))
+    assert cfg.model.router.version == jax_load_config(str(path)).model.router.version
+    assert build_moe(cfg).names["router"] == "AttentionRouterNetwork"
+    assert load_config(["model.router.version=router_v1"],
+                       config_path=str(path)).model.router.version == "router_v1"
     path.write_text("model:\n  router:\n    version: router_v9\n")
     with pytest.raises(ValueError, match="router_v1"):
         load_config(config_path=str(path))

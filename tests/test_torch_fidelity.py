@@ -126,10 +126,11 @@ def test_gate_constants_equal_fidelity_py():
 
 
 def test_gate_refuses_run_dirs_and_the_neutron_family():
-    """A run directory of checkpoints is still refused; a neutron artifact
-    gates (here on a slice of the test split, one draw) with its family's
-    record."""
-    with pytest.raises(NotImplementedError, match="checkpoints"):
+    """A run directory gates (``tests/test_torch_fidelity_rundir.py``) and
+    refuses one without checkpoints, as ``fidelity.py`` does; a neutron
+    artifact gates (here on a slice of the test split, one draw) with its
+    family's record."""
+    with pytest.raises(FileNotFoundError, match="no state_epoch_. checkpoints under"):
         ft.run_gate("experiments/some_run_dir", device="cpu")
     from zdcsim_torch.config import load_config
 
@@ -199,15 +200,18 @@ def test_neutron_record_follows_fidelity_py(meta):
 def test_main_prints_the_record_last(monkeypatch, capsys):
     calls = []
 
-    def fake_gate(target, precision, device):
-        calls.append((target, precision, device))
+    def fake_gate(target, precision, device, **options):
+        calls.append((target, precision, device, options))
         print("routing line")
         return {"metric": "fastsim_fidelity", "value": 1.2}
 
     monkeypatch.setattr(ft, "run_gate", fake_gate)
     assert ft.main(["artifact", "--device", "cpu"]) == 0
     assert ft.main(["x.npz", "int8_pallas"]) == 0
-    assert calls == [("artifact", "int8", "cpu"), ("x.npz", "int8_pallas", None)]
+    assert ft.main(["run", "f32", "--epoch", "3", "--weights", "raw", "--override", "a.b=1"]) == 0
+    default = {"epoch": None, "weights": "ema", "overrides": []}
+    assert calls == [("artifact", "int8", "cpu", default), ("x.npz", "int8_pallas", None, default),
+                     ("run", "f32", None, {"epoch": 3, "weights": "raw", "overrides": ["a.b=1"]})]
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {"metric": "fastsim_fidelity", "value": 1.2}
 

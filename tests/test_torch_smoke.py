@@ -1,9 +1,10 @@
 """The port runs where JAX, Flax, PyYAML, pandas, scikit-learn and
 matplotlib are absent (the GPU machine has none of them).
 
-A subprocess installs an import hook that refuses those packages and the
-JAX package ``zdcsim`` (not ``zdcsim_torch``), then imports every module of
-``zdcsim_torch``, ``fidelity_torch.py`` and ``bench_torch.py`` and rehearses ``chip_smoke.py`` on
+A subprocess installs an import hook that refuses those packages, optax and
+the JAX package ``zdcsim`` (not ``zdcsim_torch``), then imports every module
+of ``zdcsim_torch``, ``fidelity_torch.py``, ``bench_torch.py`` and
+``distill_torch.py`` and rehearses ``chip_smoke.py`` on
 the CPU: the kernel checks of A-D (B and D at the teacher's widths and at a
 narrow one), ``_conv_i8``, G and H and of G's and H's three int8 convs, the
 serves of ``int8``, ``int8_pallas_ab``,
@@ -19,8 +20,10 @@ steps at width 0.125, E=3, batch 4, with their checks, and the first step
 held against itself by the card-against-CPU comparison, the first step run
 twice and held equal), the training loop of phase 18 (2 epochs with evals,
 keep_best, the restore, a resume, serves from the checkpoint and the CLI's
-``--eval``), and the train step's options of phase 19 (one switch step,
-held against itself by its comparisons).
+``--eval``), the train step's options of phase 19 (one switch step,
+held against itself by its comparisons), and phase 21 (the attention
+router's serve, a neutron student distilled and its artifact's round
+trip, phase 18's run directory gated).
 """
 
 import os
@@ -28,7 +31,8 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "yaml", "pandas", "sklearn", "matplotlib", "zdcsim")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "pandas", "sklearn", "matplotlib",
+             "zdcsim")
 
 _GUARD = f"""
 import importlib.abc, sys
@@ -61,6 +65,8 @@ for n in names:
     importlib.import_module(n)
 import fidelity_torch
 import bench_torch
+import distill_torch
+assert "zdcsim_torch.inference.distill" in names, names
 bad = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 assert not bad, bad
 print(len(names), "modules")
@@ -109,5 +115,9 @@ runpy.run_path("chip_smoke.py", run_name="__main__")
                   "run twice from one state: torch.equal leaf by leaf True",
                   "[19 options]", "switch f32 against itself (no card)",
                   "one switch step at width 0.125", '{"options": ',
-                  " 19 options "):
+                  " 19 options ",
+                  "[21 distill]", "int8 serve behind a seeded AttentionRouterNetwork",
+                  "neutron distillation into a w=0.125 student", "torch.equal True",
+                  "the neutron student read back vs the in-memory student: routing identical True",
+                  "run_gate(", '{"distill": ', " 21 distill "):
         assert phase in proc.stdout, phase

@@ -9,8 +9,8 @@ merges over the defaults through :func:`read_yaml`, a reader of the subset
 of YAML that the configs use (no PyYAML: the GPU machine has none); then
 ``a.b=c`` overrides, the dotlist syntax of ``zdcsim.config.apply_overrides``
 with a small scalar parser. A key that does not exist raises, and so does a
-value that selects what the port does not run (``model.router.version``
-other than ``router_v1``). The neutron preset of
+``model.router.version`` other than ``router_v1`` or ``router_attention``
+(JAX's registry). The neutron preset of
 ``zdcsim/config/neutron.yaml`` is also :data:`NEUTRON_OVERRIDES`, which a
 caller puts before its own overrides.
 """
@@ -46,7 +46,7 @@ class AuxRegConfig:
 
 @dataclass
 class RouterConfig:
-    version: str = "router_v1"  # router_attention is not ported (ROADMAP.md Queue 1 item 9)
+    version: str = "router_v1"  # or router_attention
     widths: Tuple[int, ...] = (128, 64, 32)
     lr_r: float = 1.0e-4
     ed_strength: float = 0.0
@@ -107,7 +107,7 @@ class RunConfig:
 @dataclass
 class WandbConfig:
     log_experiments: bool = False  # a wandb run (a no-op where wandb is not installed)
-    plot_images: bool = False  # the eval figures (not ported: ROADMAP.md Queue 1 item 7)
+    plot_images: bool = False  # the eval figures (not ported: ROADMAP.md Queue 1 item 7d)
     run_name: Optional[str] = None  # stamped with the experiment directory
     api_key: str = ""
 
@@ -126,7 +126,7 @@ class TrainConfig:
     checkpoint_keep_best: Optional[int] = None  # keep the k lowest-ws checkpoints; None: all
     async_checkpointing: bool = False  # write checkpoints in a background thread
     save_experiments_dir: Optional[str] = "experiments/"
-    save_eval_plots: bool = False  # the eval figures (not ported: ROADMAP.md Queue 1 item 7)
+    save_eval_plots: bool = False  # the eval figures (not ported: ROADMAP.md Queue 1 item 7d)
     profile_epoch: Optional[int] = None  # epoch to trace with torch.profiler
     profile_dir: Optional[str] = None  # None: <experiment_dir>/traces
     ema_decay: float = 0.99
@@ -392,10 +392,7 @@ def load_config(overrides: Optional[List[str]] = None,
         raise ValueError("dataset.input_image_shape must be [H, W]")
     if cfg.model.norm not in ("batch", "group", "none"):
         raise ValueError(f"model.norm must be batch|group|none, got {cfg.model.norm}")
-    if cfg.model.router.version == "router_attention":
-        raise NotImplementedError("model.router.version=router_attention (AttentionRouterNetwork) "
-                                  "is not ported yet: ROADMAP.md Queue 1 item 9")
-    if cfg.model.router.version != "router_v1":
+    if cfg.model.router.version not in ("router_v1", "router_attention"):
         raise ValueError(f"model.router.version must be router_v1|router_attention, got "
                          f"{cfg.model.router.version!r}")
     if (cfg.train.checkpoint_experiment_dir is None) != (cfg.train.epoch_to_load is None):

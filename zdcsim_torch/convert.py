@@ -9,7 +9,8 @@ Two layouts meet here:
 - the **PyTorch layout** of the port's ``nn.Module``s, whose submodules carry
   the Flax names: ``Linear.weight [out, in]``, ``Conv2d.weight`` OIHW, norm
   ``weight``; a BatchNorm's ``batch_stats`` ``mean``/``var`` are its
-  ``running_mean``/``running_var`` buffers.
+  ``running_mean``/``running_var`` buffers; a module's own parameter (the
+  attention router's ``expert_queries``) keeps its name and layout.
 
 The mapping is by name and is lossless both ways.
 """
@@ -43,6 +44,13 @@ def expert(tree: Dict[str, Any], e: int) -> Dict[str, Any]:
 
 
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+# parameters declared by a module itself (``self.param``), kept as they are:
+# the attention router's ``[E, embed_dim]`` queries
+_OWN_PARAMS = ("expert_queries",)
+
+
+def _join(path: str, leaf: str, sep: str) -> str:
+    return f"{path}{sep}{leaf}" if path else leaf
 
 
 def _kernel_to_torch(t: torch.Tensor, lead: int) -> torch.Tensor:
@@ -77,9 +85,9 @@ def to_state_dict(tree: Dict[str, Any], stats: Optional[Dict[str, Any]] = None,
             leaf = "weight"
         elif leaf == "scale":
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf not in ("bias", *_OWN_PARAMS):
             raise ValueError(f"unexpected Flax leaf {key!r}")
-        sd[f"{path.replace(_SEP, '.')}.{leaf}"] = t.contiguous()
+        sd[_join(path.replace(_SEP, "."), leaf, ".")] = t.contiguous()
     for key, v in _flatten(stats or {}).items():
         path, _, leaf = key.rpartition(_SEP)
         if leaf not in _STAT_LEAVES:
@@ -93,7 +101,9 @@ def _flax_leaf(key: str, t: torch.Tensor, lead: int) -> Tuple[str, torch.Tensor,
     is a BatchNorm statistic)``."""
     path, _, leaf = key.rpartition(".")
     stat = leaf in _STAT_LEAVES.values()
-    if leaf == "weight":
+    if leaf in _OWN_PARAMS:
+        pass
+    elif leaf == "weight":
         if t.ndim - lead == 1:
             leaf = "scale"
         else:
@@ -101,7 +111,7 @@ def _flax_leaf(key: str, t: torch.Tensor, lead: int) -> Tuple[str, torch.Tensor,
             leaf = "kernel"
     elif stat:
         leaf = {v: k for k, v in _STAT_LEAVES.items()}[leaf]
-    return f"{path.replace('.', _SEP)}{_SEP}{leaf}", t, stat
+    return _join(path.replace(".", _SEP), leaf, _SEP), t, stat
 
 
 def from_state_dict(sd: Dict[str, torch.Tensor], stats_out: Optional[Dict[str, Any]] = None,
@@ -140,8 +150,8 @@ def from_jax_params(gen_params: Any, router_params: Any) -> Tuple[Dict[str, Any]
 
     Returns ``(gen, router)``: ``gen`` is the generator tree as float32 CPU
     tensors in the Flax layout, experts stacked on the leading axis;
-    ``router`` is the ``state_dict`` of
-    :class:`zdcsim_torch.models.router.RouterNetwork`.
+    ``router`` is the ``state_dict`` of the router
+    (``zdcsim_torch.models.router``).
     """
     return tree_to_torch(gen_params), to_state_dict(router_params)
 

@@ -98,7 +98,7 @@ from zdcsim_torch.models.neutron_fast import (
 )
 from zdcsim_torch.models.proton import Generator
 from zdcsim_torch.models.proton_fast import fast_generator_apply, quantize_weights
-from zdcsim_torch.models.router import RouterNetwork
+from zdcsim_torch.models.router import build_router, router_version
 from zdcsim_torch.utils.artifact import _unflatten
 
 # precision -> int8 backend of fast_generator_apply (None: the float decode)
@@ -202,7 +202,8 @@ class FastSim:
         device: ``None`` for CUDA (raises without a card), or ``"cpu"``.
         cfg: model geometry and family (``model.architecture``,
             ``model.generator.version``, ``model.norm``, widths, the image
-            shape); defaults to ``load_config()``.
+            shape, the router's ``model.router.version``); defaults to
+            ``load_config()``.
         scaler_cond: optional ``zdcsim_torch.data.scalers.StandardScaler`` of
             the raw kinematics (:meth:`standardize`).
         static_act_quant: on ``"int8"``, quantise activations with static
@@ -301,9 +302,7 @@ class FastSim:
         else:
             self._qweights = [quantize_neutron_weights(p) for p in self._experts]
         # The router stays float32: routing logits are cheap and precision-sensitive.
-        self.router = RouterNetwork(
-            self.n_experts, self.cond_dim, m.router.widths
-        ).to(self.device)
+        self.router = build_router(m).to(self.device)  # model.router.version's
         self.router.load_state_dict(router_sd)
         self.router.eval()
 
@@ -710,7 +709,7 @@ class FastSim:
         was trained with, of a generator class ``build_moe`` builds (the
         tiny test stand-ins are not served); ``kwargs`` go to the
         constructor, whose ``cfg`` defaults to ``load_config()`` with the
-        modules' geometry, for the proton generator (the neutron family's
+        modules' geometry and router, for the proton generator (the neutron family's
         needs the run's ``cfg``)."""
         from zdcsim_torch.models import GENERATORS
 
@@ -724,7 +723,8 @@ class FastSim:
             h, w = modules.image_shape
             kwargs["cfg"] = load_config([
                 f"model.n_experts={modules.n_experts}", f"model.noise_dim={modules.noise_dim}",
-                f"model.cond_dim={modules.cond_dim}", f"dataset.input_image_shape=[{h}, {w}]"])
+                f"model.cond_dim={modules.cond_dim}", f"dataset.input_image_shape=[{h}, {w}]",
+                f"model.router.version={router_version(modules.router)}"])
         gen = state.ema_gen_params if use_ema else state.gen.params
         return cls(from_state_dict(gen, stacked=True), from_state_dict(state.router.params),
                    gen_stats=stats_to_jax(_unflatten(state.gen.stats)), **kwargs)
@@ -735,9 +735,10 @@ class FastSim:
         (``<experiment_dir>/models/``) of a run of ``cfg``'s model, through
         :meth:`from_state`; the state is restored on ``kwargs["device"]``."""
         from zdcsim_torch.models import build_moe
-        from zdcsim_torch.train.checkpoint import restore_checkpoint
+        from zdcsim_torch.train.checkpoint import checkpoint_file, restore_checkpoint
         from zdcsim_torch.train.state import init_state
 
+        checkpoint_file(dir_models, epoch)  # a missing or foreign checkpoint, before the template
         modules = build_moe(cfg)
         state = restore_checkpoint(dir_models, epoch,
                                    init_state(modules, cfg, 0, kwargs.get("device")))

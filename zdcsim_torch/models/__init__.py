@@ -33,7 +33,7 @@ from zdcsim_torch.models.neutron import (
     AuxRegNeutron, DiscriminatorNeutron, GeneratorNeutron, GeneratorNeutronV2,
 )
 from zdcsim_torch.models.proton import AuxReg, Discriminator, Generator
-from zdcsim_torch.models.router import RouterNetwork
+from zdcsim_torch.models.router import build_router
 
 Tree = Dict[str, torch.Tensor]
 
@@ -199,7 +199,8 @@ class MoEModules:
 def build_moe(cfg) -> MoEModules:
     """The MoE of training from a config (``build_moe``,
     ``zdcsim/models/__init__.py:114``): the family's generator (``generator_spec``),
-    discriminator and aux regressor, and the router. The neutron family's
+    discriminator and aux regressor, and the router that
+    ``model.router.version`` names (``build_router``). The neutron family's
     ``model.norm`` reaches its generator and aux regressor; under ``batch``
     their BatchNorm statistics are masked per expert (``masked``)."""
     m = cfg.model
@@ -212,8 +213,7 @@ def build_moe(cfg) -> MoEModules:
                    (DiscriminatorNeutron if neutron else Discriminator)(
                        cond_dim=m.cond_dim, image_shape=shape),
                    AuxRegNeutron(norm=m.norm) if neutron else AuxReg(),
-                   RouterNetwork(n_experts=m.n_experts, cond_dim=m.cond_dim,
-                                 widths=m.router.widths))
+                   build_router(m))
     return MoEModules(*modules, n_experts=int(m.n_experts), noise_dim=int(m.noise_dim),
                       cond_dim=int(m.cond_dim), image_shape=shape,
                       names={k: type(v).__name__ for k, v in

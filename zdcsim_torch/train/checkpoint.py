@@ -121,10 +121,26 @@ def delete_checkpoint(dir_models: str, epoch: int) -> None:
         shutil.rmtree(path)
 
 
+def checkpoint_file(dir_models: str, epoch: int) -> str:
+    """The state file of ``epoch``'s checkpoint. Raises ``FileNotFoundError``
+    without one, naming the JAX package's Orbax format where the directory
+    holds that instead: the port reads only its own checkpoints."""
+    ckpt = checkpoint_dir(dir_models, epoch)
+    path = os.path.join(ckpt, STATE_FILE)
+    if os.path.isdir(ckpt) and not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{ckpt} holds no {STATE_FILE}: a checkpoint in another format (the JAX package "
+            "writes Orbax checkpoints, which the port does not read); the port reads only the "
+            "checkpoints of zdcsim_torch.train.checkpoint")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint of epoch {epoch} under {dir_models} ({path})")
+    return path
+
+
 def restore_checkpoint(dir_models: str, epoch: int, template: MoETrainState) -> MoETrainState:
     """The checkpoint of ``epoch`` in ``template``'s structure, shapes and
     dtypes (``count`` and ``step`` int32), on its device."""
-    path = os.path.join(checkpoint_dir(dir_models, epoch), STATE_FILE)
+    path = checkpoint_file(dir_models, epoch)
     flat = torch.load(path, map_location="cpu", weights_only=True)
     want = _flatten(template)
     if set(flat) != set(want):

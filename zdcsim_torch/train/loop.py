@@ -61,7 +61,7 @@ def check_loop_options(cfg) -> None:
         raise _not_ported(f"parallel.expert_parallel={cfg.parallel.expert_parallel}", "8")
     if bool(cfg.wandb.plot_images) or bool(cfg.train.save_eval_plots):
         raise _not_ported("the eval figures (wandb.plot_images, train.save_eval_plots; "
-                          "zdcsim/train/eval_plots.py)", "7")
+                          "zdcsim/train/eval_plots.py)", "7d")
 
 
 def _accumulate(acc: Optional[Metrics], new: Metrics) -> Metrics:

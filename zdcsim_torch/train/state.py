@@ -90,9 +90,28 @@ def adam_init(params: Tree) -> AdamState:
                      nu={k: torch.zeros_like(v) for k, v in params.items()})
 
 
-def adam_update(lr: float, state: AdamState, params: Tree, grads: Tree):
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0):
+    """optax ``cosine_decay_schedule``: ``count -> init_value * ((1 - alpha) *
+    0.5 * (1 + cos(pi * min(count, decay_steps) / decay_steps)) + alpha)``,
+    a float32 scalar of the int32 ``count`` on its device, op for op in
+    float32 as optax computes it (the two ``cos`` differ by an ulp at some
+    counts). optax's ``adam(schedule)`` reads it at the update count
+    *before* the update advances it: ``adam_update(schedule(state.count),
+    state, ...)``."""
+    if int(decay_steps) <= 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = torch.clamp(torch.as_tensor(count), max=int(decay_steps)).to(torch.float32)
+        cosine = 0.5 * (1 + torch.cos(math.pi * c / int(decay_steps)))
+        return init_value * ((1 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def adam_update(lr, state: AdamState, params: Tree, grads: Tree):
     """optax ``adam(lr)`` then ``apply_updates``: returns ``(new params, new
-    state)``. ``mu = b1 mu + (1-b1) g``, ``nu = b2 nu + (1-b2) g^2`` (as
+    state)``; ``lr`` a float or a float32 scalar tensor. ``mu = b1 mu + (1-b1) g``, ``nu = b2 nu + (1-b2) g^2`` (as
     ``lerp``), bias-corrected at ``count + 1`` in float32, ``p - lr mu_hat /
     (sqrt(nu_hat) + eps)``: optax's formula, in fewer passes over memory."""
     count = state.count + 1
@@ -160,12 +179,15 @@ def _init_params(module: torch.nn.Module, n_experts: Optional[int],
     """Flax's initialisers on ``module``'s parameter shapes, stacked on a
     leading ``[n_experts]`` axis (``None``: unstacked): kernels
     ``lecun_normal`` (fan-in: every axis but the output's), biases zeros,
-    norm scales ones."""
+    norm scales ones, the attention router's ``expert_queries``
+    ``normal(stddev=0.02)``."""
     lead = () if n_experts is None else (n_experts,)
     out = {}
     for name, p in module.named_parameters():
         shape = lead + tuple(p.shape)
-        if name.endswith(".weight") and p.ndim >= 2:
+        if name == "expert_queries":
+            out[name] = 0.02 * torch.randn(shape, generator=generator, device=device)
+        elif name.endswith(".weight") and p.ndim >= 2:
             out[name] = _lecun_normal(shape, math.prod(p.shape[1:]), generator, device)
         elif name.endswith(".weight"):
             out[name] = torch.ones(shape, device=device)
