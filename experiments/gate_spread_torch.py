@@ -26,7 +26,11 @@ batch 32768, tile 128, against ``f32``). With ``--package jax`` JAX's
 expert on its routed rows in tiles of 128 (the last one filled with copies
 of its first row, which leave the per-tile activation maxima as they are),
 ``int8`` on bfloat16 operands as JAX's engine serves it, against float32.
-Prints one JSON line with each seed's value and per-expert values.
+Prints one JSON line with each seed's value and per-expert values, and the
+phase's restated rule (``chip_smoke.int8_rule``): each expert's 0.999
+quantile and the verdict. ``--dump DIR`` writes each seed's per-shower
+log1p sums and routed experts (``tests/fixtures/neutron_int8_rows.npz``
+holds JAX's of seeds 5 and 7).
 
 The port's mode imports no JAX; the JAX modes import the JAX package and
 run on the CPU.
@@ -140,14 +144,29 @@ def int8_inputs(seed: int):
 
 
 def rel_diff(a_sums: np.ndarray, b_sums: np.ndarray, ids: np.ndarray) -> Dict[str, object]:
-    """The phase's number: max relative difference of the log1p sums, and per expert."""
+    """The phase's numbers: max relative difference of the log1p sums, and per
+    expert (the rule before F5), and the restated rule's per-expert quantiles
+    and verdict (``chip_smoke.int8_rule``)."""
+    import chip_smoke as cs
+
     rel = np.abs(a_sums - b_sums) / np.abs(b_sums)
+    rule = cs.int8_rule(a_sums, b_sums, ids)
     return {"max_rel": float(rel.max()),
             "per_expert": [float(rel[ids == e].max()) if (ids == e).any() else None
-                           for e in range(3)]}
+                           for e in range(3)],
+            "quantiles": rule["quantiles"], "rule_ok": rule["ok"],
+            "worst_row": int(rel.argmax())}
 
 
-def port_int8(seed: int, device) -> Dict[str, object]:
+def dump(out_dir, package: str, seed: int, a_sums, b_sums, ids) -> None:
+    """The per-shower log1p sums (float32) and routed experts of one seed."""
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        np.savez(os.path.join(out_dir, f"int8_sums_{package}_seed{seed}.npz"),
+                 int8=np.float32(a_sums), f32=np.float32(b_sums), ids=np.int8(ids))
+
+
+def port_int8(seed: int, device, out_dir=None) -> Dict[str, object]:
     import torch
 
     import fidelity_torch as ft
@@ -170,17 +189,40 @@ def port_int8(seed: int, device) -> Dict[str, object]:
         raise SystemExit(f"seed {seed}: int8 and f32 route differently")
     sums = np.log1p(imgs.sum(dim=(1, 2)).cpu().numpy())
     r_sums = np.log1p(r_imgs.sum(dim=(1, 2)).cpu().numpy())
+    dump(out_dir, "port", seed, sums, r_sums, ids.cpu().numpy())
     return {"seed": seed, **rel_diff(sums, r_sums, ids.cpu().numpy())}
 
 
-def jax_int8(seed: int) -> Dict[str, object]:
-    from zdcsim.utils.platform import force_cpu
+def jax_tiles(rows: np.ndarray) -> np.ndarray:
+    """An expert's routed rows in tiles of ``INT8_TILE``, the last filled
+    with copies of its first row."""
+    pad = (-len(rows)) % INT8_TILE
+    return np.concatenate([rows, np.full(pad, rows[0])]).reshape(-1, INT8_TILE)
 
-    force_cpu()
+
+def jax_tile_sums(gp, e: int, cond, noise, tiles: np.ndarray, int8: bool) -> np.ndarray:
+    """JAX's ``fast_neutron_apply`` of expert ``e`` on ``tiles`` of rows, each
+    tile one call (its own activation maxima): the photon sums ``[T, 128]``,
+    ``int8`` on bfloat16 operands as JAX's engine serves it, else float32."""
     import jax
     import jax.numpy as jnp
 
     from zdcsim.models.neutron_fast import fast_neutron_apply
+
+    dt = jnp.bfloat16 if int8 else jnp.float32
+    p = jax.tree_util.tree_map(lambda a: jnp.asarray(a[e], dt), gp)
+    fn = jax.jit(jax.vmap(lambda z, c: jnp.expm1(fast_neutron_apply(
+        p, z, c, int8=int8)[..., 0].astype(jnp.float32)).sum(axis=(1, 2))))
+    return np.concatenate([np.asarray(fn(jnp.asarray(noise[b], dt), jnp.asarray(cond[b], dt)))
+                           for b in np.array_split(tiles, max(1, len(tiles) // 64))])
+
+
+def jax_int8(seed: int, out_dir=None) -> Dict[str, object]:
+    from zdcsim.utils.platform import force_cpu
+
+    force_cpu()
+    import jax.numpy as jnp
+
     from zdcsim.models.router import RouterNetwork
     from zdcsim.utils.artifact import load_serving_artifact
 
@@ -189,25 +231,18 @@ def jax_int8(seed: int) -> Dict[str, object]:
     _, logits = RouterNetwork(n_experts=3).apply({"params": router}, jnp.asarray(cond))
     ids = np.asarray(jnp.argmax(logits, axis=-1))
 
-    def tiles(rows):
-        pad = (-len(rows)) % INT8_TILE
-        return np.concatenate([rows, np.full(pad, rows[0])]).reshape(-1, INT8_TILE)
-
     sums = {}
-    for name, int8, dt in (("int8", True, jnp.bfloat16), ("f32", False, jnp.float32)):
+    for name, int8 in (("int8", True), ("f32", False)):
         out = np.zeros(len(cond), np.float64)
         for e in range(3):
             rows = np.flatnonzero(ids == e)
             if not len(rows):
                 continue
-            p = jax.tree_util.tree_map(lambda a: jnp.asarray(a[e], dt), gp)
-            t = tiles(rows)
-            fn = jax.jit(jax.vmap(lambda z, c: jnp.expm1(fast_neutron_apply(
-                p, z, c, int8=int8)[..., 0].astype(jnp.float32)).sum(axis=(1, 2))))
-            got = np.concatenate([np.asarray(fn(jnp.asarray(noise[b], dt), jnp.asarray(cond[b], dt)))
-                                  for b in np.array_split(t, max(1, len(t) // 64))])
+            t = jax_tiles(rows)
+            got = jax_tile_sums(gp, e, cond, noise, t, int8)
             out[t.reshape(-1)[:len(rows)]] = got.reshape(-1)[:len(rows)]
         sums[name] = np.log1p(out)
+    dump(out_dir, "jax", seed, sums["int8"], sums["f32"], ids)
     return {"seed": seed, **rel_diff(sums["int8"], sums["f32"], ids)}
 
 
@@ -218,6 +253,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=5, help="the number of seeds")
     ap.add_argument("--first", type=int, default=0, help="the first seed (int8)")
     ap.add_argument("--device", default=None, help="the port's int8 mode: 'cpu' (default CUDA)")
+    ap.add_argument("--dump", default=None,
+                    help="int8: write each seed's per-shower log1p sums into this directory")
     a = ap.parse_args(argv)
     packages = ("port", "jax") if a.package == "both" else (a.package,)
     for package in packages:
@@ -228,10 +265,11 @@ def main(argv=None) -> int:
                 from zdcsim_torch.device import default_device
 
                 dev = default_device(a.device)
-                runs = [port_int8(s, dev) for s in range(a.first, a.first + a.seeds)]
+                runs = [port_int8(s, dev, a.dump) for s in range(a.first, a.first + a.seeds)]
             else:
-                runs = [jax_int8(s) for s in range(a.first, a.first + a.seeds)]
+                runs = [jax_int8(s, a.dump) for s in range(a.first, a.first + a.seeds)]
             rec = {"package": package, "bound": 0.15, "seeds": runs,
+                   "rule_ok_every_seed": all(r["rule_ok"] for r in runs),
                    **summary([r["max_rel"] for r in runs])}
         print(json.dumps({a.what: rec}), flush=True)
     return 0

@@ -103,9 +103,12 @@ def test_gate_real_channel_sums_and_floor(split):
 
 
 def test_split_refuses_what_is_not_ported():
-    """The pickles are not ported; a resume whose run saved no split raises
-    rather than draw a new one (saving and resuming: tests/test_torch_loop.py)."""
-    with pytest.raises(NotImplementedError, match="pickles"):
+    """The default config reads the reference's pickles, absent here: the
+    read raises naming the file, as JAX's ``pd.read_pickle`` does (reading
+    them: tests/test_torch_pickles.py); a resume whose run saved no split
+    raises rather than draw a new one (saving and resuming:
+    tests/test_torch_loop.py)."""
+    with pytest.raises(FileNotFoundError, match="data_proton_photonsum_proton_1_2312.pkl"):
         get_train_test_data(load_config())
     cfg = load_config(["dataset.synthetic=true", "dataset.synthetic_n_samples=32",
                        "train.checkpoint_experiment_dir=/nonexistent/run", "train.epoch_to_load=3"])

@@ -256,8 +256,7 @@ def test_loop_refuses_what_is_not_ported(tmp_path):
     from zdcsim_torch.train.loop import train
 
     for over, item in ((["parallel.n_devices=2"], "item 8"),
-                       (["train.save_eval_plots=true"], "item 7"),
-                       (["wandb.plot_images=true"], "item 7")):
+                       (["parallel.expert_parallel=2"], "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             train(load_config(run_overrides(tmp_path) + over), device="cpu")
     if not torch.cuda.is_available():  # CUDA by default: no card is an error, not the CPU

@@ -80,7 +80,7 @@ class ModelConfig:
 class DatasetConfig:
     zdc_type: str = "proton"
     input_image_shape: Tuple[int, int] = (56, 30)
-    # the reference's pickles (read only with synthetic=false: ROADMAP.md Queue 1 item 6d)
+    # the reference's pickles (read with synthetic=false, zdcsim_torch/data/pickles.py)
     DATA_IMAGES_PATH: str = "data/data_proton_photonsum_proton_1_2312.pkl"
     DATA_COND_PATH: str = "data/data_cond_photonsum_proton_1_2312.pkl"
     DATA_POSITIONS_PATH: str = "data/data_coord_photonsum_proton_1_2312.pkl"
@@ -107,7 +107,7 @@ class RunConfig:
 @dataclass
 class WandbConfig:
     log_experiments: bool = False  # a wandb run (a no-op where wandb is not installed)
-    plot_images: bool = False  # the eval figures (not ported: ROADMAP.md Queue 1 item 7d)
+    plot_images: bool = False  # the eval figures, logged to wandb (needs matplotlib)
     run_name: Optional[str] = None  # stamped with the experiment directory
     api_key: str = ""
 
@@ -126,7 +126,7 @@ class TrainConfig:
     checkpoint_keep_best: Optional[int] = None  # keep the k lowest-ws checkpoints; None: all
     async_checkpointing: bool = False  # write checkpoints in a background thread
     save_experiments_dir: Optional[str] = "experiments/"
-    save_eval_plots: bool = False  # the eval figures (not ported: ROADMAP.md Queue 1 item 7d)
+    save_eval_plots: bool = False  # the eval figures under <experiment_dir>/plots (matplotlib)
     profile_epoch: Optional[int] = None  # epoch to trace with torch.profiler
     profile_dir: Optional[str] = None  # None: <experiment_dir>/traces
     ema_decay: float = 0.99

@@ -1,16 +1,19 @@
 """Dataset ingestion and the train/test split (counterpart of
-``zdcsim/data/dataset.py``), for the synthetic dataset.
+``zdcsim/data/dataset.py``).
 
-numpy end to end. :func:`get_train_test_data` makes the same draws from
+numpy end to end. The reference's three training pickles are read by
+:mod:`zdcsim_torch.data.pickles` (no pandas: the GPU machine has none);
+``dataset.synthetic=true`` makes synthetic events in their place.
+:func:`get_train_test_data` makes the same draws from
 ``np.random.default_rng(train.seed)`` in the same order as the JAX package
 (the stratified subsample, one permutation per condition group for the
 pairing, then the split's permutation), so the split is bit-equal to JAX's.
+:func:`get_dataset` stamps the kept events' photon-sum range on the config
+as ``cfg.photon_sum_min`` / ``cfg.photon_sum_max``, as JAX does.
 ``train.save_experiment_data`` writes the scales and the split indices into
 the run's directory (``zdcsim_torch.utils.io``, the JAX package's formats),
 and a resume (``train.checkpoint_experiment_dir`` with
-``train.epoch_to_load``) reads the saved indices back. Reading the
-reference's pickles is not ported: the GPU machine has no pandas (ROADMAP.md
-Queue 1 item 6d); it raises ``NotImplementedError``.
+``train.epoch_to_load``) reads the saved indices back.
 """
 
 from __future__ import annotations
@@ -72,6 +75,26 @@ def _subset(ds: PreparedDataset, idx: np.ndarray) -> PreparedDataset:
                            positions=ds.positions[idx], zdc_type=ds.zdc_type)
 
 
+def _load_pickles(cfg) -> PreparedDataset:
+    """Read the three reference-format training pickles into a
+    PreparedDataset: the images as float32, the conditioning columns as
+    stored, the (max_x, max_y) positions as float32; the top-level
+    ``limit_samples`` keeps the first rows of all three."""
+    from zdcsim_torch.data.pickles import read_pickle
+
+    d, limit = cfg.dataset, cfg.limit_samples
+    data = np.asarray(read_pickle(d.DATA_IMAGES_PATH), np.float32)
+    cond = read_pickle(d.DATA_COND_PATH)
+    posi = read_pickle(d.DATA_POSITIONS_PATH)
+    if limit is not None:
+        data = data[:limit]
+        cond = {k: v[:limit] for k, v in cond.items()}
+        posi = {k: v[:limit] for k, v in posi.items()}
+    positions = np.stack([np.asarray(posi["max_x"], np.float32),
+                          np.asarray(posi["max_y"], np.float32)], axis=1)
+    return PreparedDataset(images=data, cond=cond, positions=positions, zdc_type=d.zdc_type)
+
+
 def _stratified_subsample(sums: np.ndarray, n_samples: int, rng: np.random.Generator,
                           n_bins: int = 1000) -> np.ndarray:
     """Uniform-per-quantile-bin subsample of event indices: an equal draw
@@ -97,19 +120,20 @@ def _stratified_subsample(sums: np.ndarray, n_samples: int, rng: np.random.Gener
 
 
 def get_dataset(cfg, rng: Optional[np.random.Generator] = None) -> PreparedDataset:
-    """Synthesize the dataset, keep the events whose photon sum is inside
-    ``[MIN_INTENSITY_THRESHOLD, MAX_INTENSITY_THRESHOLD]`` and take the
-    stratified subsample of ``read_n_samples`` if it is set."""
+    """Read the pickles (or synthesize the events), keep the events whose
+    photon sum is inside ``[MIN_INTENSITY_THRESHOLD,
+    MAX_INTENSITY_THRESHOLD]``, take the stratified subsample of
+    ``read_n_samples`` if it is set, and stamp the kept photon-sum range as
+    ``cfg.photon_sum_min`` / ``cfg.photon_sum_max``."""
     rng = rng or np.random.default_rng(int(cfg.train.seed))
     d = cfg.dataset
-    if not d.synthetic:
-        raise NotImplementedError("reading the reference's pickles needs pandas, which the GPU "
-                                  "machine lacks: ROADMAP.md Queue 1 item 6d; set "
-                                  "dataset.synthetic=true")
-    from zdcsim_torch.data.synthetic import make_synthetic_dataset
+    if d.synthetic:
+        from zdcsim_torch.data.synthetic import make_synthetic_dataset
 
-    ds = make_synthetic_dataset(int(d.synthetic_n_samples), tuple(d.input_image_shape),
-                                zdc_type=d.zdc_type, seed=int(cfg.train.seed))
+        ds = make_synthetic_dataset(int(d.synthetic_n_samples), tuple(d.input_image_shape),
+                                    zdc_type=d.zdc_type, seed=int(cfg.train.seed))
+    else:
+        ds = _load_pickles(cfg)
     sums = np.asarray(ds.cond[f"{d.zdc_type}_photon_sum"], np.float64)
     mask = np.ones(sums.shape[0], dtype=bool)
     if d.MIN_INTENSITY_THRESHOLD is not None:
@@ -119,7 +143,10 @@ def get_dataset(cfg, rng: Optional[np.random.Generator] = None) -> PreparedDatas
     if not mask.all():
         ds, sums = _subset(ds, mask), sums[mask]
     if d.read_n_samples is not None and d.read_n_samples < sums.shape[0]:
-        ds = _subset(ds, _stratified_subsample(sums, int(d.read_n_samples), rng))
+        idx = _stratified_subsample(sums, int(d.read_n_samples), rng)
+        ds, sums = _subset(ds, idx), sums[idx]
+    cfg.photon_sum_min = float(sums.min())
+    cfg.photon_sum_max = float(sums.max())
     return ds
 
 

@@ -7,16 +7,28 @@ numpy only. Where the JAX package calls its host C++ library
 (``zdcsim/native``) it falls back to numpy; this module has those numpy
 versions alone. They agree with the C++ ones exactly on photon sums and
 coordinates, and within 1e-5 on the diversity target (Welford in C++,
-two-pass float64 here), which no split or test membership reads. The
-pickle writer and the command line of the JAX module are not ported.
+two-pass float64 here), which no split or test membership reads.
+
+The command line, ``python -m zdcsim_torch.data.prep`` (JAX's flags), reads
+the raw images and the raw conditioning through
+:mod:`zdcsim_torch.data.pickles` (no pandas), prepares them and writes the
+three training pickles with :func:`save_prepared`, which needs pandas (the
+reference's on-disk layout is pandas' own) and raises without it;
+``--report`` writes ``analysis_report.txt`` beside them
+(``zdcsim_torch.evals.report``).
 """
 
 from __future__ import annotations
 
+import argparse
+import logging
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 COND_COLUMNS = ("Energy", "Vx", "Vy", "Vz", "Px", "Py", "Pz", "mass", "charge")
 
@@ -148,3 +160,65 @@ def prepare_dataset(raw_images: np.ndarray, cond: Dict[str, np.ndarray], zdc_typ
         out_cond["expert_number"] = np.zeros(images_log.shape[0], dtype=np.int64)
     return PreparedDataset(images=images_log, cond=out_cond, positions=positions,
                            zdc_type=zdc_type)
+
+
+def save_prepared(ds: PreparedDataset, images_path: str, cond_path: str,
+                  positions_path: str) -> None:
+    """Write the three training pickles in the reference's layout: the
+    images as a pickled ndarray, the conditioning and the (max_x, max_y)
+    positions as pickled DataFrames. Needs pandas; raises ``ImportError``
+    without it and writes nothing."""
+    try:
+        import pandas as pd
+    except ImportError as e:
+        raise ImportError("save_prepared needs pandas: the training pickles are pandas "
+                          "DataFrames (pd.to_pickle), and this host has no pandas") from e
+    pd.to_pickle(ds.images, images_path)
+    pd.to_pickle(pd.DataFrame(ds.cond), cond_path)
+    pd.to_pickle(pd.DataFrame({"max_x": ds.positions[:, 0], "max_y": ds.positions[:, 1]}),
+                 positions_path)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="zdcsim_torch offline data prep")
+    parser.add_argument("--raw-images", required=True, help="pickle of linear-space [N,H,W] images")
+    parser.add_argument("--raw-cond", required=True, help="pickle of conditioning DataFrame")
+    parser.add_argument("--zdc-type", choices=("proton", "neutron"), required=True)
+    parser.add_argument("--min-photon-sum", type=float, default=None)
+    parser.add_argument("--max-photon-sum", type=float, default=None)
+    parser.add_argument("--out-images", required=True)
+    parser.add_argument("--out-cond", required=True)
+    parser.add_argument("--out-positions", required=True)
+    parser.add_argument(
+        "--report", action="store_true",
+        help="write analysis_report.txt (coordinate, photon-sum and correlation analyses) "
+             "next to --out-images")
+    args = parser.parse_args(argv)
+
+    from zdcsim_torch.data.pickles import read_pickle
+
+    raw_images = np.asarray(read_pickle(args.raw_images))
+    raw_cond = read_pickle(args.raw_cond)
+    cond = {c: np.asarray(raw_cond[c]) for c in COND_COLUMNS}
+    ds = prepare_dataset(raw_images, cond, args.zdc_type, args.min_photon_sum,
+                         args.max_photon_sum)
+    save_prepared(ds, args.out_images, args.out_cond, args.out_positions)
+    if args.report:
+        from zdcsim_torch.evals.report import dataset_analysis_report
+
+        text = dataset_analysis_report(
+            np.expm1(ds.images),
+            photon_sums=np.asarray(ds.cond[f"{args.zdc_type}_photon_sum"]),
+            n_before_filter=raw_images.shape[0],
+            title=f"zdcsim {args.zdc_type} dataset analysis",
+        )
+        path = os.path.join(os.path.dirname(os.path.abspath(args.out_images)),
+                            "analysis_report.txt")
+        with open(path, "w") as f:
+            f.write(text)
+        log.info("Analysis report written to %s", path)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

@@ -60,12 +60,33 @@ def _pad_rows(x: torch.Tensor, n_true: int, pad: int) -> torch.Tensor:
     return torch.cat([x] + [x[: max(1, pad)]] * reps)[: n_true + pad]
 
 
+def expert_trees(params, stats, n_experts: int):
+    """Each expert's parameters and BatchNorm buffers, for :func:`routed_decode`."""
+    return [{**p, **bn_buffers(st)} for p, st in zip(expert_slices(params, n_experts),
+                                                    expert_slices(stats, n_experts))]
+
+
+def routed_decode(modules: MoEModules, params, stats, experts, cond: torch.Tensor,
+                  idx: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Each row's routed expert in eval: log-space showers ``[B, H, W]``. The
+    tiled switch dispatch at tile ``gcd(B, 64)``, or every expert then the
+    routed gather where that tile is under 2 (``experts``:
+    :func:`expert_trees`)."""
+    b = cond.shape[0]
+    tile = math.gcd(b, 64)
+    if tile >= 2:
+        decoders = [functools.partial(_decode, modules.generator, p) for p in experts]
+        return tiled_switch_decode(decoders, idx, cond, noise, tuple(modules.image_shape),
+                                   tile=tile)
+    imgs = modules.generate(params, noise, cond, stats)  # [E, B, H, W, 1]
+    return imgs[idx, torch.arange(b, device=idx.device), ..., 0]
+
+
 def build_evaluator(modules: MoEModules, cfg, chunk_size: Optional[int] = None):
     """``evaluate(state, test_arrays, epoch, generator=None,
     expert_labels=None, noise=None, gumbel=None) -> metrics``."""
     E = modules.n_experts
     noise_dim = modules.noise_dim
-    h_img, w_img = modules.image_shape
     chunk_size = int(cfg.eval.chunk_size if chunk_size is None else chunk_size)
     sample_routing = bool(cfg.eval.sample_routing)
     fused_epilogue = bool(cfg.eval.fused_epilogue)
@@ -77,15 +98,7 @@ def build_evaluator(modules: MoEModules, cfg, chunk_size: Optional[int] = None):
         return sum_channels(torch.expm1(img_log))
 
     def gen_chunk(params, stats, experts, cond, idx, noise):
-        b = cond.shape[0]
-        tile = math.gcd(b, 64)
-        if tile >= 2:
-            decoders = [functools.partial(_decode, modules.generator, p) for p in experts]
-            sel = tiled_switch_decode(decoders, idx, cond, noise, (h_img, w_img), tile=tile)
-        else:  # every expert, then the routed gather
-            imgs = modules.generate(params, noise, cond, stats)  # [E, B, H, W, 1]
-            sel = imgs[idx, torch.arange(b, device=idx.device), ..., 0]
-        return channels_of_log(sel)
+        return channels_of_log(routed_decode(modules, params, stats, experts, cond, idx, noise))
 
     def ws_all(ch_org, ch_gen, idx):
         """Overall per-channel W1 ``[5]`` and per-expert masked W1 ``[E, 5]``."""
@@ -133,8 +146,7 @@ def build_evaluator(modules: MoEModules, cfg, chunk_size: Optional[int] = None):
                 raise ValueError(f"gumbel must be [{n}, {E}], got {tuple(gumbel.shape)}")
 
         r_params, g_params, g_stats = state.router.params, state.gen.params, state.gen.stats
-        experts = [{**p, **bn_buffers(st)} for p, st in zip(expert_slices(g_params, E),
-                                                             expert_slices(g_stats, E))]
+        experts = expert_trees(g_params, g_stats, E)
         slices = [slice(c * csize, (c + 1) * csize) for c in range(chunks)]
         with f32_matmuls():
             idx_parts, org_parts = [], []

@@ -92,9 +92,9 @@ class MetricsTracker(Callback):
 
 
 class WandBLogger(Callback):
-    """wandb epoch logging with a flattened config; a no-op (with a
-    warning) where wandb is not installed or ``wandb.log_experiments`` is
-    off."""
+    """wandb epoch logging with a flattened config, the eval figures
+    (``_figures``) as ``wandb.Image``; a no-op (with a warning) where wandb
+    is not installed or ``wandb.log_experiments`` is off."""
 
     def __init__(self, cfg):
         self.enabled = bool(cfg.wandb.log_experiments)
@@ -120,10 +120,14 @@ class WandBLogger(Callback):
 
     def on_epoch_end(self, epoch, metrics, state):
         if self.run is not None:
+            import wandb
+
             loggable = {
                 k: v for k, v in metrics.items()
                 if isinstance(v, (int, float, np.floating, np.integer)) and v is not None
             }
+            for name, fig in (metrics.get("_figures") or {}).items():
+                loggable[name] = wandb.Image(fig)
             self.run.log({"epoch": epoch, **loggable})
 
     def on_train_end(self, history):

@@ -13,9 +13,17 @@ that epoch's checkpoint and trains from that epoch on, that epoch included,
 as JAX does. ``train.profile_epoch`` traces one epoch's steps with
 ``torch.profiler``.
 
+With ``wandb.plot_images`` or ``train.save_eval_plots`` each eval epoch
+also draws the diagnostic figures (``zdcsim_torch/train/eval_plots.py``)
+from a stream of their own (``zdcsim_torch.utils.prng.figure_generator``)
+and saves them under ``<experiment_dir>/plots``; without matplotlib on the
+host the loop raises before its first step. A fault of the figures' device
+half propagates; one of the host's drawing is logged and the run goes on,
+as in JAX.
+
 The loop runs on CUDA unless the caller passes ``device="cpu"``. What it
 does not port raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item: more than one device and the eval figures.
+item: more than one device.
 
 Each epoch also logs the seconds of its steps (to the card's end of
 them), of the metrics' one host copy, of the evaluation and of the callbacks (the checkpoint write's host
@@ -41,7 +49,7 @@ from zdcsim_torch.train.hooks import setup_callbacks
 from zdcsim_torch.train.state import init_state
 from zdcsim_torch.train.step import build_train_step, draw_step_noise
 from zdcsim_torch.utils.io import DIR_MODELS, append_experiment_dir_to_cfg
-from zdcsim_torch.utils.prng import eval_generator, fold_epoch_batch
+from zdcsim_torch.utils.prng import eval_generator, figure_generator, fold_epoch_batch
 from zdcsim_torch.utils.profiling import trace
 
 log = logging.getLogger(__name__)
@@ -59,9 +67,6 @@ def check_loop_options(cfg) -> None:
         raise _not_ported(f"parallel.n_devices={cfg.parallel.n_devices} (multi-GPU)", "8")
     if int(cfg.parallel.expert_parallel) > 1:
         raise _not_ported(f"parallel.expert_parallel={cfg.parallel.expert_parallel}", "8")
-    if bool(cfg.wandb.plot_images) or bool(cfg.train.save_eval_plots):
-        raise _not_ported("the eval figures (wandb.plot_images, train.save_eval_plots; "
-                          "zdcsim/train/eval_plots.py)", "7d")
 
 
 def _accumulate(acc: Optional[Metrics], new: Metrics) -> Metrics:
@@ -102,6 +107,11 @@ def train(cfg, split=None, modules=None, return_state: bool = False,
     (the tests pass tiny modules)."""
     dev = default_device(device)
     check_loop_options(cfg)
+    plot_images = bool(cfg.wandb.plot_images) or bool(cfg.train.save_eval_plots)
+    if plot_images:
+        from zdcsim_torch.train import eval_plots
+
+        eval_plots.require_matplotlib()
     if cfg.config.experiment_dir is None:
         append_experiment_dir_to_cfg(cfg)
     if split is None:
@@ -162,6 +172,18 @@ def train(cfg, split=None, modules=None, return_state: bool = False,
                 for k in ("router_accuracy", "router_precision", "router_recall", "router_f1"):
                     if k in ws:
                         epoch_metrics[k] = ws[k]
+                if plot_images:
+                    arrays = eval_plots.figure_arrays(modules, state, test_loader.arrays,
+                                                      figure_generator(seed, epoch, dev))
+                    try:
+                        figs = eval_plots.build_figures(
+                            arrays, epoch, split.data_cond_names, modules.n_experts,
+                            title=modules.names.get("generator", ""))
+                        eval_plots.save_figures(
+                            figs, os.path.join(str(cfg.config.experiment_dir), "plots"), epoch)
+                        epoch_metrics["_figures"] = figs
+                    except Exception:  # noqa: BLE001 — as JAX: the host's drawing only
+                        log.warning("Eval figure generation failed", exc_info=True)
             t_eval = time.time()
 
             history.append(

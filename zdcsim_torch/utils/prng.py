@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 EVAL_OFFSET = 10_000_000  # the eval streams' epoch offset (zdcsim/train/loop.py:143)
+FIGURE_OFFSET = 20_000_000  # the eval figures' epoch offset (zdcsim/train/loop.py:166)
 
 
 def seeded_generator(entropy, device: str | torch.device = "cpu") -> torch.Generator:
@@ -31,3 +32,8 @@ def fold_epoch_batch(seed: int, epoch: int, batch_idx: int,
 def eval_generator(seed: int, epoch: int, device: str | torch.device = "cpu") -> torch.Generator:
     """The generator of one evaluation's draws: ``(seed, EVAL_OFFSET + epoch)``."""
     return seeded_generator([int(seed), EVAL_OFFSET + int(epoch)], device)
+
+
+def figure_generator(seed: int, epoch: int, device: str | torch.device = "cpu") -> torch.Generator:
+    """The generator of one epoch's eval figures: ``(seed, FIGURE_OFFSET + epoch)``."""
+    return seeded_generator([int(seed), FIGURE_OFFSET + int(epoch)], device)
