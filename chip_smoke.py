@@ -2,7 +2,7 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-22 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-23 on the CPU at small sizes
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
 Phases, each printing lines with the elapsed seconds:
@@ -250,7 +250,27 @@ Phases, each printing lines with the elapsed seconds:
     ``generate_eval_figures`` on the checkpoint (18 showers) must route as
     the CPU's and match its showers (photon sums within rel 1e-4, pixels
     within rtol / atol 1e-4); a ``{"real_data": ...}`` line records the
-    phase.
+    phase;
+23. the mesh (``zdcsim_torch.parallel``), item 3's int8 forms and the host
+    C++ prep library: (a) an NCCL world of one (a ``file://`` store in a
+    temporary directory) and ``make_mesh(1)``; the teacher served through
+    ``FastSim(mesh=...)`` on ``int8_pallas`` and ``int8_fused``
+    (``MESH_SERVE``: 4096 showers at batch 1024, tile 64), ``simulate_switch``
+    and ``simulate_bulk`` (the dyn form's CUDA graph, the gather after each
+    replay), each ``torch.equal`` to the meshless engine on the same
+    generator seed; the counts set to 0 just before the meshed
+    ``simulate_switch`` and read just after must show the path's kernels
+    (A-D, H), B and D on the tensor cores, A and C in clusters, and join
+    the kernels line; (b) each of ``proton_fast``'s int8 switch settings
+    (``INT8_CONV0_IMPL="naive"``, ``INT8_CONV1_IMPL="phase"``,
+    ``INT8_CONV2=False``, ``DEQUANT_DTYPE=bfloat16``) on the teacher's
+    ``int8`` serve (``FORMS_SERVE``) against the default forms by JAX's
+    rule (routing identical, per-shower log1p sums within rtol 0.1); (c)
+    the host C++ prep library built with this host's g++ (the phase fails
+    if it does not) and held against numpy on 4096 random 56x30 images
+    (sums of photon counts, coordinates and the row gather equal, ``log1p``
+    within two ulp, the group std within 1e-5), each timed beside numpy;
+    (d) a ``{"mesh": ...}`` line records the phase's times.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
@@ -268,8 +288,9 @@ The line before the last is the kernels' JSON record, with the launches of
 the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
 ``int8`` gate (E), of the all-expert path (F) and of the ``int8_fused_front``
 (G) and ``int8_fused`` (H) serves (E's with the neutron loop's eval of
-phase 20 and phase 22's evals added, and A-E's and H's with phase 21's
-gates of the run directory), A's and C's ``k_sweep`` and
+phase 20 and phase 22's evals added, A-E's and H's with phase 21's
+gates of the run directory, and A-D's and H's with phase 23's serves on
+the mesh), A's and C's ``k_sweep`` and
 ``eager_ms`` (the host loop's time), B's and D's
 ``int_mm_ms``, G's and H's ``conv_ms`` (their convs' times), and E's and
 F's ``body``, ``bulk_launches``, ``graph_ms``, ``old_body_ms`` and
@@ -311,7 +332,11 @@ showers), and phase 21 at ``REHEARSE_*`` (the attention router's serve of
 the neutron family alone distilled at batch 2, one update a call, with no
 card-against-CPU call, its artifact's round trip on 6 showers; the run
 directory's gate on 16 conditions on ``int8_pallas``), and phase 22 at
-``REHEARSE_REAL_DATA`` (width 0.125, batch 16, ``--cpu``). Both modes print each
+``REHEARSE_REAL_DATA`` (width 0.125, batch 16, ``--cpu``), and phase 23 at
+``REHEARSE_*`` (a gloo world of one in-process; the w=0.125 student on
+``int8_pallas`` alone, 8 showers at batch 8, tile 2, the fused precisions
+taking full width only; its int8 forms on 8 showers; the host library on
+512 images). Both modes print each
 phase's seconds on one line before the last; the rehearsal ends with
 ``{"rehearsal": true}``.
 """
@@ -387,6 +412,12 @@ INT8_CAP = 0.25
 FIXTURES = os.path.join(HERE, "tests", "fixtures", "real_pickles")
 REAL_DATA = (1.0, 3, 16)  # phase 22: width, experts, batch (18 train events: one step)
 REHEARSE_REAL_DATA = (0.125, 3, 16)
+MESH_SERVE = (4096, 1024, 64)  # phase 23 (a): showers, batch, tile
+REHEARSE_MESH = (8, 8, 2)
+FORMS_SERVE = (1024, 1024, 64)  # phase 23 (b): showers, batch, tile of each int8 form
+REHEARSE_FORMS = (8, 8, 2)
+NATIVE_IMAGES = 4096  # phase 23 (c): random 56x30 images
+REHEARSE_NATIVE = 512
 NEAR_TIE = 1e-5  # a routing difference is allowed only where the top two logits are this close
 # the evaluator's keys (zdcsim/train/evaluate.py:472-481): the CLI's --eval prints them
 EVAL_KEYS = {"ws_mean", "ws_std", "ws_mean_exp", "ws_std_exp", "ws_mean_rel", "ws_real_floor",
@@ -3967,11 +3998,261 @@ def real_data(dev, rehearse, card, seed):
     return rec["E_launches"], rec["E_on_bulk_ring"]
 
 
+def mesh_serves(trees, router, mesh, dev, rehearse, card, seed):
+    """Phase 23 (a): the teacher on ``int8_pallas`` and ``int8_fused`` through
+    ``FastSim(mesh=...)`` on a world of one (``MESH_SERVE``; ``trees``:
+    ``{precision: (generator tree, cfg)}``), each serve
+    ``torch.equal`` to the meshless engine's on the same generator seed:
+    ``simulate_switch`` (the kernels' counts set to 0 just before the
+    meshed serve and read just after: each of the path's kernels launched,
+    B and D on the tensor cores, A and C in clusters of the plan's k) and
+    ``simulate_bulk`` through the dyn form (the CUDA graph on the card,
+    whose replays the counts do not see). Returns ``(launches by kernel,
+    record)``."""
+    import torch
+
+    from zdcsim_torch.inference.engine import FastSim
+
+    phase = "23 mesh"
+    n, batch, tile = REHEARSE_MESH if rehearse else MESH_SERVE
+    cond = torch.randn((n, 9), generator=torch.Generator().manual_seed(seed + 23))
+    every = kernel_wrappers()
+    launches, rec = {}, {}
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(seed + 230)
+
+    def timed_serve(fn):
+        t = time.perf_counter()
+        out = fn(cond, generator=gen(), return_experts=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    for precision, (gp, cfg) in trees.items():
+        names = KERNEL_PATHS[precision]
+        wrappers = {k: every[k] for k in names}
+        engines = {tag: FastSim(gp, router, batch_size=batch, precision=precision, device=dev,
+                                cfg=cfg, mesh=m) for tag, m in (("meshless", None), ("mesh", mesh))}
+        for eng in engines.values():
+            eng._build_switch(tile=tile)
+        timed_serve(engines["meshless"].simulate_switch)  # the first serve of a process warms up
+        (ref, ref_ids), ref_s = timed_serve(engines["meshless"].simulate_switch)
+        reset_counts(wrappers)
+        (out, ids), out_s = timed_serve(engines["mesh"].simulate_switch)
+        counts = read_counts(wrappers)
+        same_switch = torch.equal(out, ref) and torch.equal(ids, ref_ids)
+        for eng in engines.values():
+            eng._build_switch(tile=tile, dyn_dispatch=True)
+        bulk = {}
+        for tag, eng in engines.items():
+            _, bulk[tag + "_capture_s"] = timed_serve(eng.simulate_bulk)  # warm-up and capture
+            (bulk[tag], bulk[tag + "_ids"]), bulk[tag + "_s"] = timed_serve(eng.simulate_bulk)
+        same_bulk = (torch.equal(bulk["mesh"], bulk["meshless"])
+                     and torch.equal(bulk["mesh_ids"], bulk["meshless_ids"])
+                     and torch.equal(bulk["mesh"], out))
+        used = torch.bincount(ids, minlength=3).tolist()
+        log(phase, f"{precision} on {mesh}: simulate_switch of {n} showers, batch {batch}, tile "
+            f"{tile}: torch.equal to the meshless engine {same_switch}, {out_s:.3f}s (meshless "
+            f"{ref_s:.3f}s); kernel launches {counts}; showers per expert {used} [{card}]")
+        log(phase, f"{precision} on {mesh}: simulate_bulk (dyn{', CUDA graph' if dev.type == 'cuda' else ''}"
+            f"): torch.equal to the meshless engine and to the switch serve {same_bulk}, "
+            f"{bulk['mesh_s']:.3f}s (meshless {bulk['meshless_s']:.3f}s; the first call, with "
+            f"its capture, {bulk['mesh_capture_s']:.3f}s) [{card}]")
+        if not (same_switch and same_bulk):
+            fail(f"{precision}: the serve on the mesh differs from the meshless engine")
+        if dev.type == "cuda":
+            if min(counts[k] for k in names) <= 0:
+                fail(f"the {precision} serve on the mesh did not launch {names}: {counts}")
+            off = [k for k in names if counts.get(f"{k} on conv_mma", counts[k]) != counts[k]
+                   or counts.get(f"{k} on clusters", counts[k]) != counts[k]]
+            if off:
+                fail(f"the {precision} serve on the mesh ran {off} off the tensor cores or "
+                     f"their plan's clusters: {counts}")
+        if not bool(torch.isfinite(out).all()) or tuple(out.shape) != (n, 56, 30):
+            fail(f"{precision} on the mesh: showers not finite of shape ({n}, 56, 30)")
+        for k in names:
+            launches[k] = launches.get(k, 0) + counts[k]
+        rec[precision] = {"switch_s": out_s, "switch_meshless_s": ref_s, "bulk_s": bulk["mesh_s"],
+                          "bulk_meshless_s": bulk["meshless_s"],
+                          "bulk_capture_s": bulk["mesh_capture_s"], "launches": counts,
+                          "routing": used}
+        del engines, bulk
+    return launches, rec
+
+
+FORM_SETTINGS = (("INT8_CONV0_IMPL", "naive"), ("INT8_CONV1_IMPL", "phase"),
+                 ("INT8_CONV2", False), ("DEQUANT_DTYPE", "bfloat16"))
+
+
+def int8_forms(gp, cfg, router, dev, rehearse, card, seed):
+    """Phase 23 (b): each of ``proton_fast``'s int8 switch settings on the
+    ``int8`` serve of ``gp`` (``FORMS_SERVE``) against the default
+    forms on the same noise, by JAX's rule (``tests/test_proton_fast.py:269``):
+    routing identical, per-shower log1p sums within rtol 0.1. Returns the
+    record."""
+    import numpy as np
+    import torch
+
+    import zdcsim_torch.models.proton_fast as pf
+    from zdcsim_torch.inference.engine import FastSim
+
+    phase = "23 mesh"
+    n, batch, tile = REHEARSE_FORMS if rehearse else FORMS_SERVE
+    g = torch.Generator().manual_seed(seed + 231)
+    cond, noise = torch.randn((n, 9), generator=g), torch.randn((n, 10), generator=g)
+
+    def serve():
+        eng = FastSim(gp, router, batch_size=batch, precision="int8", device=dev, cfg=cfg)
+        eng._build_switch(tile=tile)
+        t = time.perf_counter()
+        imgs, ids = eng.simulate_switch(cond, noise=noise, return_experts=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return imgs, ids, time.perf_counter() - t
+
+    what = "teacher" if cfg is None else f"w={cfg.model.generator.width} student"
+    base, base_ids, base_s = serve()
+    ref = log1p_sums(base)
+    rec = {"default_s": base_s}
+    for name, value in FORM_SETTINGS:
+        saved = getattr(pf, name)
+        setattr(pf, name, getattr(torch, value) if name == "DEQUANT_DTYPE" else value)
+        try:
+            imgs, ids, secs = serve()
+        finally:
+            setattr(pf, name, saved)
+        rel = float((np.abs(log1p_sums(imgs) - ref) / np.abs(ref)).max())
+        same = torch.equal(ids, base_ids)
+        finite = bool(torch.isfinite(imgs).all()) and float(imgs.min()) >= 0
+        log(phase, f"int8 with {name}={value!s} vs the default forms, {n} {what} showers: "
+            f"routing identical {same}; max rel diff of per-shower log1p sums {rel:.4f} (rtol "
+            f"0.1); {secs:.3f}s (default {base_s:.3f}s) [{card}]")
+        if not (same and finite and rel <= 0.1):
+            fail(f"int8 with {name}={value} disagrees with the default forms")
+        rec[f"{name}={value}"] = {"max_rel": rel, "s": secs}
+    return rec
+
+
+def native_prep(rehearse, card, seed):
+    """Phase 23 (c): the host C++ prep library built with this host's g++
+    (the phase fails if it does not build) and held against the numpy
+    versions on ``NATIVE_IMAGES`` random 56x30 images (``REHEARSE_NATIVE`` in
+    the rehearsal): photon sums of photon
+    counts, argmax coordinates and the row gather equal, ``log1p`` within
+    two ulp, the group standard deviation within 1e-5. Returns the record."""
+    import numpy as np
+
+    from zdcsim_torch import native
+    from zdcsim_torch.native import build
+
+    phase = "23 mesh"
+    t = time.perf_counter()
+    try:
+        path = build.build()
+    except RuntimeError as e:
+        fail(f"the host C++ prep library did not build: {e}")
+    build_s = time.perf_counter() - t
+    if not native.available():
+        fail("the host C++ prep library built but did not load")
+    rng = np.random.default_rng([seed, 23])
+    n = REHEARSE_NATIVE if rehearse else NATIVE_IMAGES
+    x = rng.poisson(2.0, (n, 56, 30)).astype(np.float32)
+    groups = rng.integers(0, n // 4, n)
+    idx = rng.integers(0, n, n)
+    flat = x.reshape(n, -1)
+    arg = flat.argmax(axis=1)
+
+    def numpy_std():
+        out = np.zeros(n)
+        f64 = np.log1p(flat).astype(np.float64)
+        for g in np.unique(groups):
+            sel = np.flatnonzero(groups == g)
+            if sel.size > 1:
+                out[sel] = f64[sel].std(axis=0).sum()
+        return out.astype(np.float32)
+
+    cases = {
+        "photon_sums": (lambda: native.photon_sums(x), lambda: flat.sum(axis=1), 0),
+        "max_coords": (lambda: native.max_coords(x),
+                       lambda: np.stack([arg // 30, arg % 30], 1).astype(np.float32), 0),
+        "gather_rows": (lambda: native.gather_rows(x, idx), lambda: x[idx], 0),
+        "log1p": (lambda: native.log1p_(x.copy()), lambda: np.log1p(x), "2 ulp"),
+        "group_pixel_std": (lambda: native.group_pixel_std(np.log1p(x), groups), numpy_std, 1e-5),
+    }
+    rec = {"build_s": build_s, "library": os.path.basename(path)}
+    for name, (ours, ref, tol) in cases.items():
+        t = time.perf_counter()
+        a = ours()
+        ours_s = time.perf_counter() - t
+        t = time.perf_counter()
+        b = ref()
+        ref_s = time.perf_counter() - t
+        if tol == "2 ulp":
+            ok = a.shape == b.shape and bool((np.abs(a.view(np.int32) - b.view(np.int32)) <= 2).all())
+        else:
+            ok = a.shape == b.shape and bool((np.abs(a - b) <= tol).all())
+        err = float(np.abs(a.astype(np.float64) - b).max())
+        log(phase, f"host C++ {name} on {n} images [56, 30] vs numpy: max |diff| {err:.3e} "
+            f"(allowed {tol}), {ours_s * 1e3:.2f} ms (numpy {ref_s * 1e3:.2f} ms)")
+        if not ok:
+            fail(f"the host C++ {name} disagrees with numpy beyond {tol}")
+        rec[name] = {"ms": ours_s * 1e3, "numpy_ms": ref_s * 1e3, "max_abs_diff": err}
+    log(phase, f"host C++ prep library {os.path.basename(path)} built in {build_s:.2f}s with "
+        f"this host's g++ [{card}]")
+    return rec
+
+
+def mesh_phase(gp, router, dev, rehearse, card, seed):
+    """Phase 23: the sharded serve on a world of one (NCCL on the card, gloo
+    in-process in the rehearsal, a ``file://`` store in a temporary
+    directory), item 3's int8 forms and the host C++ prep library; a
+    ``{"mesh": ...}`` line records it. The rehearsal serves the w=0.125
+    student on ``int8_pallas`` alone (the fused precisions take full width
+    only) and holds its int8 forms. Returns the meshed serves' kernel
+    launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.parallel import init_world, make_mesh
+    from zdcsim_torch.utils.artifact import load_serving_artifact
+
+    if rehearse:
+        sp, _, _, meta = load_serving_artifact(STUDENT)
+        trees = {"int8_pallas": (sp, load_config([f"model.generator.width={meta['width']}"]))}
+    else:
+        trees = {"int8_pallas": (gp, None), "int8_fused": (gp, None)}
+
+    phase = "23 mesh"
+    store = tempfile.mkdtemp(prefix="zdcsim_mesh_")
+    device = "cpu" if rehearse else None
+    t = time.perf_counter()
+    try:
+        init_world(0, 1, "file://" + os.path.join(store, "store"), device)
+        try:
+            mesh = make_mesh(1, device=device)
+            world_s = time.perf_counter() - t
+            log(phase, f"{mesh} on {dist.get_backend()} in {world_s:.2f}s")
+            launches, rec = mesh_serves(trees, router, mesh, dev, rehearse, card, seed)
+            rec["world_s"] = world_s
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    rec["int8_forms"] = int8_forms(*trees["int8_pallas"], router, dev, rehearse, card, seed)
+    rec["native"] = native_prep(rehearse, card, seed)
+    log(phase, f"the serves on the mesh launched {launches} [{card}]")
+    print(json.dumps({"mesh": rec}), flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-13 and 15-22 on the CPU at small sizes with the "
+                    help="run phases 3-13 and 15-23 on the CPU at small sizes with the "
                          "plain versions")
     ap.add_argument("--profile", action="store_true",
                     help="profile one serve of each kernel path with torch.profiler")
@@ -4059,6 +4340,7 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(loop_rec["tmp"], ignore_errors=True)
         timed("22 real data", real_data, dev, rehearse, card, args.seed)
+        timed("23 mesh", mesh_phase, gp, router, dev, rehearse, card, args.seed)
         log_phase_times()
         print(json.dumps({"rehearsal": True}), flush=True)
         return 0
@@ -4090,12 +4372,13 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(loop_rec["tmp"], ignore_errors=True)
     n_e22, n_bulk22 = timed("22 real data", real_data, dev, rehearse, card, args.seed)
+    mesh_launches = timed("23 mesh", mesh_phase, gp, router, dev, rehearse, card, args.seed)
     e_rec = next(r for r in rec if r["name"] == "expm1_channel_sums")
     # the neutron loop's and the fixtures' evals are main paths of E too
     e_rec["launches"] += n_e + n_e22
     e_rec["bulk_launches"] += n_bulk + n_bulk22
-    for r in rec:  # the run directory's gates are a main path of E, A-D and H too
-        r["launches"] += gate_launches.get(r["name"], 0)
+    for r in rec:  # the run directory's gates and the mesh's serves are main paths too
+        r["launches"] += gate_launches.get(r["name"], 0) + mesh_launches.get(r["name"], 0)
     e_rec["bulk_launches"] += gate_launches.get("expm1_channel_sums on the bulk ring", 0)
     e_rec["body"] = "bulk ring" if e_rec["bulk_launches"] == e_rec["launches"] else "direct"
     log_phase_times()

@@ -119,5 +119,11 @@ runpy.run_path("chip_smoke.py", run_name="__main__")
                   "[21 distill]", "int8 serve behind a seeded AttentionRouterNetwork",
                   "neutron distillation into a w=0.125 student", "torch.equal True",
                   "the neutron student read back vs the in-memory student: routing identical True",
-                  "run_gate(", '{"distill": ', " 21 distill "):
+                  "run_gate(", '{"distill": ', " 21 distill ",
+                  "[23 mesh]", "Mesh(data=1, expert=1, rank=0, device=cpu) on gloo",
+                  "torch.equal to the meshless engine True",
+                  "torch.equal to the meshless engine and to the switch serve True",
+                  "int8 with INT8_CONV0_IMPL=naive vs the default forms",
+                  "int8 with DEQUANT_DTYPE=bfloat16 vs the default forms",
+                  "host C++ group_pixel_std on 512 images", '{"mesh": ', " 23 mesh "):
         assert phase in proc.stdout, phase

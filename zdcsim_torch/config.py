@@ -149,8 +149,8 @@ class EvalConfig:
 
 @dataclass
 class ParallelConfig:
-    data_axis: str = "data"  # the mesh's data axis (multi-GPU: ROADMAP.md Queue 1 item 8)
-    n_devices: Optional[int] = None  # None: one card here (multi-GPU: ROADMAP.md Queue 1 item 8)
+    data_axis: str = "data"  # the mesh's data axis (training on a mesh: Queue 1 item 8b)
+    n_devices: Optional[int] = None  # None: one card (training on a mesh: Queue 1 item 8b)
     expert_parallel: int = 1
 
 

@@ -3,11 +3,15 @@ photon sums, the log1p transform, the photon-sum filter, argmax
 coordinates, condition groups, the SDI-GAN diversity target and
 same-condition pairing.
 
-numpy only. Where the JAX package calls its host C++ library
-(``zdcsim/native``) it falls back to numpy; this module has those numpy
-versions alone. They agree with the C++ ones exactly on photon sums and
-coordinates, and within 1e-5 on the diversity target (Welford in C++,
-two-pass float64 here), which no split or test membership reads.
+Photon sums, argmax coordinates and the diversity target's group
+standard deviation run on the port's host C++ library
+(``zdcsim_torch.native``, built with the host's g++ at first use) where
+the JAX package runs its own (``zdcsim/native``); where it cannot be built,
+a warning is logged once and the numpy versions run instead, as in JAX.
+Host code, off the card's path. The two agree exactly on photon sums of
+photon counts and on coordinates, and within 1e-5 on the diversity target
+(Welford in C++, two-pass float64 in numpy), which no split or test
+membership reads.
 
 The command line, ``python -m zdcsim_torch.data.prep`` (JAX's flags), reads
 the raw images and the raw conditioning through
@@ -28,6 +32,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from zdcsim_torch import native
+
 log = logging.getLogger(__name__)
 
 COND_COLUMNS = ("Energy", "Vx", "Vy", "Vz", "Px", "Py", "Pz", "mass", "charge")
@@ -35,8 +41,7 @@ COND_COLUMNS = ("Energy", "Vx", "Vy", "Vz", "Px", "Py", "Pz", "mass", "charge")
 
 def photon_sums(images_linear: np.ndarray) -> np.ndarray:
     """Per-event photon sum of linear-space images ``[N, H, W]``: ``[N]`` float32."""
-    images = np.ascontiguousarray(images_linear, np.float32)
-    return images.reshape(images.shape[0], -1).sum(axis=1)
+    return native.photon_sums(np.asarray(images_linear, np.float32))
 
 
 def log_transform(images_linear: np.ndarray) -> np.ndarray:
@@ -60,8 +65,7 @@ def max_coordinates(images: np.ndarray) -> np.ndarray:
     """Argmax pixel (row, col) of each image as ``[N, 2]`` float32; the first
     maximum in row-major order wins a tie."""
     n, h, w = images.shape[0], images.shape[-2], images.shape[-1]
-    flat = np.asarray(images, np.float32).reshape(n, h * w).argmax(axis=1)
-    return np.stack([flat // w, flat % w], axis=1).astype(np.float32)
+    return native.max_coords(np.asarray(images, np.float32).reshape(n, h, w))
 
 
 def group_by_condition(cond: np.ndarray) -> np.ndarray:
@@ -73,19 +77,9 @@ def group_by_condition(cond: np.ndarray) -> np.ndarray:
 
 
 def _group_pixel_std(images: np.ndarray, group_ids: np.ndarray) -> np.ndarray:
-    """Per event, its group's per-pixel std (float64) summed over pixels;
-    groups of one get 0."""
-    n = images.shape[0]
-    order = np.argsort(group_ids, kind="stable")
-    sorted_ids = np.asarray(group_ids)[order]
-    starts = np.concatenate([[0], np.flatnonzero(np.diff(sorted_ids)) + 1, [n]])
-    out = np.zeros(n, np.float64)
-    flat = np.asarray(images, np.float32).reshape(n, -1).astype(np.float64)
-    for lo, hi in zip(starts[:-1], starts[1:]):
-        seg = order[lo:hi]
-        if seg.size > 1:
-            out[seg] = flat[seg].std(axis=0).sum()
-    return out.astype(np.float32)
+    """Per event, its group's per-pixel std summed over pixels; groups of
+    one get 0."""
+    return native.group_pixel_std(np.asarray(images, np.float32), group_ids)
 
 
 def diversity_std(images_log: np.ndarray, group_ids: np.ndarray) -> np.ndarray:

@@ -65,6 +65,19 @@ The serving paths, as in JAX:
 PyTorch runs eagerly, so the JAX engine's other one-program forms are
 Python loops over chunks and tiles.
 
+On a mesh (``mesh=``, a ``zdcsim_torch.parallel.make_mesh`` of
+``torch.distributed`` ranks; JAX's ``mesh`` argument) every rank holds the
+weights, broadcast from rank 0, and serves the same call: the dense, switch
+and bulk paths split each chunk over the data axis (every rank draws the
+whole chunk's noise from its identically seeded generator and keeps its own
+rows), decode their rows, and all-gather the images and expert ids over the
+data axis, so every rank returns the whole result; ranks that share a data
+coordinate repeat one another's work, as JAX's ``P("data")`` specs do. The
+grouped and stream paths take no sharded path (nor do JAX's): every rank
+decodes the whole workload. The int8 XLA path quantises activations per
+tensor, so a rank's rows quantise on their own scale, as in JAX's sharded
+engine; the kernel precisions quantise per sample and are unchanged.
+
 :meth:`FastSim.from_state` serves a train state (``zdcsim_torch/train/
 state.py``, the EMA generator by default) and :meth:`FastSim.from_checkpoint`
 a checkpoint of one (``zdcsim_torch/train/checkpoint.py``): the state holds
@@ -99,6 +112,9 @@ from zdcsim_torch.models.neutron_fast import (
 from zdcsim_torch.models.proton import Generator
 from zdcsim_torch.models.proton_fast import fast_generator_apply, quantize_weights
 from zdcsim_torch.models.router import build_router, router_version
+from zdcsim_torch.parallel.mesh import (
+    DATA_AXIS, batch_sharding, gather_rows, gather_state, place_tree, replicated,
+)
 from zdcsim_torch.utils.artifact import _unflatten
 
 # precision -> int8 backend of fast_generator_apply (None: the float decode)
@@ -216,6 +232,12 @@ class FastSim:
         gen_stats: the generator's ``{"batch_stats": ...}`` collection
             (a ``norm="batch"`` neutron tree's running statistics), or
             ``None``.
+        mesh: a ``zdcsim_torch.parallel.Mesh``, or ``None`` (one device).
+            Every rank of the mesh builds the engine and makes every serving
+            call, in the same order (they are collective); the engine runs
+            on the mesh's device, and ``device`` must be ``None`` or of its
+            type. The batch sizes must be multiples of the data axis's
+            size (``ValueError`` at the call, as JAX).
 
     Attributes (JAX's): ``uses_fast_path``, the proton family's fast decode;
     ``fast_neutron``, a folded or prefolded neutron tree on
@@ -230,7 +252,8 @@ class FastSim:
 
     def __init__(self, gen_params: Any, router_params: Any, batch_size: Optional[int] = None,
                  precision: str = "f32", device=None, cfg: Optional[Config] = None,
-                 scaler_cond=None, static_act_quant: bool = False, gen_stats: Any = None):
+                 scaler_cond=None, static_act_quant: bool = False, gen_stats: Any = None,
+                 mesh=None):
         if precision not in _BACKENDS:
             raise ValueError(
                 f"precision must be one of {sorted(_BACKENDS)} in this port, got {precision!r}"
@@ -249,6 +272,11 @@ class FastSim:
                 f"precision {precision!r} runs the proton decode kernels: proton only (the "
                 "neutron family serves on 'f32', 'bf16' or 'int8')"
             )
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r} is not the mesh's {mesh.device}")
+            device = mesh.device
+        self._mesh = mesh
         self.device = default_device(device)
         self.batch_size = int(batch_size) if batch_size is not None else 8192
         self.dense_batch_size = (int(batch_size) if batch_size is not None
@@ -295,6 +323,9 @@ class FastSim:
             trees = [to_state_dict(t, expert(stats, e) if stats else None)
                      for e, t in enumerate(trees)]
         self._experts = [tree_to_torch(t, dtype=self._dtype, device=self.device) for t in trees]
+        if mesh is not None:
+            # serving replicates the weights (JAX's device_put to replicated)
+            self._experts = [place_tree(replicated(mesh), t) for t in self._experts]
         if not self._int8:
             self._qweights = [None] * self.n_experts
         elif self.uses_fast_path:
@@ -303,6 +334,8 @@ class FastSim:
             self._qweights = [quantize_neutron_weights(p) for p in self._experts]
         # The router stays float32: routing logits are cheap and precision-sensitive.
         self.router = build_router(m).to(self.device)  # model.router.version's
+        if mesh is not None:
+            router_sd = place_tree(replicated(mesh), router_sd)
         self.router.load_state_dict(router_sd)
         self.router.eval()
 
@@ -406,6 +439,26 @@ class FastSim:
                                    tile=tile, decode_dyn=self._decode_dyn)
         return imgs, idx
 
+    def _sharded(self, sim, cond: torch.Tensor, noise: torch.Tensor):
+        """``sim(cond, noise) -> (images, ids)`` of one chunk; on a mesh, of
+        this rank's rows of it, the rows all-gathered back over the data
+        axis (JAX's ``P("data")`` in and out). Raises JAX's ``ValueError``
+        where the data axis does not divide the chunk."""
+        if self._mesh is None:
+            return sim(cond, noise)
+        self._check_batch(cond.shape[0])
+        rows = batch_sharding(self._mesh)
+        imgs, idx = sim(rows.place(cond), rows.place(noise))
+        return gather_rows(self._mesh, imgs), gather_rows(self._mesh, idx)
+
+    def _check_batch(self, batch: int) -> None:
+        n_data = self._mesh.shape[DATA_AXIS]
+        if batch % n_data != 0:
+            raise ValueError(
+                f"batch_size {batch} must be divisible by the '{DATA_AXIS}' mesh axis size "
+                f"{n_data} for sharded serving; pick batch_size = k * mesh.shape['data']"
+            )
+
     def _inputs(self, cond, noise):
         """cond as f32 and noise (where given) in the compute dtype, on the
         engine's device."""
@@ -441,7 +494,7 @@ class FastSim:
         """
         outs, idxs = [], []
         for c, z, m in self._chunks(cond, noise, generator, self.batch_size):
-            imgs, idx = self._sim_switch(c, z)
+            imgs, idx = self._sharded(self._sim_switch, c, z)
             outs.append(imgs[:m])
             idxs.append(idx[:m])
         images = torch.cat(outs)
@@ -450,12 +503,18 @@ class FastSim:
     def _bulk_graph(self):
         """The CUDA graph of one chunk of :meth:`_sim_switch` at
         ``(batch_size, tile)``, with its static input and output tensors,
-        captured after one eager warm-up on a side stream."""
+        captured after one eager warm-up on a side stream. On a mesh it
+        holds the decode of this rank's rows alone: a collective in the
+        capture would break it, so the rows are gathered after each
+        replay."""
         key = (self.batch_size, self._tile)
         if key not in self._graphs:
-            cond = torch.zeros((self.batch_size, self.cond_dim), device=self.device)
-            noise = torch.zeros((self.batch_size, self.noise_dim), device=self.device,
-                                dtype=self._dtype)
+            rows = self.batch_size
+            if self._mesh is not None:
+                self._check_batch(rows)
+                rows //= self._mesh.shape[DATA_AXIS]
+            cond = torch.zeros((rows, self.cond_dim), device=self.device)
+            noise = torch.zeros((rows, self.noise_dim), device=self.device, dtype=self._dtype)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
@@ -487,17 +546,22 @@ class FastSim:
         them) are copied into the graph's inputs, and its outputs out of the
         graph's buffers, so the result equals :meth:`simulate_switch`'s.
         Otherwise it is :meth:`simulate_switch`'s chunk loop. The kernels'
-        launch counters do not count replays."""
+        launch counters do not count replays. On a mesh each rank replays
+        the decode of its rows, then the rows are all-gathered."""
         if not (self._dyn and self.device.type == "cuda"):
             return self.simulate_switch(cond, noise, generator, return_experts)
         graph, g_cond, g_noise, g_imgs, g_idx = self._bulk_graph()
+        rows = None if self._mesh is None else batch_sharding(self._mesh)
         outs, idxs = [], []
         for c, z, m in self._chunks(cond, noise, generator, self.batch_size):
-            g_cond.copy_(c)
-            g_noise.copy_(z)
+            g_cond.copy_(c if rows is None else rows.place(c))
+            g_noise.copy_(z if rows is None else rows.place(z))
             graph.replay()
-            outs.append(g_imgs[:m].clone())
-            idxs.append(g_idx[:m].clone())
+            imgs, idx = g_imgs, g_idx
+            if rows is not None:  # after the replay, outside the graph
+                imgs, idx = gather_rows(self._mesh, imgs), gather_rows(self._mesh, idx)
+            outs.append(imgs[:m].clone())
+            idxs.append(idx[:m].clone())
         images = torch.cat(outs)
         return (images, torch.cat(idxs)) if return_experts else images
 
@@ -525,12 +589,14 @@ class FastSim:
         bs = self.batch_size
         cond = torch.randn((bs, self.cond_dim), generator=generator, device=self.device)
         for _ in range(max(warmup, 1)):
-            out, _ = self._sim_switch(cond, self._draw((bs, self.noise_dim), generator))
+            out, _ = self._sharded(self._sim_switch, cond,
+                                   self._draw((bs, self.noise_dim), generator))
         float(out.sum())
         t0 = time.perf_counter()
         prev = None
         for _ in range(n_batches):
-            out, _ = self._sim_switch(cond, self._draw((bs, self.noise_dim), generator))
+            out, _ = self._sharded(self._sim_switch, cond,
+                                   self._draw((bs, self.noise_dim), generator))
             if prev is not None:
                 float(prev.sum())
             prev = out
@@ -557,7 +623,7 @@ class FastSim:
         switch path's, whose scales span a tile."""
         outs, idxs = [], []
         for c, z, m in self._chunks(cond, noise, generator, self.dense_batch_size):
-            imgs, idx = self._sim_dense(c, z)
+            imgs, idx = self._sharded(self._sim_dense, c, z)
             outs.append(imgs[:m])
             idxs.append(idx[:m])
         images = torch.cat(outs)
@@ -569,11 +635,13 @@ class FastSim:
         bs = self.dense_batch_size
         cond = torch.randn((bs, self.cond_dim), generator=generator, device=self.device)
         for _ in range(max(warmup, 1)):
-            out, _ = self._sim_dense(cond, self._draw((bs, self.noise_dim), generator))
+            out, _ = self._sharded(self._sim_dense, cond,
+                                   self._draw((bs, self.noise_dim), generator))
         float(out.sum())
         t0 = time.perf_counter()
         for _ in range(n_batches):
-            out, _ = self._sim_dense(cond, self._draw((bs, self.noise_dim), generator))
+            out, _ = self._sharded(self._sim_dense, cond,
+                                   self._draw((bs, self.noise_dim), generator))
             float(out.sum())
         return self._rate(n_batches * bs, time.perf_counter() - t0, bs)
 
@@ -628,7 +696,8 @@ class FastSim:
         noise: ``[N, noise_dim]`` per sample, or ``None`` to draw ``[size,
         Z]`` per bucket from ``generator`` (JAX draws ``fold_in(key, e)``).
         Returns ``[N, H, W]`` float32 on the host, as JAX's numpy (and the
-        ``[N]`` ids with ``return_experts``)."""
+        ``[N]`` ids with ``return_experts``). On a mesh every rank decodes
+        every bucket (JAX's grouped path has no sharded form)."""
         cond, noise = self._inputs(cond, noise)
         idx = self._route(cond).cpu().numpy()  # host sync
         out = torch.empty((cond.shape[0], *self.image_shape), dtype=torch.float32)
@@ -651,7 +720,8 @@ class FastSim:
         draws ``fold_in(key, e * 100003 + start)``). ``readback=False``
         returns the queued ``[(rows, images on the device)]``; otherwise
         ``[N, H, W]`` float32 on the host (and the ids with
-        ``return_experts``)."""
+        ``return_experts``). On a mesh every rank decodes every chunk, as
+        :meth:`simulate_grouped`."""
         cond, noise = self._inputs(cond, noise)
         bs = self.batch_size
         idx = torch.cat([self._route(_pad(cond[s:s + bs], bs))[:bs]
@@ -710,7 +780,10 @@ class FastSim:
         tiny test stand-ins are not served); ``kwargs`` go to the
         constructor, whose ``cfg`` defaults to ``load_config()`` with the
         modules' geometry and router, for the proton generator (the neutron family's
-        needs the run's ``cfg``)."""
+        needs the run's ``cfg``). With ``mesh=``, ``state`` may be this
+        rank's piece from ``zdcsim_torch.parallel.shard_state``: its
+        expert-stacked leaves are gathered once here (``gather_state``,
+        collective), then the weights replicate."""
         from zdcsim_torch.models import GENERATORS
 
         if modules.generator.__class__ not in GENERATORS.values():
@@ -725,6 +798,8 @@ class FastSim:
                 f"model.n_experts={modules.n_experts}", f"model.noise_dim={modules.noise_dim}",
                 f"model.cond_dim={modules.cond_dim}", f"dataset.input_image_shape=[{h}, {w}]",
                 f"model.router.version={router_version(modules.router)}"])
+        if kwargs.get("mesh") is not None:
+            state = gather_state(kwargs["mesh"], state, modules.n_experts)
         gen = state.ema_gen_params if use_ema else state.gen.params
         return cls(from_state_dict(gen, stacked=True), from_state_dict(state.router.params),
                    gen_stats=stats_to_jax(_unflatten(state.gen.stats)), **kwargs)
@@ -739,6 +814,8 @@ class FastSim:
         from zdcsim_torch.train.state import init_state
 
         checkpoint_file(dir_models, epoch)  # a missing or foreign checkpoint, before the template
+        if kwargs.get("mesh") is not None and kwargs.get("device") is None:
+            kwargs["device"] = kwargs["mesh"].device
         modules = build_moe(cfg)
         state = restore_checkpoint(dir_models, epoch,
                                    init_state(modules, cfg, 0, kwargs.get("device")))

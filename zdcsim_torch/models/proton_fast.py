@@ -34,6 +34,13 @@ scales are per sample.
 The plain int8 convs (:func:`_conv_i8`) sum int8 products in int32, as the
 JAX ``_conv_i8`` does (``preferred_element_type=int32``): one
 ``torch._int_mm`` per kernel tap, exact on both devices.
+
+JAX's four serving switches are module attributes of the same names and
+defaults (:data:`DEQUANT_DTYPE`, :data:`INT8_CONV2`, :data:`INT8_CONV0_IMPL`,
+:data:`INT8_CONV1_IMPL`). :func:`quantize_weights` reads them, and the
+weights it returns record the form they hold, which the decode follows: a
+decode never mixes forms, and an engine built before a switch flips keeps
+its form.
 """
 
 from __future__ import annotations
@@ -168,18 +175,36 @@ def _quant_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None):
     return q, s
 
 
-def _dequant(y, sk, sx, bias, dtype):
-    """``f32(y) * (sk * sx) + bias`` in float32, cast to ``dtype``."""
-    return (y.to(torch.float32) * (sk * sx) + bias.to(torch.float32)).to(dtype)
+# JAX's serving switches (zdcsim/models/proton_fast.py:272-286), each set
+# there by a TPU measurement; the port runs their defaults, and keeps the
+# other settings for measurement on the card.
+# The int8 convs' dequantise dtype (None: float32); the fused backend's
+# kernel dequantises in float32 whatever it holds.
+DEQUANT_DTYPE: Optional[torch.dtype] = None
+# Conv_2 on int8 (False: the float conv in the compute dtype); every int8
+# backend but the fused one.
+INT8_CONV2 = True
+# The XLA backend's Conv_0: "phase" (or "folded") the four parity-phase
+# convs of the source grid; "naive" the int8 upsample, then one 4x4 conv.
+INT8_CONV0_IMPL = "phase"
+# The XLA and pallas_ab backends' Conv_1: "naive" the int8 nearest resize,
+# then one 4x4 conv; "phase" (or "folded") the eight row-phase convs.
+INT8_CONV1_IMPL = "naive"
+_IMPLS = ("phase", "folded", "naive")
+
+
+def _dequant(y, sk, sx, bias, dtype, dq=torch.float32):
+    """``dq(y) * dq(sk * sx) + dq(bias)`` in ``dq``, cast to ``dtype``."""
+    return (y.to(dq) * (sk * sx).to(dq) + bias.to(dq)).to(dtype)
 
 
 def conv3x3_int8(x: torch.Tensor, q: QWeights, bias: torch.Tensor,
-                 act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 act_scale: Optional[torch.Tensor] = None, dq=torch.float32) -> torch.Tensor:
     """Pad-1 3x3 conv on int8 data: ``q = _quant_per_cout(kernel)``;
-    ``act_scale`` as :func:`_quant_act`'s ``scale``."""
+    ``act_scale`` as :func:`_quant_act`'s ``scale``; dequantised in ``dq``."""
     xq, sx = _quant_act(x, act_scale)
     kq, sk = q
-    return _dequant(_conv_i8(xq, kq, ((1, 1), (1, 1))), sk, sx, bias, x.dtype)
+    return _dequant(_conv_i8(xq, kq, ((1, 1), (1, 1))), sk, sx, bias, x.dtype, dq)
 
 
 def quant_conv0_phases(kernel: torch.Tensor) -> Dict[str, QWeights]:
@@ -190,28 +215,45 @@ def quant_conv0_phases(kernel: torch.Tensor) -> Dict[str, QWeights]:
 
 
 def fused_upsample2_conv4_int8(x: torch.Tensor, q: Dict[str, QWeights], bias: torch.Tensor,
-                               act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                               act_scale: Optional[torch.Tensor] = None,
+                               dq=torch.float32) -> torch.Tensor:
     """int8 :func:`fused_upsample2_conv4` with one per-tensor activation
-    scale (dynamic, or ``act_scale``); ``q = quant_conv0_phases(kernel)``."""
+    scale (dynamic, or ``act_scale``); ``q = quant_conv0_phases(kernel)``;
+    dequantised and interleaved in ``dq``."""
     xq, sx = _quant_act(x, act_scale)
 
     def qconv(x_, k, pad):
         kq, sk = k
-        return _conv_i8(x_, kq, pad).to(torch.float32) * (sk * sx)
+        return _conv_i8(x_, kq, pad).to(dq) * (sk * sx).to(dq)
 
     out = _phase_convs(xq, q, qconv)
-    return (out + bias.to(torch.float32)).to(x.dtype)
+    return (out + bias.to(dq)).to(x.dtype)
+
+
+def upsample2_conv4_int8_naive(x: torch.Tensor, q: QWeights, bias: torch.Tensor,
+                               act_scale: Optional[torch.Tensor] = None,
+                               dq=torch.float32) -> torch.Tensor:
+    """The naive int8 Conv_0 (``INT8_CONV0_IMPL = "naive"``): the nearest 2x
+    upsample of the int8 activations, then one plain 4x4 pad-1 conv, ``[B,
+    2H-1, 2W-1, Cout]``; ``q = _quant_per_cout(kernel)`` of the original
+    kernel (the phase form quantises its merged phase kernels: another valid
+    rounding)."""
+    xq, sx = _quant_act(x, act_scale)
+    xu = xq.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    kq, sk = q
+    return _dequant(_conv_i8(xu, kq, ((1, 1), (1, 1))), sk, sx, bias, x.dtype, dq)
 
 
 def resize_conv4_int8_naive(x: torch.Tensor, q: QWeights, bias: torch.Tensor,
                             n_resized_rows: int, n_cols: int,
-                            act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            act_scale: Optional[torch.Tensor] = None,
+                            dq=torch.float32) -> torch.Tensor:
     """Nearest resize of the int8 activations, then one plain 4x4 pad-1 conv:
     ``q = _quant_per_cout(kernel)``; ``act_scale`` as :func:`_quant_act`'s."""
     xq, sx = _quant_act(x, act_scale)
     xr = resize_nearest(xq, (n_resized_rows, n_cols))
     kq, sk = q
-    return _dequant(_conv_i8(xr, kq, ((1, 1), (1, 1))), sk, sx, bias, x.dtype)
+    return _dequant(_conv_i8(xr, kq, ((1, 1), (1, 1))), sk, sx, bias, x.dtype, dq)
 
 
 def _row_phase_plan(n_in: int, n_out: int, ksize: int, pad: int):
@@ -248,18 +290,35 @@ def _row_phase_plan(n_in: int, n_out: int, ksize: int, pad: int):
     return q, p_num, plans
 
 
-def _row_phase_convs(x, kernel, n_resized_rows, conv):
-    """Shared body of the folded row-resize convs: per phase, merge the row
-    taps of each group, run ``conv(rows, k_p, stride)`` on the phase's rows,
-    and interleave the phases into ``[B, n_resized_rows - 1, W, Cout]``."""
+def _row_phase_kernels(kernel: torch.Tensor, h_in: int, n_resized_rows: int):
+    """Each row phase's kernel, its row taps merged by group, in the
+    kernel's dtype: ``[len(groups), 4, Cin, Cout]`` per phase."""
+    plans = _row_phase_plan(h_in, n_resized_rows, 4, 1)[2]
+    return [torch.stack([sum(kernel[a] for a in taps) for _, taps in groups])
+            for _, groups, _ in plans]
+
+
+def quant_conv1_row_phases(kernel: torch.Tensor, h_in: int = 35,
+                           n_resized_rows: int = 56) -> list:
+    """The row-phase int8 Conv_1 weights (``INT8_CONV1_IMPL = "phase"``):
+    each phase's merged kernel quantized per output channel, as JAX's
+    ``fused_row_resize_conv4_int8`` does inline."""
+    return [_quant_per_cout(k) for k in _row_phase_kernels(kernel, h_in, n_resized_rows)]
+
+
+def _row_phase_convs(x, ks, n_resized_rows, conv):
+    """Shared body of the folded row-resize convs: per phase, run
+    ``conv(rows, ks[phase], pad, stride)`` on the phase's rows (``ks`` the
+    merged kernels of :func:`_row_phase_kernels`, or what ``conv`` takes for
+    them), and interleave the phases into ``[B, n_resized_rows - 1, W,
+    Cout]``."""
     b, h_in = x.shape[:2]
     q, p_num, plans = _row_phase_plan(h_in, n_resized_rows, 4, 1)
     max_n = max(n for _, _, n in plans)
     outs = []
-    for d0, groups, n_phase in plans:
-        k_p = torch.stack([sum(kernel[a] for a in taps) for _, taps in groups])
+    for (d0, groups, n_phase), k_p in zip(plans, ks):
         pad_t, start = max(-d0, 0), max(d0, 0)
-        span = p_num * (n_phase - 1) + k_p.shape[0]
+        span = p_num * (n_phase - 1) + len(groups)
         pad_b = max(0, span - pad_t - (h_in - start))
         y = conv(x[:, start:], k_p, ((pad_t, pad_b), (1, 1)), (p_num, 1))[:, :n_phase]
         outs.append(F.pad(y, (0, 0, 0, 0, 0, max_n - n_phase)))
@@ -277,7 +336,8 @@ class _FusedRowResizeConv4(torch.autograd.Function):
         ctx.save_for_backward(x, kernel)
         ctx.size = (n_resized_rows, n_cols)
         xc = x.index_select(2, nearest_index_on(n_cols, x.shape[2], x.device))
-        return _row_phase_convs(xc, kernel, n_resized_rows, _conv) + bias
+        ks = _row_phase_kernels(kernel, x.shape[1], n_resized_rows)
+        return _row_phase_convs(xc, ks, n_resized_rows, _conv) + bias
 
     @staticmethod
     def backward(ctx, g):
@@ -299,19 +359,25 @@ def fused_row_resize_conv4(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Te
 
 
 def fused_row_resize_conv4_int8(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                                n_resized_rows: int, n_cols: int) -> torch.Tensor:
+                                n_resized_rows: int, n_cols: int,
+                                act_scale: Optional[torch.Tensor] = None, q: Optional[list] = None,
+                                dq=torch.float32) -> torch.Tensor:
     """int8 :func:`fused_row_resize_conv4` (the JAX XLA twin of kernel D):
-    one per-tensor activation scale, each phase's merged kernel quantized
-    per output channel, int32 sums, f32 dequant."""
+    one per-tensor activation scale (dynamic, or ``act_scale``), each
+    phase's merged kernel quantized per output channel (``q``, from
+    :func:`quant_conv1_row_phases`, or here from ``kernel``), int32 sums,
+    dequantised in ``dq``."""
     xc = x.index_select(2, torch.from_numpy(nearest_index(n_cols, x.shape[2])).to(x.device))
-    xq, sx = _quant_act(xc)
+    xq, sx = _quant_act(xc, act_scale)
+    if q is None:
+        q = quant_conv1_row_phases(kernel, x.shape[1], n_resized_rows)
 
     def qconv(x_, k_p, pad, stride):
-        kq, sk = _quant_per_cout(k_p)
-        return _conv_i8(x_, kq, pad, stride).to(torch.float32) * (sk * sx)
+        kq, sk = k_p
+        return _conv_i8(x_, kq, pad, stride).to(dq) * (sk * sx).to(dq)
 
-    out = _row_phase_convs(xq, kernel, n_resized_rows, qconv)
-    return (out + bias.to(torch.float32)).to(x.dtype)
+    out = _row_phase_convs(xq, q, n_resized_rows, qconv)
+    return (out + bias.to(dq)).to(x.dtype)
 
 
 def _layer_norm(x, p):
@@ -339,17 +405,29 @@ def quantize_weights(p: Dict[str, Any], int8_backend: str = "xla") -> Dict[str, 
     kernels take their per-channel parameters in float32, cast here once,
     and their int8 conv weights packed K-major (``dk.pack_k_major``). The
     fused backends take full-width trees only and raise ``ValueError`` on
-    any other."""
+    any other.
+
+    Reads the switches (:data:`DEQUANT_DTYPE`, :data:`INT8_CONV2`,
+    :data:`INT8_CONV0_IMPL`, :data:`INT8_CONV1_IMPL`) and records the form
+    the weights hold: ``"dq"`` the dequantise dtype, ``"conv0_impl"`` (the
+    XLA backend) and ``"conv1_impl"`` (the XLA and ``pallas_ab`` backends)
+    the conv forms, ``"conv2"`` ``None`` where Conv_2 runs in float."""
     if int8_backend not in _INT8_BACKENDS:
         raise ValueError(f"int8_backend must be one of {_INT8_BACKENDS}, got {int8_backend!r}")
     if int8_backend == "fused":
         return {"front": fdk.front_weights(p), "tail": fdk.tail_weights(p)}
+    for name, impl in (("INT8_CONV0_IMPL", INT8_CONV0_IMPL), ("INT8_CONV1_IMPL", INT8_CONV1_IMPL)):
+        if impl not in _IMPLS:
+            raise ValueError(f"{name} must be one of {_IMPLS}, got {impl!r}")
     f32 = lambda t: t.to(torch.float32)  # noqa: E731
-    q = {"conv2": _quant_per_cout(p["Conv_2"]["kernel"])}
+    q = {"dq": DEQUANT_DTYPE or torch.float32,
+         "conv2": _quant_per_cout(p["Conv_2"]["kernel"]) if INT8_CONV2 else None}
     if int8_backend == "fused_front":
         q["front"] = fdk.front_weights(p)
     elif int8_backend == "xla":
-        q["conv0"] = quant_conv0_phases(p["Conv_0"]["kernel"])
+        q["conv0_impl"] = "naive" if INT8_CONV0_IMPL == "naive" else "phase"
+        q["conv0"] = (_quant_per_cout(p["Conv_0"]["kernel"]) if q["conv0_impl"] == "naive"
+                      else quant_conv0_phases(p["Conv_0"]["kernel"]))
     else:
         ln = p["MLPBlock_1"]["LayerNorm_0"]
         q["ln1"] = (f32(ln["scale"]), f32(ln["bias"]))
@@ -365,8 +443,12 @@ def quantize_weights(p: Dict[str, Any], int8_backend: str = "xla") -> Dict[str, 
         q["conv1"] = (dk.pack_k_major(kq1), sk1, offsets)
         q["conv1_bias"] = f32(p["Conv_1"]["bias"])
         q["col_map"] = torch.from_numpy(nearest_index(30, 19)).to(k1.device)
-    else:
+    elif int8_backend == "fused_front":  # the plain conv on the kernel's resized grid
         q["conv1"] = _quant_per_cout(p["Conv_1"]["kernel"])
+    else:
+        q["conv1_impl"] = "naive" if INT8_CONV1_IMPL == "naive" else "phase"
+        q["conv1"] = (_quant_per_cout(p["Conv_1"]["kernel"]) if q["conv1_impl"] == "naive"
+                      else quant_conv1_row_phases(p["Conv_1"]["kernel"]))
     return q
 
 
@@ -398,8 +480,10 @@ def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights, scales, site, train)
         x = leaky_relu(_layer_norm(x, p["MLPBlock_1"]["LayerNorm_0"]))
         x = site(x.reshape(-1, 18, 10, c0), "conv0")
         if int8:
-            x = fused_upsample2_conv4_int8(x, qweights["conv0"], p["Conv_0"]["bias"],
-                                           scales.get("conv0"))
+            conv0 = (upsample2_conv4_int8_naive if qweights["conv0_impl"] == "naive"
+                     else fused_upsample2_conv4_int8)
+            x = conv0(x, qweights["conv0"], p["Conv_0"]["bias"], scales.get("conv0"),
+                      qweights["dq"])
         else:
             x = fused_upsample2_conv4(x, p["Conv_0"]["kernel"], p["Conv_0"]["bias"])
 
@@ -415,9 +499,13 @@ def _conv0_conv1(p, x, dtype, int8, int8_backend, qweights, scales, site, train)
             qweights["conv1_bias"], 56, out_dtype=dtype,
         )[:, :, :29]
     x = site(leaky_relu(_group_norm(x, p["GroupNorm2d_0"]["GroupNorm_0"])), "conv1")
-    if int8:
+    if int8 and qweights["conv1_impl"] == "naive":
         return resize_conv4_int8_naive(x, qweights["conv1"], p["Conv_1"]["bias"], 56, 30,
-                                       scales.get("conv1"))
+                                       scales.get("conv1"), qweights["dq"])
+    if int8:
+        return fused_row_resize_conv4_int8(x, p["Conv_1"]["kernel"], p["Conv_1"]["bias"], 56,
+                                           30, scales.get("conv1"), qweights["conv1"],
+                                           qweights["dq"])
     if train:
         return fused_row_resize_conv4(x, p["Conv_1"]["kernel"], p["Conv_1"]["bias"], 56, 30)
     x = _conv(resize_nearest(x, (56, 30)), p["Conv_1"]["kernel"], ((1, 1), (1, 1)))
@@ -449,17 +537,19 @@ def decode_apply(
         return fdk.fused_decode(x, *qweights["front"], *qweights["tail"])[..., None].to(dtype)
     if int8 and int8_backend == "fused_front":
         # kernel G, then the plain int8 Conv_1 on its resized grid, dequantized
-        # as JAX's f32(y) * (sk * s[b]) + bias (sk * s first)
+        # as JAX's dq(y) * (dq(sk) * dq(s[b])) + dq(bias)
         q, s = fdk.fused_decode_front(x, *qweights["front"])
         kq, sk = qweights["conv1"]
-        x = _dequant(_conv_i8(q, kq, ((1, 1), (1, 1))), sk, s.reshape(-1, 1, 1, 1),
-                     p["Conv_1"]["bias"], dtype)
+        dq = qweights["dq"]
+        x = _dequant(_conv_i8(q, kq, ((1, 1), (1, 1))), sk.to(dq), s.reshape(-1, 1, 1, 1).to(dq),
+                     p["Conv_1"]["bias"], dtype, dq)
     else:
         x = _conv0_conv1(p, x, dtype, int8, int8_backend, qweights, scales, site, train)
     x = site(leaky_relu(_group_norm(x, p["GroupNorm2d_1"]["GroupNorm_0"])), "conv2")
 
-    if int8:
-        x = conv3x3_int8(x, qweights["conv2"], p["Conv_2"]["bias"], scales.get("conv2"))
+    if int8 and qweights["conv2"] is not None:
+        x = conv3x3_int8(x, qweights["conv2"], p["Conv_2"]["bias"], scales.get("conv2"),
+                         qweights["dq"])
     else:
         x = _conv(x, p["Conv_2"]["kernel"], ((1, 1), (1, 1))) + p["Conv_2"]["bias"]
     x = leaky_relu(_group_norm(x, p["GroupNorm2d_2"]["GroupNorm_0"]))

@@ -64,9 +64,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def check_loop_options(cfg) -> None:
     """Raise ``NotImplementedError`` for each loop option not ported."""
     if cfg.parallel.n_devices is not None and int(cfg.parallel.n_devices) > 1:
-        raise _not_ported(f"parallel.n_devices={cfg.parallel.n_devices} (multi-GPU)", "8")
+        raise _not_ported(f"parallel.n_devices={cfg.parallel.n_devices} (training on a "
+                          "multi-GPU mesh; the mesh serves: zdcsim_torch.parallel)", "8b")
     if int(cfg.parallel.expert_parallel) > 1:
-        raise _not_ported(f"parallel.expert_parallel={cfg.parallel.expert_parallel}", "8")
+        raise _not_ported(f"parallel.expert_parallel={cfg.parallel.expert_parallel} (training on "
+                          "a multi-GPU mesh)", "8b")
 
 
 def _accumulate(acc: Optional[Metrics], new: Metrics) -> Metrics:
