@@ -2,7 +2,8 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-23 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-24 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-part mesh  # one part of them: serve, train or mesh
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
 Phases, each printing lines with the elapsed seconds:
@@ -270,7 +271,21 @@ Phases, each printing lines with the elapsed seconds:
     if it does not) and held against numpy on 4096 random 56x30 images
     (sums of photon counts, coordinates and the row gather equal, ``log1p``
     within two ulp, the group std within 1e-5), each timed beside numpy;
-    (d) a ``{"mesh": ...}`` line records the phase's times.
+    (d) a ``{"mesh": ...}`` line records the phase's times;
+24. training on the ``(data, expert)`` mesh (item 8b) of a second NCCL
+    world of one: (a) one dense f32 step and one switch bf16 step (tile
+    128, ``dispatch_remat``) of the full-width proton MoE (E=3, batch 512;
+    ``MESH_TRAIN``) through ``build_train_step(mesh=...)`` from one seeded
+    state, batch and set of draws, each ``torch.equal`` leaf by leaf to the
+    meshless step (a mesh of one makes every collective the identity), the
+    switch step on the mesh run twice ``torch.equal``; (b) ``train()`` on
+    the mesh (``MESH_LOOP``: switch bf16, 2 steps, 1 epoch, 1280 synthetic
+    events, an eval on kernel E, a checkpoint of the gathered state), the
+    checkpoint restored with no mesh ``torch.equal`` to the state the run
+    returned and served by ``FastSim.from_checkpoint`` on ``int8_pallas``
+    and ``int8_fused`` (2048 showers), E's and A-D's and H's launches
+    joining the kernels line; a ``{"mesh_train": ...}`` line records the
+    phase.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
@@ -289,8 +304,9 @@ the ``int8_pallas`` serve (the path that runs A-D), of the teacher's
 ``int8`` gate (E), of the all-expert path (F) and of the ``int8_fused_front``
 (G) and ``int8_fused`` (H) serves (E's with the neutron loop's eval of
 phase 20 and phase 22's evals added, A-E's and H's with phase 21's
-gates of the run directory, and A-D's and H's with phase 23's serves on
-the mesh), A's and C's ``k_sweep`` and
+gates of the run directory, A-D's and H's with phase 23's serves on
+the mesh, and E's, A-D's and H's with phase 24's loop on the mesh and its
+checkpoint's serves), A's and C's ``k_sweep`` and
 ``eager_ms`` (the host loop's time), B's and D's
 ``int_mm_ms``, G's and H's ``conv_ms`` (their convs' times), and E's and
 F's ``body``, ``bulk_launches``, ``graph_ms``, ``old_body_ms`` and
@@ -315,12 +331,12 @@ shower; a calibration of 1 + 4 rows; one grouped bucket;
 ``REHEARSE_NEUTRON`` (one shower an expert, batch 3, tile 1; the neutron
 split of 2560 events, E on 8 of its showers, the w=0.125 neutron
 student's gate on 128 conditions with one draw), and phase 17 at
-``REHEARSE_TRAIN`` (2 steps at width 0.125, E=3, batch 4; with no card,
+``REHEARSE_TRAIN`` (2 steps at width 0.125, E=2, batch 4; with no card,
 the first step is held against itself by the comparison), and phase 18 at
-``REHEARSE_LOOP`` (width 0.125, E=3, batch 4 on 9 events: 1 step an
+``REHEARSE_LOOP`` (width 0.125, E=2, batch 4 on 9 events: 1 step an
 epoch, evals of 2 showers; serves of 6 showers on ``int8`` and
 ``int8_pallas``, the fused precision taking full width only; no timed
-write), and phase 19 at ``REHEARSE_SWITCH`` (width 0.125, E=3, batch 4,
+write), and phase 19 at ``REHEARSE_SWITCH`` (width 0.125, E=2, batch 4,
 tile 2; one switch f32 step without remat from ``init_state``, held
 against itself by both comparisons), and phase 20 at
 ``REHEARSE_NEUTRON_TRAIN`` (width 0.125, E=3, batch 4; one dense step
@@ -332,13 +348,24 @@ showers), and phase 21 at ``REHEARSE_*`` (the attention router's serve of
 the neutron family alone distilled at batch 2, one update a call, with no
 card-against-CPU call, its artifact's round trip on 6 showers; the run
 directory's gate on 16 conditions on ``int8_pallas``), and phase 22 at
-``REHEARSE_REAL_DATA`` (width 0.125, batch 16, ``--cpu``), and phase 23 at
+``REHEARSE_REAL_DATA`` (width 0.125, E=2, batch 16, ``--cpu``; the
+rehearsal's proton steps take two experts, two thirds of three's work, so
+that the train part stays under 20 s at two threads), and phase 23 at
 ``REHEARSE_*`` (a gloo world of one in-process; the w=0.125 student on
 ``int8_pallas`` alone, 8 showers at batch 8, tile 2, the fused precisions
 taking full width only; its int8 forms on 8 showers; the host library on
-512 images). Both modes print each
-phase's seconds on one line before the last; the rehearsal ends with
-``{"rehearsal": true}``.
+512 images), and phase 24 at ``REHEARSE_MESH_TRAIN`` (a gloo world of one;
+width 0.125, E=3, batch 4, tile 2, no ``dispatch_remat``, whose
+``torch.utils.checkpoint`` imports ``torch._dynamo``, which looks for
+pandas; the loop on 12 events, its checkpoint served on ``int8_pallas``
+alone). Phase 21's rehearsal serves the w=0.125 student behind the
+attention router. ``--rehearse-part`` runs one part of the rehearsal
+(``REHEARSE_PARTS``: serve = phases 3-16, train = 17-22, mesh = 23-24),
+each recomputing from ``--seed`` what it needs of another: the train part
+the gate's split (phase 10), the mesh part phase 8's router
+(``phase8_router`` replays the seed's stream); only the serve part loads
+the teacher. Both modes print each phase's seconds on one line before the
+last; the rehearsal ends with ``{"rehearsal": true}``.
 """
 
 from __future__ import annotations
@@ -371,10 +398,10 @@ REHEARSE_ENGINE = (None, 3, 1)  # phase 15: one shower an expert, batch 3, tile 
 REHEARSE_DENSE = (1, 1)  # phase 15's dense showers and batch
 REHEARSE_BENCH = {"batch_size": 2, "tile": 2, "n_showers": 2}
 REHEARSE_NEUTRON = (None, 3, 1)  # phase 16: one shower an expert, batch 3, tile 1
-REHEARSE_TRAIN = (0.125, 3, 4, 2)  # phase 17: width, experts, batch, steps
+REHEARSE_TRAIN = (0.125, 2, 4, 2)  # phase 17: width, experts, batch, steps
 ENGINE_SERVE = (8192, 4096, 64)  # phase 15: showers, batch, tile
 ENGINE_DENSE = (4096, 2048)  # phase 15's dense showers and batch (DENSE_SAFE_BATCH)
-BENCH_SHOWERS = 65536  # phase 15: bench_torch.py's first rung, cut from 262144
+BENCH_SHOWERS = 32768  # phase 15: bench_torch.py's first rung, cut from 262144 (guard 3)
 NEUTRON = {name: os.path.join(HERE, "artifacts", "gate", f"neutron_{name}_serving_weights.npz")
            for name in ("teacher", "student_w0.125", "student_w0.25")}
 # phase 16: showers, batch, tile (the teacher and the random norm=batch tree; the students)
@@ -383,14 +410,14 @@ SERVE_BATCH, SERVE_TILE = 4096, 64  # bench.py's teacher ladder tile
 TRAIN = (1.0, 3, 512, 4)  # phase 17: width, experts, batch, steps (half at epoch 0, half at 1)
 TRAIN_CHECK = (0.125, 3, 16)  # phase 17's card-against-CPU step: width, experts, batch
 LOOP = (1.0, 3, 512, 2560)  # phase 18: width, experts, batch, synthetic events (2048 / 512)
-REHEARSE_LOOP = (0.125, 3, 4, 9)  # 1 step an epoch (7 train events), an eval of 2 showers
+REHEARSE_LOOP = (0.125, 2, 4, 9)  # 1 step an epoch (7 train events), an eval of 2 showers
 SWITCH = (1.0, 3, 512, 128)  # phase 19: width, experts, batch, tile
-REHEARSE_SWITCH = (0.125, 3, 4, 2)
+REHEARSE_SWITCH = (0.125, 2, 4, 2)
 CHECK_TILE = 4  # phase 19's switch step at TRAIN_CHECK
 STEP_RUNS = 2  # phase 19's timed runs of each variant after a warm one (none in the rehearsal)
 NEUTRON_TRAIN = (1.0, 3, 512, 128)  # phase 20: width, experts, batch, switch tile (the preset)
 REHEARSE_NEUTRON_TRAIN = (0.125, 3, 4, 2)
-NEUTRON_STEP_RUNS = 2  # phase 20's timed runs of each full-width step after a warm one
+NEUTRON_STEP_RUNS = 1  # phase 20's timed runs of each full-width step after a warm one (guard 3)
 NEUTRON_LOOP = 1280  # phase 20's synthetic events: 1024 train (2 steps of 512), 256 test
 REHEARSE_NEUTRON_LOOP = 9  # 7 train (1 step of 4), 2 test
 NEUTRON_LOOP_SERVE = (2048, 2048, 64)  # showers, batch, tile of the checkpoint's f32 serve
@@ -411,13 +438,20 @@ INT8_QUANTILE = 0.999
 INT8_CAP = 0.25
 FIXTURES = os.path.join(HERE, "tests", "fixtures", "real_pickles")
 REAL_DATA = (1.0, 3, 16)  # phase 22: width, experts, batch (18 train events: one step)
-REHEARSE_REAL_DATA = (0.125, 3, 16)
+REHEARSE_REAL_DATA = (0.125, 2, 16)
 MESH_SERVE = (4096, 1024, 64)  # phase 23 (a): showers, batch, tile
 REHEARSE_MESH = (8, 8, 2)
 FORMS_SERVE = (1024, 1024, 64)  # phase 23 (b): showers, batch, tile of each int8 form
 REHEARSE_FORMS = (8, 8, 2)
 NATIVE_IMAGES = 4096  # phase 23 (c): random 56x30 images
 REHEARSE_NATIVE = 512
+MESH_TRAIN = (1.0, 3, 512, 128)  # phase 24's steps: width, experts, batch, switch tile
+REHEARSE_MESH_TRAIN = (0.125, 3, 4, 2)
+MESH_LOOP = (1.0, 3, 512, 1280)  # phase 24's loop: width, experts, batch, events (2 steps, 1 epoch)
+REHEARSE_MESH_LOOP = (0.125, 3, 4, 12)  # 2 steps of 4, an eval of 2 showers
+MESH_LOOP_SERVE = (2048, 2048, 64)  # showers, batch, tile of the checkpoint's serves
+REHEARSE_MESH_LOOP_SERVE = (6, 8, 2)
+REHEARSE_PARTS = {"serve": "3-16", "train": "17-22", "mesh": "23-24"}  # --rehearse-part
 NEAR_TIE = 1e-5  # a routing difference is allowed only where the top two logits are this close
 # the evaluator's keys (zdcsim/train/evaluate.py:472-481): the CLI's --eval prints them
 EVAL_KEYS = {"ws_mean", "ws_std", "ws_mean_exp", "ws_std_exp", "ws_mean_rel", "ws_real_floor",
@@ -768,20 +802,21 @@ def check_kernel_d(gp, rng, dev, rows, seed):
 
 def conv_int64(xq, kq, pad):
     """Direct int64 sum of an NHWC x HWIO int8 conv, on the host's CPU (an
-    independent reference: int64 products and sums, one matmul per tap)."""
+    independent reference: one float64 matmul per tap, every product and
+    sum an integer far below 2**53, so exact, returned as int64)."""
     import torch
     import torch.nn.functional as F
 
     b, h, w, cin = xq.shape
     kh, kw, _, cout = kq.shape
-    xp = F.pad(xq.cpu().to(torch.int64), (0, 0, pad[1][0], pad[1][1], pad[0][0], pad[0][1]))
+    xp = F.pad(xq.cpu().to(torch.float64), (0, 0, pad[1][0], pad[1][1], pad[0][0], pad[0][1]))
     ho, wo = xp.shape[1] - kh + 1, xp.shape[2] - kw + 1
-    k64 = kq.cpu().to(torch.int64)
-    out = torch.zeros((b * ho * wo, cout), dtype=torch.int64)
+    k64 = kq.cpu().to(torch.float64)
+    out = torch.zeros((b * ho * wo, cout), dtype=torch.float64)
     for a in range(kh):
         for c in range(kw):
             out += xp[:, a:a + ho, c:c + wo].reshape(-1, cin) @ k64[a, c]
-    return out.reshape(b, ho, wo, cout)
+    return out.to(torch.int64).reshape(b, ho, wo, cout)
 
 
 def check_conv_i8(gp, rng, dev, rows):
@@ -3444,7 +3479,8 @@ def seeded_attention_router(rng, n_experts=3, embed_dim=64):
 
 
 def attention_router(gp, split, dev, rehearse, card, seed):
-    """Phase 21 (a): the full-width teacher served on ``int8`` behind a
+    """Phase 21 (a): the full-width teacher (the w=0.125 student in the
+    rehearsal) served on ``int8`` behind a
     seeded ``AttentionRouterNetwork`` (``model.router.version=
     router_attention``), its routing against the router's own argmax on the
     CPU (a difference allowed only at a near tie, ``NEAR_TIE``); then, on the
@@ -3469,8 +3505,14 @@ def attention_router(gp, split, dev, rehearse, card, seed):
     cond = rng.standard_normal((n, 9), dtype="float32")
     noise = rng.standard_normal((n, 10), dtype="float32")
     router = seeded_attention_router(rng)
+    over = [attn]
+    if rehearse:  # the w=0.125 student: the rehearsal's train part loads no teacher
+        from zdcsim_torch.utils.artifact import load_serving_artifact
+
+        gp, _, _, meta = load_serving_artifact(STUDENT)
+        over.append(f"model.generator.width={meta['width']}")
     eng = FastSim(gp, router, batch_size=batch, precision="int8", device=dev,
-                  cfg=load_config([attn]))
+                  cfg=load_config(over))
     eng._build_switch(tile=tile)
     if type(eng.router) is not AttentionRouterNetwork:
         fail(f"FastSim built {type(eng.router).__name__} for {attn}")
@@ -4248,12 +4290,282 @@ def mesh_phase(gp, router, dev, rehearse, card, seed):
     return launches
 
 
+def switch_bf16(tile, rehearse):
+    """Phase 19's switch bf16 options at ``tile``, ``dispatch_remat`` on the
+    card (``torch.utils.checkpoint`` imports ``torch._dynamo``, which looks
+    for pandas: not under the rehearsal's guard)."""
+    return ["train.dispatch=switch", "train.precision=bf16", f"train.dispatch_tile={tile}",
+            f"train.dispatch_remat={not rehearse}"]
+
+
+def mesh_steps(mesh, dev, rehearse, card, seed):
+    """Phase 24 (a): one dense f32 step and one switch bf16 step (tile
+    ``MESH_TRAIN``'s, ``dispatch_remat``) of the proton MoE on the mesh
+    (``build_train_step(mesh=...)``) from one seeded state, batch and set of
+    draws, each ``torch.equal`` leaf by leaf to the meshless step on the
+    same inputs (a mesh of one makes every collective the identity), and
+    the switch step on the mesh run twice from one state ``torch.equal``.
+    Returns ``{step: record}``."""
+    import numpy as np
+    import torch
+
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.models import build_moe
+    from zdcsim_torch.parallel import batch_sharding, place_tree, shard_state
+    from zdcsim_torch.train.state import init_state
+    from zdcsim_torch.train.step import build_train_step, draw_step_noise
+
+    phase = "24 mesh train"
+    width, n_exp, batch, tile = REHEARSE_MESH_TRAIN if rehearse else MESH_TRAIN
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rng = np.random.default_rng([seed, 24])
+    data = {"real": rng.random((batch, 56, 30, 1)) * 3, "cond": rng.standard_normal((batch, 9)),
+            "std": rng.random((batch, 1)), "intensity": rng.random((batch, 1)) * 500,
+            "positions": rng.random((batch, 2)) * 20}
+    data = {k: torch.as_tensor(v.astype("float32"), device=dev) for k, v in data.items()}
+    model = [f"model.generator.width={width}", f"model.n_experts={n_exp}",
+             f"train.batch_size={batch}"]
+    modules = build_moe(load_config(model))
+    state = init_state(modules, load_config(model), seed, dev)
+    local, rows = shard_state(mesh, state, n_exp), place_tree(batch_sharding(mesh), data)
+    rec = {}
+    for name, over in (("dense f32", ["train.dispatch=dense", "train.precision=f32"]),
+                       ("switch bf16", switch_bf16(tile, rehearse))):
+        cfg = load_config(model + over)
+        plain, meshed = build_train_step(modules, cfg), build_train_step(modules, cfg, mesh)
+        draws = draw_step_noise(torch.Generator(device=dev).manual_seed(seed + 24), modules,
+                                batch, dev, plain.switch)
+        ref = plain(state, data, draws, 0)
+        sync()
+        t = time.perf_counter()
+        ours = meshed(local, rows, draws, 0)
+        sync()
+        step_s = time.perf_counter() - t
+        bad = unequal_leaves(ours, ref)
+        n_leaves = len(output_leaves(ours))
+        log(phase, f"{name} step of the proton MoE width {width}, E={n_exp}, batch {batch} on "
+            f"{mesh}: {step_s:.4f}s; torch.equal to the meshless step leaf by leaf {not bad} "
+            f"({n_leaves - len(bad)} of {n_leaves} leaves equal); gen_loss "
+            f"{float(ours[1]['gen_loss']):.6f} [{card}]")
+        if bad:
+            fail(f"the {name} step on the mesh differs from the meshless step: {bad[:5]}")
+        if not all(bool(torch.isfinite(v).all()) for v in ours[1].values()):
+            fail(f"the {name} step on the mesh: non-finite metrics")
+        if name == "switch bf16":
+            check_repeat(phase, f"the {name} step on the mesh", ours,
+                         meshed(local, rows, draws, 0), card)
+        rec[name] = {"s": step_s, "gen_loss": float(ours[1]["gen_loss"]), "leaves": n_leaves}
+        del ref, ours
+    return rec
+
+
+def mesh_loop(dev, rehearse, card, seed):
+    """Phase 24 (b): ``train()`` on the mesh (``MESH_LOOP``: 2 switch bf16
+    steps, 1 epoch, an eval on kernel E, a checkpoint of the gathered state
+    written by rank 0), the checkpoint restored with no mesh ``torch.equal``
+    to the state the run returned, and served by ``FastSim.from_checkpoint`` on
+    ``int8_pallas`` (A-D) and ``int8_fused`` (H; full width only) in
+    agreement with each other. Returns ``(launches by kernel, record)``: E's
+    from the loop (its evals), A-D's and H's from the serves."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.inference.engine import FastSim
+    from zdcsim_torch.train.checkpoint import _flatten, restore_checkpoint
+    from zdcsim_torch.train.loop import train
+
+    phase = "24 mesh train"
+    width, n_exp, batch, n_events = REHEARSE_MESH_LOOP if rehearse else MESH_LOOP
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    tmp = tempfile.mkdtemp(prefix="zdcsim_mesh_loop_")
+    every = kernel_wrappers()
+    launches, rec = {}, {}
+    try:
+        cfg = load_config([f"model.generator.width={width}", f"model.n_experts={n_exp}",
+                           f"train.batch_size={batch}",
+                           *switch_bf16((REHEARSE_MESH_TRAIN if rehearse else MESH_TRAIN)[3],
+                                        rehearse),
+                           "dataset.synthetic=true",
+                           f"dataset.synthetic_n_samples={n_events}", "train.seed=7",
+                           "eval.fused_epilogue=true", "train.epochs=1", "train.eval_every=1",
+                           "train.save_experiment_data=true", "train.ws_threshold_model_save=1e30",
+                           f"train.save_experiments_dir={tmp}/", "config.run_name=mesh"])
+        reset_counts(every)
+        t = time.perf_counter()
+        history, state = train(cfg, return_state=True, device=dev)
+        sync()
+        rec["train_s"] = time.perf_counter() - t
+        counts = read_counts(every)
+        e_counts = {k: v for k, v in counts.items() if k.startswith("expm1_channel_sums")}
+        launches.update(e_counts)
+        h = history[-1]
+        log(phase, f"train() on the mesh: 1 epoch of switch bf16 steps "
+            f"{h.get('epoch_time', 0.0):.2f}s at width "
+            f"{width}, E={n_exp}, batch {batch} on {n_events} events in {rec['train_s']:.2f}s; "
+            f"gen_loss {h['gen_loss']:.4f}, ws_mean {h['ws_mean']!r}; the eval launched E "
+            f"{e_counts} [{card}]")
+        if len(history) != 1 or not all(np.isfinite(h[k]) for k in ("gen_loss", "ws_mean")):
+            fail(f"the loop on the mesh: {history}")
+        if dev.type == "cuda" and counts.get("expm1_channel_sums", 0) <= 0:
+            fail(f"the loop's eval on the mesh did not launch E: {counts}")
+        models = f"{cfg.config.experiment_dir}/models"
+        restored = restore_checkpoint(models, 0, state)
+        a, b = _flatten(restored), _flatten(state)
+        same = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+        log(phase, f"the checkpoint of the gathered state restored with no mesh: "
+            f"torch.equal to the state the run returned {same} ({len(a)} tensors)")
+        if not same:
+            fail("the mesh run's checkpoint differs from its gathered state")
+        del restored, a, b, state
+        n, serve_batch, tile = REHEARSE_MESH_LOOP_SERVE if rehearse else MESH_LOOP_SERVE
+        cond = torch.randn((n, 9), generator=torch.Generator().manual_seed(seed + 240))
+        ref = None
+        for precision in ("int8_pallas",) + (() if rehearse else ("int8_fused",)):
+            names = KERNEL_PATHS[precision]
+            eng = FastSim.from_checkpoint(cfg, models, 0, precision=precision,
+                                          batch_size=serve_batch, device=dev)
+            eng._build_switch(tile=tile)
+            wrappers = {k: every[k] for k in names}
+            reset_counts(wrappers)
+            imgs, ids = eng.simulate_switch(cond, return_experts=True,
+                                            generator=torch.Generator(device=dev).manual_seed(seed))
+            sync()
+            c = read_counts(wrappers)
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+            log(phase, f"FastSim.from_checkpoint of the mesh run on {precision} with no mesh: "
+                f"{n} showers, routing {torch.bincount(ids, minlength=n_exp).tolist()}, kernel "
+                f"launches {c} [{card}]")
+            if dev.type == "cuda" and min(c[k] for k in names) <= 0:
+                fail(f"the {precision} serve of the mesh run's checkpoint did not launch {names}")
+            if tuple(imgs.shape) != (n, 56, 30) or not bool(torch.isfinite(imgs).all()):
+                fail(f"{precision}: the checkpoint's showers not finite of shape ({n}, 56, 30)")
+            if ref is None:
+                ref = (log1p_sums(imgs), ids.cpu().numpy())
+            else:
+                check_agrees(phase, f"{precision} from the mesh run's checkpoint", imgs, ids, *ref,
+                             ref_name="its int8_pallas serve")
+            rec[precision] = {"launches": c}
+            del eng, imgs, ids
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, rec
+
+
+def mesh_train_phase(dev, rehearse, card, seed):
+    """Phase 24: training on the ``(data, expert)`` mesh of a world of one
+    (NCCL on the card, gloo in-process in the rehearsal, a ``file://`` store
+    in a temporary directory): :func:`mesh_steps` and :func:`mesh_loop`; a
+    ``{"mesh_train": ...}`` line records the phase. Returns the loop's and
+    the serves' kernel launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from zdcsim_torch.parallel import init_world, make_mesh
+
+    phase = "24 mesh train"
+    store = tempfile.mkdtemp(prefix="zdcsim_mesh_train_")
+    device = "cpu" if rehearse else None
+    t = time.perf_counter()
+    try:
+        init_world(0, 1, "file://" + os.path.join(store, "store"), device)
+        try:
+            mesh = make_mesh(1, device=device)
+            log(phase, f"{mesh} on {dist.get_backend()} in {time.perf_counter() - t:.2f}s")
+            rec = {"steps": mesh_steps(mesh, dev, rehearse, card, seed)}
+            launches, rec["loop"] = mesh_loop(dev, rehearse, card, seed)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    rec["s"] = time.perf_counter() - t
+    log(phase, f"training on the mesh launched {launches} in {rec['s']:.2f}s [{card}]")
+    print(json.dumps({"mesh_train": rec}), flush=True)
+    return launches
+
+
+def phase8_router(seed, rows_a=8, rows_b=8, n=REHEARSE_SERVE[0]):
+    """The router that phase 8 draws from ``--seed`` in the rehearsal,
+    without phases 3-8: the draws of phases 3, 4 and 8 from the seed's
+    stream replayed (the same calls on the same shapes and dtypes, the
+    teacher's widths read from its artifact's two leaves), then the router
+    drawn from the stream as phase 8 draws it."""
+    import numpy as np
+
+    with np.load(TEACHER) as f:  # the teacher's Dense_1 width and Conv_0's input channels
+        feat = f["gen_params|MLPBlock_1|LayerNorm_0|scale"].shape[-1]
+        cin = f["gen_params|Conv_0|kernel"].shape[-2]
+    rng = np.random.default_rng(seed)
+    rng.standard_normal((rows_a, feat), dtype="float32")  # phase 3
+    rng.integers(-127, 128, (rows_b, 18, 10, cin), dtype="int8")  # phase 4
+    rng.standard_normal(rows_b)
+    rng.standard_normal((n, 9), dtype="float32")  # phase 8's conditions and noise
+    rng.standard_normal((n, 10), dtype="float32")
+    return seeded_router(rng)
+
+
+def run_rehearsal(parts, gp, rp, rng, dev, card, seed) -> int:
+    """The CPU rehearsal of ``parts`` (``REHEARSE_PARTS``), each recomputing
+    from ``seed`` what it needs of another: the train part the gate's split
+    (phase 10), the mesh part phase 8's router (:func:`phase8_router`)."""
+    import numpy as np
+
+    router = split = None
+    if "serve" in parts:
+        timed("3 A", check_kernel_a, gp, rng, dev, 8, seed)
+        timed("4 B", check_kernel_b, gp, rng, dev, 8, seed)
+        rng_cd = np.random.default_rng([seed, 1])
+        timed("5 C", check_kernel_c, gp, rng_cd, dev, 4, seed)
+        timed("6 D", check_kernel_d, gp, rng_cd, dev, 2, seed)
+        timed("7 conv_i8", check_conv_i8, gp, rng_cd, dev, 1)
+        gh_in = timed("7b G, H", check_kernels_gh, gp, rng_cd, dev, 1)
+        timed("7b G, H", check_conv_stages, *gh_in[1:4], dev)
+        _, router = timed("8 serve", serve, gp, rp, rng, dev, *REHEARSE_SERVE, card, seed)
+        cond, real, _, split = timed("10 E", gate_data, dev, True)
+        timed("11 F", kernel_f_path, gp, router, dev, REHEARSE_F, card)
+        timed("12 float serves", float_serves, gp, router, dev, *REHEARSE_FLOAT, card, seed)
+        timed("13 gate", gates, (cond[:REHEARSE_GATE], real[:REHEARSE_GATE]), dev, True, card)
+        timed("15 engine API", engine_api, gp, router, dev, True, card, seed)
+        timed("16 neutron", neutron, dev, True, card, seed)
+    if "train" in parts:
+        if split is None:
+            cond, real, _, split = timed("10 E", gate_data, dev, True)
+        timed("17 train", train, split, dev, True, card, seed)
+        loop_rec = timed("18 loop", loop, dev, True, card, seed, keep_run=True)
+        try:
+            timed("19 options", options, split, dev, True, card, seed)
+            timed("20 neutron train", neutron_train, dev, True, card, seed)
+            timed("21 distill", distill_phase, gp, rp, split, cond, real, loop_rec, dev, True,
+                  card, seed)
+        finally:
+            shutil.rmtree(loop_rec["tmp"], ignore_errors=True)
+        timed("22 real data", real_data, dev, True, card, seed)
+    if "mesh" in parts:
+        replayed = phase8_router(seed)
+        if router is not None and not all(
+                np.array_equal(router[k][p], replayed[k][p]) for k in router for p in router[k]):
+            fail("phase8_router does not replay phase 8's router")
+        timed("23 mesh", mesh_phase, gp, router or replayed, dev, True, card, seed)
+        timed("24 mesh train", mesh_train_phase, dev, True, card, seed)
+    log_phase_times()
+    print(json.dumps({"rehearsal": True}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-13 and 15-23 on the CPU at small sizes with the "
+                    help="run phases 3-13 and 15-24 on the CPU at small sizes with the "
                          "plain versions")
+    ap.add_argument("--rehearse-part", choices=sorted(REHEARSE_PARTS),
+                    help="rehearse one part on the CPU, recomputing what it needs from --seed: "
+                         + ", ".join(f"{k} (phases {v})" for k, v in REHEARSE_PARTS.items()))
     ap.add_argument("--profile", action="store_true",
                     help="profile one serve of each kernel path with torch.profiler")
     args = ap.parse_args(argv)
@@ -4261,15 +4573,15 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    rehearse = args.rehearse_cpu
-    if not rehearse and not torch.cuda.is_available():
+    rehearsing = args.rehearse_cpu or args.rehearse_part is not None
+    if not rehearsing and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
 
     from zdcsim_torch.ops import _build
     from zdcsim_torch.utils.artifact import load_serving_artifact
 
-    if rehearse:
+    if rehearsing:
         dev, card = torch.device("cpu"), "cpu rehearsal"
     else:
         dev = torch.device("cuda")
@@ -4308,42 +4620,26 @@ def main(argv=None) -> int:
                 fail(f"the library's SASS holds {n_mma} conv_mma_kernel instantiations, not 10")
 
     rng = np.random.default_rng(args.seed)
-    gp, _, rp, _ = load_serving_artifact(TEACHER)
-    log("3 kernel A", "teacher artifact loaded")
+    parts = ((args.rehearse_part,) if args.rehearse_part else tuple(REHEARSE_PARTS)
+             ) if rehearsing else ()
+    gp = rp = None
+    if not rehearsing or "serve" in parts:  # the rehearsal's later parts serve the student
+        gp, _, rp, _ = load_serving_artifact(TEACHER)
+        log("3 kernel A", "teacher artifact loaded")
     PHASE_S["setup"] = time.perf_counter() - T0  # imports, card, build, artifact
-    a_in = timed("3 A", check_kernel_a, gp, rng, dev, 8 if rehearse else A_ROWS, args.seed)
-    b_in = timed("4 B", check_kernel_b, gp, rng, dev, 8 if rehearse else B_ROWS, args.seed)
+    if rehearsing:
+        return run_rehearsal(parts, gp, rp, rng, dev, card, args.seed)
+    rehearse = False
+    a_in = timed("3 A", check_kernel_a, gp, rng, dev, A_ROWS, args.seed)
+    b_in = timed("4 B", check_kernel_b, gp, rng, dev, B_ROWS, args.seed)
     # the later checks draw from a stream of their own, so the serve's
     # conditions and router stay those that phases 3-4 leave
     rng_cd = np.random.default_rng([args.seed, 1])
-    c_in = timed("5 C", check_kernel_c, gp, rng_cd, dev, 4 if rehearse else C_ROWS, args.seed)
-    d_in = timed("6 D", check_kernel_d, gp, rng_cd, dev, 2 if rehearse else D_ROWS, args.seed)
-    timed("7 conv_i8", check_conv_i8, gp, rng_cd, dev, 1 if rehearse else 2)
-    gh_in = timed("7b G, H", check_kernels_gh, gp, rng_cd, dev, 1 if rehearse else GH_ROWS)
+    c_in = timed("5 C", check_kernel_c, gp, rng_cd, dev, C_ROWS, args.seed)
+    d_in = timed("6 D", check_kernel_d, gp, rng_cd, dev, D_ROWS, args.seed)
+    timed("7 conv_i8", check_conv_i8, gp, rng_cd, dev, 2)
+    gh_in = timed("7b G, H", check_kernels_gh, gp, rng_cd, dev, GH_ROWS)
     conv_in = timed("7b G, H", check_conv_stages, *gh_in[1:4], dev)
-    if rehearse:
-        _, router = timed("8 serve", serve, gp, rp, rng, dev, *REHEARSE_SERVE, card, args.seed)
-        cond, real, _, split = timed("10 E", gate_data, dev, rehearse)
-        timed("11 F", kernel_f_path, gp, router, dev, REHEARSE_F, card)
-        timed("12 float serves", float_serves, gp, router, dev, *REHEARSE_FLOAT, card, args.seed)
-        timed("13 gate", gates, (cond[:REHEARSE_GATE], real[:REHEARSE_GATE]), dev, rehearse,
-              card)
-        timed("15 engine API", engine_api, gp, router, dev, rehearse, card, args.seed)
-        timed("16 neutron", neutron, dev, rehearse, card, args.seed)
-        timed("17 train", train, split, dev, rehearse, card, args.seed)
-        loop_rec = timed("18 loop", loop, dev, rehearse, card, args.seed, keep_run=True)
-        try:
-            timed("19 options", options, split, dev, rehearse, card, args.seed)
-            timed("20 neutron train", neutron_train, dev, rehearse, card, args.seed)
-            timed("21 distill", distill_phase, gp, rp, split, cond, real, loop_rec, dev,
-                  rehearse, card, args.seed)
-        finally:
-            shutil.rmtree(loop_rec["tmp"], ignore_errors=True)
-        timed("22 real data", real_data, dev, rehearse, card, args.seed)
-        timed("23 mesh", mesh_phase, gp, router, dev, rehearse, card, args.seed)
-        log_phase_times()
-        print(json.dumps({"rehearsal": True}), flush=True)
-        return 0
     launches, router = timed("8 serve", serve, gp, rp, rng, dev, N_SHOWERS, SERVE_BATCH,
                              SERVE_TILE, card, args.seed, args.profile)
     rec = timed("9 kernel times", time_kernels, a_in[:3], b_in[:5], c_in[:3], d_in[:6],
@@ -4373,13 +4669,16 @@ def main(argv=None) -> int:
         shutil.rmtree(loop_rec["tmp"], ignore_errors=True)
     n_e22, n_bulk22 = timed("22 real data", real_data, dev, rehearse, card, args.seed)
     mesh_launches = timed("23 mesh", mesh_phase, gp, router, dev, rehearse, card, args.seed)
+    train_launches = timed("24 mesh train", mesh_train_phase, dev, rehearse, card, args.seed)
     e_rec = next(r for r in rec if r["name"] == "expm1_channel_sums")
     # the neutron loop's and the fixtures' evals are main paths of E too
     e_rec["launches"] += n_e + n_e22
     e_rec["bulk_launches"] += n_bulk + n_bulk22
-    for r in rec:  # the run directory's gates and the mesh's serves are main paths too
-        r["launches"] += gate_launches.get(r["name"], 0) + mesh_launches.get(r["name"], 0)
-    e_rec["bulk_launches"] += gate_launches.get("expm1_channel_sums on the bulk ring", 0)
+    for r in rec:  # the run directory's gates, the mesh's serves and its loop: main paths too
+        r["launches"] += sum(d.get(r["name"], 0) for d in (gate_launches, mesh_launches,
+                                                           train_launches))
+    e_rec["bulk_launches"] += sum(d.get("expm1_channel_sums on the bulk ring", 0)
+                                  for d in (gate_launches, train_launches))
     e_rec["body"] = "bulk ring" if e_rec["bulk_launches"] == e_rec["launches"] else "direct"
     log_phase_times()
     log("done", f"wall {time.perf_counter() - T0:.2f}s [{card}]")

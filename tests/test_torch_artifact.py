@@ -22,6 +22,17 @@ ARTIFACTS = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..", "arti
                                           "*.npz")))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs six workers
+    beside gloo worlds and the rehearsal's subprocesses, and a worker on
+    every core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_trees_bit_equal(a, b):
     fa, fb = _flatten(a), _flatten(b)
     assert sorted(fa) == sorted(fb)

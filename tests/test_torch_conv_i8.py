@@ -20,6 +20,17 @@ SHAPES = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs six workers
+    beside gloo worlds and the rehearsal's subprocesses, and a worker on
+    every core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _operands(rng, b, h, w, cin, cout, kh, kw):
     xq = rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)
     kq = rng.integers(-127, 128, (kh, kw, cin, cout), dtype=np.int8)

@@ -13,6 +13,17 @@ from zdcsim_torch.models.router import RouterNetwork
 from zdcsim_torch.utils.artifact import _flatten, _unflatten
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs six workers
+    beside gloo worlds and the rehearsal's subprocesses, and a worker on
+    every core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def weights():
     torch.manual_seed(0)

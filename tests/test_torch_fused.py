@@ -29,6 +29,17 @@ TEACHER = os.path.join(os.path.dirname(__file__), "..", "artifacts", "gate",
 EXPERT = 1  # the expert the teacher's router sends every condition to
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs six workers
+    beside gloo worlds and the rehearsal's subprocesses, and a worker on
+    every core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _int8_bound(ref):
     """Bound of tests/test_pallas_decode.py:203 for int8 paths, where a
     rounding flip of one activation cascades through the later convs."""

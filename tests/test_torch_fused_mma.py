@@ -9,8 +9,12 @@ weights ``[Cout, taps x Cin]``, phase p's taps starting at slab ``tap0[p]``.
 ``_plans``, ``_conv0_plan`` and ``_row_plan`` mirror the plans of the CUDA
 sources (``conv0_plan``, ``pad1_plan``, kernel D's row phases); a float64
 GEMM in that order over the packed weights must equal the plain versions'
-sums bit for bit. Inputs are made with numpy from a seed.
+sums bit for bit. Inputs are made with numpy from a seed. Each shape's
+plain outputs are computed once and shared by its phases' cases
+(``functools.cache``; no case writes to them).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -21,6 +25,17 @@ from zdcsim_torch.convert import from_state_dict, tree_to_torch
 from zdcsim_torch.models.proton import Generator
 from zdcsim_torch.ops import decode_kernels as dk
 from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs six workers
+    beside gloo worlds and the rehearsal's subprocesses, and a worker on
+    every core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 def _conv0_plan(h, w):
@@ -116,6 +131,22 @@ def test_pack_k_major_is_tap_major_and_unpacks(conv):
     assert np.array_equal(words, want.transpose(2, 0, 1))
 
 
+@functools.cache
+def _conv_case(conv):
+    """``conv``'s inputs, its plain sums (``_conv_pad1_exact``, or Conv_0's
+    ``up2_conv4_int8_plain`` at sx = sk = 1, bias = 0) and
+    ``fused_conv_int8_plain``'s output."""
+    xq, kq, sx, sk, bias = conv_inputs(conv, 2, 10 + conv)
+    kp = dk.pack_k_major(kq)
+    oh, ow, cout = fdk.CONVS[conv][1]
+    if conv:
+        ref = fdk._conv_pad1_exact(xq, kq, (oh, ow))
+    else:
+        ref = dk.up2_conv4_int8_plain(xq, torch.ones(2), kp, torch.ones((4, cout)),
+                                      torch.zeros(cout), torch.float32)
+    return (xq, kq, sx, sk, bias), kp, ref, fdk.fused_conv_int8_plain(conv, xq, sx, kp, sk, bias)
+
+
 @pytest.mark.parametrize("conv,phase", [(0, 0), (0, 1), (0, 2), (0, 3), (1, 0), (2, 0)])
 def test_kernel_k_order_equals_the_plain_sums(conv, phase):
     """Conv_1 and Conv_2: equal to ``_conv_pad1_exact``; each Conv_0 phase:
@@ -123,8 +154,7 @@ def test_kernel_k_order_equals_the_plain_sums(conv, phase):
     phase's output pixels, the odd phases' last row/column dropped. Through
     the f32 epilogue ``(f32(acc) * sk) * sx + bias`` they are
     ``fused_conv_int8_plain``'s output on those pixels."""
-    xq, kq, sx, sk, bias = conv_inputs(conv, 2, 10 + conv)
-    kp = dk.pack_k_major(kq)
+    (xq, kq, sx, sk, bias), kp, ref, out = _conv_case(conv)
     plans = _plans(conv)
     # the slabs tile K in phase order, and K covers every tap once
     assert [ph["tap0"] for ph in plans] == list(
@@ -138,13 +168,10 @@ def test_kernel_k_order_equals_the_plain_sums(conv, phase):
     rk, ck = rows < oh, cols < ow
     got = sums[:, rk][:, :, ck]
     if conv:
-        assert torch.equal(sums, fdk._conv_pad1_exact(xq, kq, (oh, ow)))
+        assert torch.equal(sums, ref)
     else:
-        ref = dk.up2_conv4_int8_plain(xq, torch.ones(2), kp, torch.ones((4, cout)),
-                                      torch.zeros(cout), torch.float32)
         assert got.shape[1:3] == ((oh + 1 - ph["pr"]) // 2, (ow + 1 - ph["pc"]) // 2)
         assert torch.equal(got.to(torch.float32), ref[:, rows[rk]][:, :, cols[ck]])
-    out = fdk.fused_conv_int8_plain(conv, xq, sx, kp, sk, bias)
     val = got.to(torch.float32) * (sk[phase] if conv == 0 else sk) * sx.reshape(-1, 1, 1, 1) + bias
     assert torch.equal(out[:, rows[rk]][:, :, cols[ck]], val)
 
@@ -216,6 +243,28 @@ def _d_inputs(b, w, cin, cout, seed):
     return xq, dk.pack_k_major(kq), sx, sk, offsets, bias
 
 
+@functools.cache
+def _b_case(b, h, w, cin, cout):
+    """Kernel B's inputs and ``up2_conv4_int8_plain``'s outputs: the sums (sx =
+    sk = 1, bias = 0, f32), then f32 and bf16 through the epilogue."""
+    xq, kp, sx, sk, bias = _b_inputs(b, h, w, cin, cout, 30 + cin)
+    ref = dk.up2_conv4_int8_plain(xq, torch.ones(b), kp, torch.ones((4, cout)),
+                                  torch.zeros(cout), torch.float32)
+    return (xq, kp, sx, sk, bias), ref, {dt: dk.up2_conv4_int8_plain(xq, sx, kp, sk, bias, dt)
+                                         for dt in (torch.float32, torch.bfloat16)}
+
+
+@functools.cache
+def _d_case(b, w, cin, cout):
+    """As :func:`_b_case` for kernel D's ``row_resize_conv4_int8_plain``."""
+    xq, kp, sx, sk, offsets, bias = _d_inputs(b, w, cin, cout, 40 + cin)
+    ref = dk.row_resize_conv4_int8_plain(xq, torch.ones(b), kp, torch.ones((8, cout)), offsets,
+                                         torch.zeros(cout), 56, torch.float32)
+    return (xq, kp, sx, sk, offsets, bias), ref, {
+        dt: dk.row_resize_conv4_int8_plain(xq, sx, kp, sk, offsets, bias, 56, dt)
+        for dt in (torch.float32, torch.bfloat16)}
+
+
 @pytest.mark.parametrize("phase", [0, 1, 2, 3])
 @pytest.mark.parametrize("b,h,w,cin,cout", [(1, 18, 10, 512, 256), (2, 5, 3, 36, 70)])
 def test_up2_k_order_equals_the_plain_sums(b, h, w, cin, cout, phase):
@@ -223,7 +272,7 @@ def test_up2_k_order_equals_the_plain_sums(b, h, w, cin, cout, phase):
     in the tensor-core K order over the packed weights equal
     ``up2_conv4_int8_plain``'s (sx = sk = 1, bias = 0) on the phase's pixels,
     and through the f32 epilogue its f32 and bf16 outputs."""
-    xq, kp, sx, sk, bias = _b_inputs(b, h, w, cin, cout, 30 + cin)
+    (xq, kp, sx, sk, bias), ref, outs = _b_case(b, h, w, cin, cout)
     plans = _conv0_plan(h, w)
     assert sum(ph["kr"] * ph["kc"] for ph in plans) * cin == kp.shape[1]
     ph = plans[phase]
@@ -232,12 +281,9 @@ def test_up2_k_order_equals_the_plain_sums(b, h, w, cin, cout, phase):
     cols = torch.arange(w) * 2 + ph["pc"]
     rk, ck = rows < 2 * h - 1, cols < 2 * w - 1
     got = sums[:, rk][:, :, ck].to(torch.float32)
-    ref = dk.up2_conv4_int8_plain(xq, torch.ones(b), kp, torch.ones((4, cout)),
-                                  torch.zeros(cout), torch.float32)
     assert torch.equal(got, ref[:, rows[rk]][:, :, cols[ck]])
     val = got * sk[phase] * sx.reshape(-1, 1, 1, 1) + bias
-    for dt in (torch.float32, torch.bfloat16):
-        out = dk.up2_conv4_int8_plain(xq, sx, kp, sk, bias, dt)
+    for dt, out in outs.items():
         assert torch.equal(out[:, rows[rk]][:, :, cols[ck]], val.to(dt))
 
 
@@ -250,7 +296,7 @@ def test_row_resize_k_order_equals_the_plain_sums(b, w, cin, cout, phase):
     ``row_resize_conv4_int8_plain``'s (sx = sk = 1, bias = 0) on the phase's
     rows, and through the f32 epilogue its f32 and bf16 outputs. The slabs
     tile K phase by phase, and the group the plan skips is all zero."""
-    xq, kp, sx, sk, offsets, bias = _d_inputs(b, w, cin, cout, 40 + cin)
+    (xq, kp, sx, sk, offsets, bias), ref, outs = _d_case(b, w, cin, cout)
     plans = _row_plan(offsets, 55, w)
     max_l = len(offsets[0])
     assert [ph["tap0"] for ph in plans] == [4 * max_l * p for p in range(8)]
@@ -261,12 +307,9 @@ def test_row_resize_k_order_equals_the_plain_sums(b, w, cin, cout, phase):
     sums = _kernel_sums(xq, kp, ph)
     assert sums.shape == (b, 7 if phase < 7 else 6, w, cout)
     got = sums.to(torch.float32)
-    ref = dk.row_resize_conv4_int8_plain(xq, torch.ones(b), kp, torch.ones((8, cout)), offsets,
-                                         torch.zeros(cout), 56, torch.float32)
     assert torch.equal(got, ref[:, phase::8])
     val = got * sk[phase] * sx.reshape(-1, 1, 1, 1) + bias
-    for dt in (torch.float32, torch.bfloat16):
-        out = dk.row_resize_conv4_int8_plain(xq, sx, kp, sk, offsets, bias, 56, dt)
+    for dt, out in outs.items():
         assert torch.equal(out[:, phase::8], val.to(dt))
 
 

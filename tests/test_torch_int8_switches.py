@@ -38,6 +38,17 @@ SETTINGS = [
 IDS = ["conv0_naive", "conv1_phase", "conv1_folded", "conv2_float", "dequant_bf16"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs six workers
+    beside gloo worlds and the rehearsal's subprocesses, and a worker on
+    every core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _defaults():
     """Every test starts from, and leaves, JAX's and the port's defaults."""

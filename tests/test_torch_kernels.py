@@ -11,6 +11,17 @@ from zdcsim.ops import pallas_decode as jpd
 from zdcsim_torch.ops import decode_kernels as dk
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs six workers
+    beside gloo worlds and the rehearsal's subprocesses, and a worker on
+    every core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def test_ln_leaky_rowquant_matches_jax():
     b, f = 16, 1024
     rng = np.random.default_rng(0)

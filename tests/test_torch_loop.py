@@ -253,11 +253,12 @@ def test_prng_streams():
 
 
 def test_loop_refuses_what_is_not_ported(tmp_path):
+    """A mesh run outside a ``torch.distributed`` world raises, naming
+    ``torchrun``: it never falls back to one device."""
     from zdcsim_torch.train.loop import train
 
-    for over, item in ((["parallel.n_devices=2"], "item 8"),
-                       (["parallel.expert_parallel=2"], "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
+    for over in (["parallel.n_devices=2"], ["parallel.expert_parallel=2"]):
+        with pytest.raises(RuntimeError, match="torchrun .*no process group is initialized"):
             train(load_config(run_overrides(tmp_path) + over), device="cpu")
     if not torch.cuda.is_available():  # CUDA by default: no card is an error, not the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -22,6 +22,17 @@ B, E = 16, 3
 RTOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs six workers
+    beside gloo worlds and the rehearsal's subprocesses, and a worker on
+    every core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed):
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731

@@ -24,7 +24,8 @@ rule (per-shower log1p sums within rtol 0.1, ``tests/test_proton_fast.py:
 269``); grouped and stream dispatch equal the meshless port's; the batch
 raises JAX's ``ValueError``; the sharded state serves what the whole one
 serves, bit for bit. Then ``python -m zdcsim_torch.parallel.dryrun --world 4
---cpu`` prints its OK line.
+--cpu`` prints its OK line, its dense and switch train steps on the mesh
+held against the meshless ones.
 """
 
 import os
@@ -344,3 +345,6 @@ def test_dryrun_world_of_4_on_the_cpu(launched):
     out = launched["dryrun"][0].wait()
     line = [x for x in out.splitlines() if x.startswith("dryrun_multigpu OK")]
     assert len(line) == 1 and "mesh=(data=2, expert=2)" in line[0] and "served=64" in line[0]
+    # its dense and switch train steps on the mesh, each held against the meshless one
+    assert "trained=[dense gen_loss" in line[0] and ", switch gen_loss" in line[0]
+    assert "on batch 16, each step held against the meshless one" in line[0]

@@ -16,6 +16,17 @@ from zdcsim_torch.models.proton_fast import fast_generator_apply
 B = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs six workers
+    beside gloo worlds and the rehearsal's subprocesses, and a worker on
+    every core oversubscribes the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     rng = np.random.default_rng(1)

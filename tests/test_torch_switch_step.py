@@ -133,16 +133,16 @@ def switch_draws(mods, state, batch, key):
     idx = np.array(jnp.argmax(logits + gumbel, axis=-1))
     rows, e_k, used, real = _chunk_table(torch.from_numpy(idx), e, TILE, True)
     keep = None
+    img = jax.random.uniform(jax.random.PRNGKey(5), (TILE, *mods.image_shape, 1))
+    capture = jax.jit(lambda p, rng: mods.aux_reg_single.apply(  # one compile for every chunk
+        {"params": p}, img, True, rngs={"dropout": rng},
+        capture_intermediates=lambda m, _: isinstance(m, nn.Dropout),
+        mutable=["intermediates"])[1])
     for k in np.flatnonzero(used.numpy()):
         ek, r, lanes = int(e_k[k]), rows[k].numpy(), real[k].numpy()
         params = jax.tree_util.tree_map(lambda v: v[ek], state.aux.params)
-        img = jax.random.uniform(jax.random.PRNGKey(5), (TILE, *mods.image_shape, 1))
         rng = jax.random.fold_in(jax.random.fold_in(k_aux, ek), int(r[0]))
-        _, inter = mods.aux_reg_single.apply(
-            {"params": params}, img, True, rngs={"dropout": rng},
-            capture_intermediates=lambda m, _: isinstance(m, nn.Dropout),
-            mutable=["intermediates"])
-        caught = inter.get("intermediates", {})
+        caught = capture(params, rng).get("intermediates", {})
         masks = [np.asarray(caught[f"Dropout_{i}"]["__call__"][0]) != 0
                  for i in range(len(caught))]
         if keep is None:

@@ -5,7 +5,12 @@ the serving engine, ``--simulate OUT.npz`` serves the test split to a file,
 ``--checkpoint-epoch`` of ``train.checkpoint_experiment_dir`` where given.
 
 It runs on CUDA unless ``--cpu`` is given, and raises where no card is
-visible. ``--config`` names a YAML file merged over the defaults
+visible. Training on a ``(data, expert)`` mesh runs one process a card
+under ``torchrun``, which the CLI joins to its world (``env://``; gloo with
+``--cpu``)::
+
+    torchrun --nproc-per-node 4 cli_torch.py --override parallel.n_devices=4 \
+        parallel.expert_parallel=2 ... ``--config`` names a YAML file merged over the defaults
 (``zdcsim_torch.config.read_yaml``: the subset of YAML the configs use, no
 PyYAML), e.g. the neutron preset ``zdcsim/config/neutron.yaml``; then
 ``--override`` applies.
@@ -16,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 from typing import List, Optional
 
@@ -60,10 +66,11 @@ def _inject_checkpoint_epoch(overrides: List[str], checkpoint_epoch: Optional[in
 
 def _state(cfg, modules, device, checkpoint_epoch: Optional[int]):
     """A fresh state from ``train.seed``, or the checkpoint of
-    ``checkpoint_epoch`` restored into it."""
+    ``checkpoint_epoch`` restored into a template of the state."""
     from zdcsim_torch.train.state import init_state
 
-    state = init_state(modules, cfg, int(cfg.train.seed), device)
+    state = init_state(modules, cfg, None if checkpoint_epoch is not None else
+                       int(cfg.train.seed), device)
     if checkpoint_epoch is not None:
         from zdcsim_torch.train.checkpoint import restore_checkpoint
 
@@ -153,11 +160,22 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from zdcsim_torch.train.loop import train
 
+    world = "RANK" in os.environ and "WORLD_SIZE" in os.environ  # started by torchrun
+    if world:
+        from zdcsim_torch.parallel.mesh import init_world
+
+        init_world(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), "env://",
+                   "cpu" if args.cpu else None)
     try:
         history = train(cfg, device=device)
     except Exception:
         log.exception("Training failed")
         return 1
+    finally:
+        if world:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     if history:
         last = history[-1]
         log.info("Final epoch metrics: %s",

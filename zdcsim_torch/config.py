@@ -149,9 +149,11 @@ class EvalConfig:
 
 @dataclass
 class ParallelConfig:
-    data_axis: str = "data"  # the mesh's data axis (training on a mesh: Queue 1 item 8b)
-    n_devices: Optional[int] = None  # None: one card (training on a mesh: Queue 1 item 8b)
-    expert_parallel: int = 1
+    data_axis: str = "data"  # the mesh's data axis
+    # None: the initialized torch.distributed world's size, else one card; > 1
+    # trains on a (data, expert) mesh of that many ranks, started by torchrun
+    n_devices: Optional[int] = None
+    expert_parallel: int = 1  # ranks along the mesh's expert axis; divides n_experts
 
 
 @dataclass

@@ -4,6 +4,11 @@ Every array of the split goes to the device once; a batch is an on-device
 ``index_select``. Each epoch's order comes from numpy
 ``default_rng((seed, epoch))``, index for index the JAX loader's, and the
 remainder batch is dropped.
+
+With a ``mesh`` (the train loader of a run on a ``(data, expert)`` mesh,
+JAX's ``sharding=batch_sharding(mesh)``, ``zdcsim/data/loader.py:45-80``)
+every rank holds the whole split, takes the same epoch order and yields
+its data rank's rows of each global batch (``batch_sharding``'s block).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ class DeviceLoader:
 
     def __init__(self, arrays: Dict[str, np.ndarray], batch_size: int, shuffle: bool = True,
                  seed: int = 0, stratify_labels: Optional[np.ndarray] = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         from zdcsim_torch.device import default_device
 
         lengths = {k: len(v) for k, v in arrays.items()}
@@ -37,7 +42,16 @@ class DeviceLoader:
         self.shuffle, self.seed = shuffle, seed
         self.stratify_labels = None if stratify_labels is None else np.asarray(stratify_labels)
         self.n_batches = self.n // self.batch_size
-        self.device = default_device(device)
+        self.device = default_device(device) if mesh is None else mesh.device
+        # the rows of a global batch this rank yields: [lo, hi)
+        self.rows = (0, self.batch_size)
+        if mesh is not None:
+            n_data, d = mesh.shape["data"], mesh.coords[0]
+            if self.batch_size % n_data:
+                raise ValueError(f"batch_size {batch_size} must be divisible by the 'data' mesh "
+                                 f"axis size {n_data}")
+            per = self.batch_size // n_data
+            self.rows = (d * per, (d + 1) * per)
         self.arrays = {k: torch.as_tensor(np.asarray(v)).to(self.device)
                        for k, v in arrays.items()}
 
@@ -53,8 +67,9 @@ class DeviceLoader:
     def epoch(self, epoch_idx: int = 0) -> Iterator[Batch]:
         """The batches of one epoch."""
         order = torch.as_tensor(self.order(epoch_idx)).to(self.device)
+        lo, hi = self.rows
         for b in range(self.n_batches):
-            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            idx = order[b * self.batch_size + lo:b * self.batch_size + hi]
             yield {k: v.index_select(0, idx) for k, v in self.arrays.items()}
 
     def __len__(self) -> int:
@@ -93,16 +108,18 @@ def split_to_arrays(split, train: bool) -> Dict[str, np.ndarray]:
 
 
 
-def make_loaders(cfg, split, device: str | torch.device | None = None
+def make_loaders(cfg, split, device: str | torch.device | None = None, mesh=None
                  ) -> Tuple[DeviceLoader, DeviceLoader]:
     """The train and test loaders of a ``SplitArrays`` (``make_loaders``,
     ``zdcsim/data/loader.py:131``): the train side shuffled from
     ``train.seed``, ordered by the expert labels when
-    ``train.stratified_batches``; the test side in storage order."""
+    ``train.stratified_batches``, each batch cut to the rank's rows on a
+    ``mesh``; the test side whole, in storage order (the evaluator reads its
+    arrays)."""
     bs, seed = int(cfg.train.batch_size), int(cfg.train.seed)
     stratify = split.expert_number_train if bool(cfg.train.stratified_batches) else None
     train = DeviceLoader(split_to_arrays(split, True), bs, shuffle=True, seed=seed,
-                         stratify_labels=stratify, device=device)
+                         stratify_labels=stratify, device=device, mesh=mesh)
     test = DeviceLoader(split_to_arrays(split, False), min(bs, split.x_test.shape[0]),
-                        shuffle=False, seed=seed, device=device)
+                        shuffle=False, seed=seed, device=device if mesh is None else mesh.device)
     return train, test

@@ -818,7 +818,7 @@ class FastSim:
             kwargs["device"] = kwargs["mesh"].device
         modules = build_moe(cfg)
         state = restore_checkpoint(dir_models, epoch,
-                                   init_state(modules, cfg, 0, kwargs.get("device")))
+                                   init_state(modules, cfg, None, kwargs.get("device")))
         return cls.from_state(modules, state, cfg=cfg, **kwargs)
 
     # -- helpers -----------------------------------------------------------------

@@ -134,12 +134,14 @@ class MoEModules:
 
     def regress_all(self, params: Tree, stats: Tree, img: torch.Tensor,
                     keep: Optional[Sequence[torch.Tensor]] = None,
-                    masks: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Tree]:
+                    masks: Optional[torch.Tensor] = None,
+                    sum_rows=None) -> Tuple[torch.Tensor, Tree]:
         """:meth:`regress` in training form with the stacked ``stats`` and
         each expert's BatchNorm routing mask ``masks[e]`` (``None``: the
-        statistics of the whole batch): ``([E, B, 2], new stats stacked)``."""
+        statistics of the whole batch; ``sum_rows``: a mesh's, as
+        :meth:`generate_train`): ``([E, B, 2], new stats stacked)``."""
         outs = [self.regress_train(p, s, x, None if keep is None else tuple(k[e] for k in keep),
-                                   None if masks is None else masks[e])
+                                   None if masks is None else masks[e], sum_rows)
                 for e, (p, s, x) in enumerate(zip(expert_slices(params, self.n_experts),
                                                   expert_slices(stats, self.n_experts),
                                                   img.unbind(0)))]
@@ -158,15 +160,18 @@ class MoEModules:
 
     def generate_train(self, params: Tree, stats: Optional[Tree], noise: torch.Tensor,
                        cond: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None,
-                       mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Tree]:
+                       mask: Optional[torch.Tensor] = None,
+                       sum_rows=None) -> Tuple[torch.Tensor, Tree]:
         """``([T, H, W, 1], new stats)`` in training form, with the rows'
         keep masks (``None``: no dropout) and the BatchNorm routing ``mask``
-        ``[T]``; a generator without a training form runs its forward and
-        returns no stats."""
+        ``[T]``; ``sum_rows`` sums the BatchNorm's partial sums over the
+        batch's rows (the train step on a mesh: over the data axis; ``None``:
+        these rows are the batch). A generator without a training form runs
+        its forward and returns no stats."""
         if not getattr(self.generator, "train_form", False):
             return self.generate_one(params, noise, cond), {}
         return functional_call(self.generator, {**params, **bn_buffers(stats)},
-                               (noise, cond, True, keep, mask))
+                               (noise, cond, True, keep, mask, sum_rows))
 
     def discriminate_one(self, params: Tree, stats: Tree, img: torch.Tensor, cond: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -183,13 +188,14 @@ class MoEModules:
 
     def regress_train(self, params: Tree, stats: Optional[Tree], img: torch.Tensor,
                       keep: Optional[Sequence[torch.Tensor]] = None,
-                      mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Tree]:
+                      mask: Optional[torch.Tensor] = None,
+                      sum_rows=None) -> Tuple[torch.Tensor, Tree]:
         """``([T, 2], new stats)`` in training form (the proton ``AuxReg``:
         its forward with ``keep``, no stats)."""
         if not getattr(self.aux_reg, "train_form", False):
             return functional_call(self.aux_reg, params, (img, keep)), {}
         return functional_call(self.aux_reg, {**params, **bn_buffers(stats)},
-                               (img, keep, True, mask))
+                               (img, keep, True, mask, sum_rows))
 
     def route(self, params: Tree, cond: torch.Tensor) -> torch.Tensor:
         """The router's logits ``[B, E]``."""

@@ -9,8 +9,7 @@ PyTorch's 1e-5; ``MaskedBatchNorm`` keeps its own 1e-5.
 
 from __future__ import annotations
 
-import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +19,10 @@ import torch.nn.functional as F
 NORM_EPS = 1e-6
 BN_EPS = 1e-5  # MaskedBatchNorm.epsilon (zdcsim/models/layers.py:138)
 SN_EPS = 1e-12  # flax.linen.SpectralNorm's epsilon
+
+# a rank's partial sums over the batch's rows -> the global batch's (the train
+# step on a mesh passes the data axis's psum; None: the rank holds the batch)
+RowSum = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
@@ -138,7 +141,10 @@ class MaskedBatchNorm(nn.Module):
     Train: the statistics of the batch, in float32 and in two passes, each
     sample weighted by ``mask`` (``[B]``, the expert's routing mask; ``None``:
     every sample): ``mean = sum(m x) / cnt``, ``var = sum(m (x - mean)^2) /
-    cnt``, ``cnt = max(sum(m) * spatial, 1)``. The rows outside the mask
+    cnt``, ``cnt = max(sum(m) * spatial, 1)``
+    (``parallel.collectives.masked_moments``; on a mesh ``sum_rows`` makes
+    the sums the global batch's, as JAX's GSPMD statistics are). The rows
+    outside the mask
     come out exactly zero (left normalised by another sub-batch's
     statistics, they grow through stacked layers until ``inf * 0`` poisons
     the masked losses). Returns ``(y, new running mean, new running
@@ -157,27 +163,21 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool = False, mask: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, train: bool = False, mask: Optional[torch.Tensor] = None,
+                sum_rows: RowSum = None):
         wide = torch.promote_types(x.dtype, torch.float32)
         up = lambda t: t.to(wide)  # noqa: E731
         if not train:
             y = F.batch_norm(up(x), up(self.running_mean), up(self.running_var),
                              up(self.weight), up(self.bias), training=False, eps=BN_EPS)
             return y.to(x.dtype)
+        from zdcsim_torch.parallel.collectives import masked_moments
+
         xf = up(x)
         axes = (0,) + tuple(range(2, x.ndim))
         feat = (1, -1) + (1,) * (x.ndim - 2)  # a per-feature vector against x
-        spatial = float(math.prod(x.shape[2:]))
-        if mask is None:
-            m, s1, w_sum = None, xf.sum(axes), float(x.shape[0])
-        else:
-            m = up(mask).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
-            s1, w_sum = (xf * m).sum(axes), m.sum()
-        cnt = torch.clamp(torch.as_tensor(w_sum * spatial, dtype=wide, device=x.device), min=1.0)
-        mean = s1 / cnt
-        centered = xf - mean.reshape(feat)
-        sq = centered * centered
-        var = (sq if m is None else sq * m).sum(axes) / cnt
+        m = None if mask is None else up(mask).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+        mean, var, centered = masked_moments(xf, m, axes, sum_rows)
         y = centered * torch.rsqrt(var + BN_EPS).reshape(feat)
         y = y * up(self.weight).reshape(feat) + up(self.bias).reshape(feat)
         if m is not None:

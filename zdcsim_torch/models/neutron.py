@@ -26,8 +26,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from zdcsim_torch.models.layers import (
-    NORM_EPS, GroupNorm2d, MaskedBatchNorm, MLPBlock, dropout, gather_nearest, leaky_relu,
-    max_pool, nearest_index_on,
+    NORM_EPS, GroupNorm2d, MaskedBatchNorm, MLPBlock, RowSum, dropout, gather_nearest,
+    leaky_relu, max_pool, nearest_index_on,
 )
 from zdcsim_torch.models.proton import Discriminator, generator_width
 
@@ -70,7 +70,7 @@ class _Normed(nn.Module):
     norm_names: list
 
     def _norm(self, i: int, x: torch.Tensor, train: bool, mask: Optional[torch.Tensor],
-              new: Stats) -> torch.Tensor:
+              new: Stats, sum_rows: RowSum = None) -> torch.Tensor:
         if not self.norm_names:
             return x
         name = self.norm_names[i]
@@ -79,7 +79,7 @@ class _Normed(nn.Module):
             return layer(x)
         if not train:
             return layer(x, False)
-        x, new[f"{name}|mean"], new[f"{name}|var"] = layer(x, True, mask)
+        x, new[f"{name}|mean"], new[f"{name}|var"] = layer(x, True, mask, sum_rows)
         return x
 
 
@@ -96,10 +96,11 @@ class GeneratorNeutron(_Normed):
     convs (the neutron teacher's layout); ``"none"``: no norms (the distilled
     students, whose tree is the folded serving layout).
 
-    ``forward(noise, cond, train=False, keep=None, mask=None)``: eval returns
-    the showers; ``train`` returns ``(showers, new statistics)`` (empty but
-    under ``"batch"``), with the five keep masks ``keep`` (``None``: no
-    dropout) and the routing ``mask`` ``[B]`` of the batch statistics."""
+    ``forward(noise, cond, train=False, keep=None, mask=None, sum_rows=None)``:
+    eval returns the showers; ``train`` returns ``(showers, new statistics)``
+    (empty but under ``"batch"``), with the five keep masks ``keep``
+    (``None``: no dropout), the routing ``mask`` ``[B]`` of the batch
+    statistics and ``MaskedBatchNorm``'s ``sum_rows``."""
 
     train_form = True
     rate = DROPOUT_RATE
@@ -125,11 +126,11 @@ class GeneratorNeutron(_Normed):
 
     def forward(self, noise: torch.Tensor, cond: torch.Tensor, train: bool = False,
                 keep: Optional[Sequence[torch.Tensor]] = None,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None, sum_rows: RowSum = None):
         new: Stats = {}
 
         def block(i, x):
-            x = self._norm(i, x, train, mask, new)
+            x = self._norm(i, x, train, mask, new, sum_rows)
             if keep is not None:
                 x = dropout(x, _nchw(keep[i]), self.rate)
             return leaky_relu(x)
@@ -217,7 +218,7 @@ class AuxRegNeutron(_Normed):
     ``MaskedBatchNorm_0..4`` (``"batch"``), ``GroupNorm2d_0..4``
     (``"group"``) or none.
 
-    ``forward(img, keep=None, train=False, mask=None)``: ``keep`` holds the
+    ``forward(img, keep=None, train=False, mask=None, sum_rows=None)``: ``keep`` holds the
     four keep masks (shapes in :attr:`dropout_shapes`; ``None``: no
     dropout); eval returns ``[B, 2]``, ``train`` returns ``([B, 2], new
     statistics)``."""
@@ -239,17 +240,19 @@ class AuxRegNeutron(_Normed):
         self.Dense_0 = nn.Linear(64, output_dim)
 
     def forward(self, img: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None,
-                train: bool = False, mask: Optional[torch.Tensor] = None):
+                train: bool = False, mask: Optional[torch.Tensor] = None,
+                sum_rows: RowSum = None):
         new: Stats = {}
         if img.ndim == 3:
             img = img[..., None]
         x = img.permute(0, 3, 1, 2)
         for i, pool in enumerate(self._POOLS):
-            x = leaky_relu(self._norm(i, getattr(self, f"Conv_{i}")(x), train, mask, new))
+            x = leaky_relu(self._norm(i, getattr(self, f"Conv_{i}")(x), train, mask, new,
+                                      sum_rows))
             if keep is not None:
                 x = dropout(x, _nchw(keep[i]), self.rate)
             if pool is not None:
                 x = max_pool(x, pool)
-        x = leaky_relu(self._norm(4, self.Conv_4(x), train, mask, new))
+        x = leaky_relu(self._norm(4, self.Conv_4(x), train, mask, new, sum_rows))
         out = self.Dense_0(x.mean(dim=(2, 3)))
         return (out, new) if train else out

@@ -326,21 +326,40 @@ ln_leaky_rowquant.launches = ln_leaky_rowquant.cluster_launches = 0
 # Kernel B: all-phase int8 upsample2 + conv4, fused dequant + interleave
 # ---------------------------------------------------------------------------
 
+def exact_taps(xq: torch.Tensor, k: torch.Tensor, n_taps: int):
+    """The operands and the sum's dtype of exact int8 conv taps: ``(x, k,
+    acc dtype)`` for :func:`tap_sum`. On the CPU the int8 values as they are,
+    for ``torch._int_mm``'s int32 sums, where the ``n_taps`` taps' sum fits
+    (``n_taps * Cin * 128 * 128 < 2**31``; several times float64's speed
+    there); else, and on a card, float64 (every sum an integer below 2**53;
+    the plain versions' times on the card in PERF.md are float64's)."""
+    if xq.device.type == "cpu" and n_taps * xq.shape[-1] * 128 * 128 < 2 ** 31:
+        return xq, k.to(torch.int8), torch.int32
+    return xq.to(torch.float64), k.to(torch.float64), torch.float64
+
+
+def tap_sum(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``x [..., Cin] @ k [Cin, Cout]`` of :func:`exact_taps`' operands, exact."""
+    if x.dtype == torch.int8:
+        return torch._int_mm(x.reshape(-1, x.shape[-1]), k).reshape(*x.shape[:-1], k.shape[-1])
+    return x @ k
+
+
 def up2_conv4_int8_plain(xq, sx, kp, sk, bias, out_dtype=torch.bfloat16):
     """Plain PyTorch version of :func:`up2_conv4_int8`: the packed weights read
-    back through :func:`unpack_k_major`, each phase's taps as shifted float64
-    matmuls of the int8 values (exact: every partial sum is an integer below
-    2**53), then the kernel's f32 epilogue."""
+    back through :func:`unpack_k_major`, each phase's taps as shifted
+    matmuls of the int8 values, exact (:func:`exact_taps`), then the
+    kernel's f32 epilogue."""
     b, h, w, cin = xq.shape
     cout = kp.shape[0]
-    xp = F.pad(xq.to(torch.float64), (0, 0, 1, 1, 1, 1))  # zero halo of 1
-    k64 = unpack_k_major(kp, (25, cin, cout)).to(torch.float64)
+    x, k64, acc_dtype = exact_taps(xq, unpack_k_major(kp, (25, cin, cout)), 9)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))  # zero halo of 1
     sxb = sx.reshape(b, 1, 1, 1)
     phases, tap = [], 0
     for p, name in enumerate(_PHASES):
-        acc = torch.zeros((b, h, w, cout), dtype=torch.float64, device=xq.device)
+        acc = torch.zeros((b, h, w, cout), dtype=acc_dtype, device=xq.device)
         for dr, dc in _PHASE_OFFSETS[name]:
-            acc += xp[:, 1 + dr:1 + dr + h, 1 + dc:1 + dc + w, :] @ k64[tap]
+            acc += tap_sum(xp[:, 1 + dr:1 + dr + h, 1 + dc:1 + dc + w, :], k64[tap])
             tap += 1
         val = acc.to(torch.float32) * sk[p] * sxb + bias
         phases.append(val.to(out_dtype))
@@ -537,25 +556,26 @@ def row_resize_conv4_int8_plain(xq, sx, kp, sk, offsets, bias, n_resized_rows,
                                 out_dtype=torch.bfloat16):
     """Plain PyTorch version of :func:`row_resize_conv4_int8`: the packed
     weights read back through :func:`unpack_k_major`, each phase's taps as
-    shifted float64 matmuls of the int8 values (exact), then the kernel's f32
-    epilogue."""
+    shifted matmuls of the int8 values, exact (:func:`exact_taps`), then the
+    kernel's f32 epilogue."""
     b, h, w, cin = xq.shape
     q, p_num = _row_plan_periods(h, n_resized_rows, "row_resize_conv4_int8_plain")
     n_rows = n_resized_rows - 1
     max_l, cout = len(offsets[0]), kp.shape[0]
-    x64 = F.pad(xq.to(torch.float64), (0, 0, 1, 2))  # column taps j-1 .. j+2
-    k64 = unpack_k_major(kp, (q, max_l * 4, cin, cout)).to(torch.float64)
+    x, k64, acc_dtype = exact_taps(xq, unpack_k_major(kp, (q, max_l * 4, cin, cout)),
+                                   max_l * 4)
+    x64 = F.pad(x, (0, 0, 1, 2))  # column taps j-1 .. j+2
     sxb = sx.reshape(b, 1, 1, 1)
     out = torch.empty((b, n_rows, w, cout), dtype=out_dtype, device=xq.device)
     for p in range(q):
         n_phase = (n_rows - p + q - 1) // q
-        acc = torch.zeros((b, n_phase, w, cout), dtype=torch.float64, device=xq.device)
+        acc = torch.zeros((b, n_phase, w, cout), dtype=acc_dtype, device=xq.device)
         for l in range(max_l):
             src = p_num * torch.arange(n_phase, device=xq.device) + offsets[p][l]
             valid = (src >= 0) & (src < h)
             rows = x64.index_select(1, src.clamp(0, h - 1)) * valid.reshape(1, -1, 1, 1)
             for bc in range(4):
-                acc += rows[:, :, bc:bc + w] @ k64[p, l * 4 + bc]
+                acc += tap_sum(rows[:, :, bc:bc + w], k64[p, l * 4 + bc])
         val = acc.to(torch.float32) * sk[p] * sxb + bias
         out[:, p::q] = val.to(out_dtype)
     return out

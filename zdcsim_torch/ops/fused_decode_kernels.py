@@ -72,18 +72,18 @@ def _quant_cout(k: torch.Tensor):
 
 def _conv_pad1_exact(xq: torch.Tensor, kq: torch.Tensor, out_hw) -> torch.Tensor:
     """Int32 sums of an NHWC int8 x HWIO int8 conv with one zero row/column
-    before the grid, as float64 matmuls per tap (exact: every partial sum is
-    an integer below 2**53); ``out_hw`` output positions."""
+    before the grid, as one exact matmul per tap (``dk.exact_taps``), in
+    float64; ``out_hw`` output positions."""
     ho, wo = out_hw
     kh, kw = kq.shape[:2]
     b, h, w, _ = xq.shape
-    xp = F.pad(xq.to(torch.float64), (0, 0, 1, wo + kw - 2 - w, 1, ho + kh - 2 - h))
-    k64 = kq.to(torch.float64)
-    acc = torch.zeros((b, ho, wo, kq.shape[-1]), dtype=torch.float64, device=xq.device)
+    x, k64, acc_dtype = dk.exact_taps(xq, kq, kh * kw)
+    xp = F.pad(x, (0, 0, 1, wo + kw - 2 - w, 1, ho + kh - 2 - h))
+    acc = torch.zeros((b, ho, wo, kq.shape[-1]), dtype=acc_dtype, device=xq.device)
     for a in range(kh):
         for c in range(kw):
-            acc += xp[:, a:a + ho, c:c + wo] @ k64[a, c]
-    return acc
+            acc += dk.tap_sum(xp[:, a:a + ho, c:c + wo], k64[a, c])
+    return acc.to(torch.float64)
 
 
 def _require(cond: bool, name: str, what: str) -> None:

@@ -83,9 +83,21 @@ def intensity_regularization(fake_images: torch.Tensor, intensity_target: torch.
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """MAE between generated photon sums ``sum(expm1(img))`` and the targets.
     Returns ``(loss, sums [B], masked std of sums, masked mean of sums)``."""
-    b = fake_images.shape[0]
-    sums = torch.expm1(fake_images.reshape(b, -1)).sum(dim=1)
-    target = intensity_target.reshape(b)
+    return intensity_terms(photon_sums(fake_images), intensity_target, in_strength, mask)
+
+
+def photon_sums(fake_images: torch.Tensor) -> torch.Tensor:
+    """``sum(expm1(img))`` of each of the ``[B, ...]`` log-space images: ``[B]``."""
+    return torch.expm1(fake_images.reshape(fake_images.shape[0], -1)).sum(dim=1)
+
+
+def intensity_terms(sums: torch.Tensor, intensity_target: torch.Tensor, in_strength: float,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`intensity_regularization` of the photon ``sums [B]`` (the train
+    step on a mesh gathers each rank's sums, then reduces over the global
+    batch here)."""
+    target = intensity_target.reshape(sums.shape[0])
     loss = masked_mean((sums - target).abs(), mask) * in_strength
     return loss, sums, masked_std(sums, mask), masked_mean(sums, mask)
 

@@ -9,6 +9,11 @@ directory names). A flat dict of tensors loads with
 ``torch.load(weights_only=True)``. :func:`restore_checkpoint` puts it
 back into the structure of a template state, on the template's device,
 refusing a missing or extra leaf or another shape or dtype.
+
+A run on a ``(data, expert)`` mesh writes the same format: every rank
+gathers its expert-sharded state (``parallel.gather_state``) and rank 0
+writes it (``train.loop``), so one process restores and serves it; a
+resume onto a mesh restores the whole state on every rank, then shards it.
 """
 
 from __future__ import annotations
@@ -141,7 +146,9 @@ def restore_checkpoint(dir_models: str, epoch: int, template: MoETrainState) -> 
     """The checkpoint of ``epoch`` in ``template``'s structure, shapes and
     dtypes (``count`` and ``step`` int32), on its device."""
     path = checkpoint_file(dir_models, epoch)
-    flat = torch.load(path, map_location="cpu", weights_only=True)
+    # mapped, not read: a leaf's bytes are read where it is moved or first
+    # touched (private pages: writing to a restored CPU leaf never reaches the file)
+    flat = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     want = _flatten(template)
     if set(flat) != set(want):
         raise ValueError(f"checkpoint {path} does not fit the template: missing "

@@ -175,17 +175,19 @@ def _lecun_normal(shape, fan_in: int, generator: torch.Generator, device) -> tor
 
 
 def _init_params(module: torch.nn.Module, n_experts: Optional[int],
-                 generator: torch.Generator, device) -> Tree:
+                 generator: Optional[torch.Generator], device) -> Tree:
     """Flax's initialisers on ``module``'s parameter shapes, stacked on a
     leading ``[n_experts]`` axis (``None``: unstacked): kernels
     ``lecun_normal`` (fan-in: every axis but the output's), biases zeros,
     norm scales ones, the attention router's ``expert_queries``
-    ``normal(stddev=0.02)``."""
+    ``normal(stddev=0.02)``; zeros throughout for no ``generator``."""
     lead = () if n_experts is None else (n_experts,)
     out = {}
     for name, p in module.named_parameters():
         shape = lead + tuple(p.shape)
-        if name == "expert_queries":
+        if generator is None:
+            out[name] = torch.zeros(shape, device=device)
+        elif name == "expert_queries":
             out[name] = 0.02 * torch.randn(shape, generator=generator, device=device)
         elif name.endswith(".weight") and p.ndim >= 2:
             out[name] = _lecun_normal(shape, math.prod(p.shape[1:]), generator, device)
@@ -196,7 +198,7 @@ def _init_params(module: torch.nn.Module, n_experts: Optional[int],
     return out
 
 
-def _init_stats(module: torch.nn.Module, n_experts: int, generator: torch.Generator,
+def _init_stats(module: torch.nn.Module, n_experts: int, generator: Optional[torch.Generator],
                 device) -> Tree:
     """Flax's initial ``batch_stats``, stacked on a leading ``[E]`` axis: each
     spectral-norm layer's ``u ~ N(0, 1)`` of shape ``[E, 1, out]`` and
@@ -207,7 +209,8 @@ def _init_stats(module: torch.nn.Module, n_experts: int, generator: torch.Genera
         if isinstance(m, _SpectralNorm):
             ku, ks = m.stats_keys()
             n_out = getattr(m, m.inner).weight.shape[0]
-            out[ku] = torch.randn((n_experts, 1, n_out), generator=generator, device=device)
+            out[ku] = (torch.zeros((n_experts, 1, n_out), device=device) if generator is None
+                       else torch.randn((n_experts, 1, n_out), generator=generator, device=device))
             out[ks] = torch.ones((n_experts,), device=device)
         elif isinstance(m, MaskedBatchNorm):
             shape, key = (n_experts, m.weight.shape[0]), path.replace(".", "|")
@@ -216,15 +219,17 @@ def _init_stats(module: torch.nn.Module, n_experts: int, generator: torch.Genera
     return out
 
 
-def init_state(modules: MoEModules, cfg, seed: int = 0,
+def init_state(modules: MoEModules, cfg, seed: Optional[int] = 0,
                device: str | torch.device | None = None) -> MoETrainState:
     """All four components and their optimizers, on ``device`` (CUDA unless
     the caller asks for the CPU), from ``seed``. The draws are not JAX's:
-    the JAX state is carried across by ``zdcsim_torch.convert``."""
+    the JAX state is carried across by ``zdcsim_torch.convert``. ``seed=None``
+    draws nothing: every leaf zeros, of its shape, dtype and device (a
+    template for ``restore_checkpoint``)."""
     from zdcsim_torch.device import default_device
 
     dev = default_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = None if seed is None else torch.Generator(device=dev).manual_seed(int(seed))
     e = modules.n_experts
 
     def comp(params, stats):

@@ -78,6 +78,7 @@ lists the settings).
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -89,10 +90,12 @@ from zdcsim_torch.models.proton_fast import fast_generator_apply
 from zdcsim_torch.ops.losses import (
     adaptive_load_balancing_loss, alb_annealing_weight, differentiation_loss,
     expert_distribution_loss, expert_utilization_entropy, hinge_discriminator_loss,
-    hinge_generator_loss, intensity_regularization, log_cosh_loss, sdi_gan_regularization,
+    hinge_generator_loss, intensity_terms, log_cosh_loss, photon_sums, sdi_gan_regularization,
     tau_schedule,
 )
 from zdcsim_torch.ops.routing import expert_masks, gumbel_noise
+from zdcsim_torch.parallel.collectives import WORLD, all_gather, psum, psum_, shard_rows
+from zdcsim_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS
 from zdcsim_torch.train.state import (
     Component, MoETrainState, ema_update, gated_update, make_optimizers, masked_expert_update,
 )
@@ -236,7 +239,7 @@ def _keep_masks(draws, name: str, module, lead, switch: bool) -> Tuple[torch.Ten
     return keep
 
 
-def build_train_step(modules: MoEModules, cfg):
+def build_train_step(modules: MoEModules, cfg, mesh=None):
     """``train_step(state, batch, draws, epoch) -> (state, metrics)``.
 
     ``batch``: ``real [B, H, W, 1]``, ``cond [B, C]``, ``std [B, 1]``,
@@ -244,9 +247,48 @@ def build_train_step(modules: MoEModules, cfg):
     ``draws`` as :func:`draw_step_noise` returns them (its ``switch`` form
     where ``train_step.switch``); ``epoch`` an int. The state passed in is
     left as it was; the metrics carry the JAX step's names
-    (``zdcsim/train/step.py:401-421``), as detached tensors."""
+    (``zdcsim/train/step.py:401-421``), as detached tensors.
+
+    With ``mesh`` (``zdcsim_torch.parallel.make_mesh``; JAX's GSPMD step,
+    ``zdcsim/train/step.py:767-785``) every rank of the world calls the step
+    with its piece of the state (``shard_state``), its data rows of the
+    global batch (``batch_sharding``, as ``DeviceLoader(mesh=...)`` yields
+    them) and the *global* draws (every rank draws them from one seed, so
+    they do not depend on the layout), and gets its piece of the new state
+    and the global metrics, equal on every rank. One step on the mesh
+    computes what one meshless step computes on the global batch:
+
+    - routing runs on the gathered conditions, replicated;
+    - dense: a rank runs its experts on its rows; the per-(expert, row)
+      scores, latents, photon sums and aux predictions are all-gathered
+      over both axes (``collectives.all_gather``, whose backward keeps a
+      rank's slice), so every masked mean, count, standard deviation and
+      pairwise term is taken over the global batch, replicated on every
+      rank, by the meshless code; the expert-local gradients are summed
+      over the data axis; ``MaskedBatchNorm`` sums its statistics over the
+      data axis (two passes);
+    - switch (JAX's ``shard_map`` dispatch, ``step.py:460-512``): the rows
+      split over the whole grid, the expert-sharded parameters are
+      all-gathered over the expert axis at the dispatch boundary, each
+      rank dispatches its rows at tile ``gcd(rows, dispatch_tile)``, the
+      per-row outputs are all-gathered over the world, and the gradients
+      are summed over the world, each rank keeping its experts' slice;
+    - the router's update runs replicated on the global per-row values, so
+      its gradient needs no reduction; Adam's ``active`` comes from the
+      global counts; spectral norm's ``u`` is data-independent, so every
+      rank of an expert shard keeps the same one.
+
+    On a mesh of one rank every collective is the identity: the step is the
+    meshless step, op for op."""
     check_options(cfg)
     E = modules.n_experts
+    n_data = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    ep = 1 if mesh is None else mesh.shape[EXPERT_AXIS]
+    if E % ep:
+        raise ValueError(f"parallel.expert_parallel={ep} must divide model.n_experts={E}")
+    E_l = E // ep  # the experts this rank holds
+    e0 = 0 if mesh is None else mesh.coords[1] * E_l
+    n_world = n_data * ep
     mc, r, t = cfg.model, cfg.model.router, cfg.train
     di_strength = float(mc.generator.di_strength)
     in_strength = float(mc.generator.in_strength)
@@ -265,6 +307,44 @@ def build_train_step(modules: MoEModules, cfg):
     switch = str(t.dispatch) == "switch" and E > 1  # JAX's rule
     tile, switch_remat = int(t.dispatch_tile), bool(t.dispatch_remat)
 
+    # ------ the mesh: this rank's pieces and the gathers back ------
+    def mine(x):
+        """This rank's experts of an ``[E, ...]`` tensor."""
+        return x if ep == 1 else x[e0:e0 + E_l]
+
+    def local_eb(x):
+        """This rank's experts and data rows of an ``[E, B, ...]`` tensor."""
+        return shard_rows(mesh, DATA_AXIS, mine(x), 1)
+
+    def gather_eb(x):
+        """``[E_l, B_l, ...]`` of every rank -> ``[E, B, ...]``."""
+        return all_gather(mesh, DATA_AXIS, all_gather(mesh, EXPERT_AXIS, x, 0), 1)
+
+    def data_rows(batch, names):
+        """The global batch's ``names`` fields, gathered over the data axis."""
+        return (all_gather(mesh, DATA_AXIS, batch[k]) for k in names)
+
+    def global_batch_size(batch, draws):
+        """The global batch's size, that of the draws; each data rank holds
+        its share of it."""
+        b = int(draws["gumbel"].shape[0])
+        if b != batch["real"].shape[0] * n_data:
+            raise ValueError(
+                f"the step on a (data={n_data}, expert={ep}) mesh takes each data rank's "
+                f"{b // n_data} rows of the global batch of {b} that the draws were made for; "
+                f"got {batch['real'].shape[0]} rows")
+        return b
+
+    def summed(grads, axis):
+        """Each gradient summed over ``axis`` (in place), then this rank's
+        experts of it where it spans every expert."""
+        psum_(mesh, axis, list(grads.values()))
+        return grads if axis == DATA_AXIS else {k: mine(v) for k, v in grads.items()}
+
+    # MaskedBatchNorm's statistics over the global batch
+    sum_rows = (None if mesh is None or n_data == 1 or not modules.masked
+                else lambda x: psum(mesh, DATA_AXIS, x))
+
     # ------ the forwards, in the step's precision ------
     def c16(x):
         return x.to(torch.bfloat16) if bf16 else x
@@ -281,15 +361,16 @@ def build_train_step(modules: MoEModules, cfg):
         if fast_gen:
             out, new = fast_generator_apply(flax_view(p), c16(noise), c16(cond), train=True), {}
         else:
-            out, new = modules.generate_train(p, stats, c16(noise), c16(cond), keep, mask)
+            out, new = modules.generate_train(p, stats, c16(noise), c16(cond), keep, mask,
+                                              sum_rows)
         return out.to(noise.dtype), new
 
     def gen_forward(params, stats, noise, cond, keep, masks):
-        """Every expert: ``([E, B, H, W, 1], new stats stacked)``."""
+        """Every expert the state holds: ``([E, B, H, W, 1], new stats stacked)``."""
         outs = [gen_one(p, st, noise, cond, tuple(k[e] for k in keep),
                         None if masks is None else masks[e])
-                for e, (p, st) in enumerate(zip(expert_slices(cast(params), E),
-                                                expert_slices(stats, E)))]
+                for e, (p, st) in enumerate(zip(expert_slices(cast(params), E_l),
+                                                expert_slices(stats, E_l)))]
         fakes, new = zip(*outs)
         return torch.stack(fakes), stack_trees(new) if new[0] else {}
 
@@ -297,7 +378,7 @@ def build_train_step(modules: MoEModules, cfg):
         return modules.discriminate(cast(params, r16), stats, r16(img), r16(cond))
 
     def aux_forward(params, stats, img, keep, masks):
-        pred, new = modules.regress_all(cast(params), stats, c16(img), keep, masks)
+        pred, new = modules.regress_all(cast(params), stats, c16(img), keep, masks, sum_rows)
         return pred.to(img.dtype), new
 
     if bool(t.remat):
@@ -321,13 +402,15 @@ def build_train_step(modules: MoEModules, cfg):
 
     def advance_sn(disc, stats, real, cond):
         """The spectral-norm stats after one train forward of ``real[:1]``
-        through every expert (the switch step's power iteration)."""
+        through every expert the state holds (the switch step's power
+        iteration, which does not depend on the data)."""
         with torch.no_grad():
-            return disc_forward(disc.params, stats, real[None, :1].expand(E, 1, *real.shape[1:]),
-                                cond[:1])[2]
+            return disc_forward(disc.params, stats,
+                                real[None, :1].expand(E_l, 1, *real.shape[1:]), cond[:1])[2]
 
     def remask_stats(disc, new_stats, active):
-        e_shape = lambda v: active.reshape((E,) + (1,) * (v.ndim - 1))  # noqa: E731
+        n = active.shape[0]
+        e_shape = lambda v: active.reshape((n,) + (1,) * (v.ndim - 1))  # noqa: E731
         return Component(
             params=disc.params,
             stats={k: torch.where(e_shape(v), v, disc.stats[k]) for k, v in new_stats.items()},
@@ -399,59 +482,66 @@ def build_train_step(modules: MoEModules, cfg):
 
     def step(state: MoETrainState, batch: Tree, draws, epoch: int
              ) -> Tuple[MoETrainState, Tree]:
-        real, cond, std = batch["real"], batch["cond"], batch["std"]
-        intensity, positions = batch["intensity"], batch["positions"]
+        real, cond_l = batch["real"], batch["cond"]  # this rank's rows
+        cond, std, intensity, positions = data_rows(batch, ("cond", "std", "intensity",
+                                                            "positions"))
         noise_1, noise_2, gumbel = draws["noise_1"], draws["noise_2"], draws["gumbel"]
-        B = real.shape[0]
+        B = global_batch_size(batch, draws)
         aux_keep = _keep_masks(draws, "aux_keep", modules.aux_reg, (E, B), False)
         gen_keep_1, gen_keep_2 = (_keep_masks(draws, k, modules.generator, (E, B), False)
                                   for k in ("gen_keep_1", "gen_keep_2"))
+        aux_keep, gen_keep_1, gen_keep_2 = (tuple(local_eb(k) for k in keep)
+                                            for keep in (aux_keep, gen_keep_1, gen_keep_2))
+        z1, z2 = (shard_rows(mesh, DATA_AXIS, z) for z in (noise_1, noise_2))
         tau = tau_schedule(epoch, *taus).to(real.device)
         idx, masks, w, active, active_f = route(state, cond, gumbel, tau)
-        bn_masks = masks if modules.masked else None  # each expert's routed sub-batch
+        active_l = mine(active)
+        bn_masks = local_eb(masks) if modules.masked else None  # each expert's routed sub-batch
         with torch.no_grad():  # [E, B, H, W, 1]; its BatchNorm statistics are dropped
-            fake_1, _ = gen_forward(state.gen.params, state.gen.stats, noise_1, cond, gen_keep_1,
+            fake_1, _ = gen_forward(state.gen.params, state.gen.stats, z1, cond_l, gen_keep_1,
                                     bn_masks)
 
         # ------ discriminator update ------
         d_params = _leaves(state.disc.params)
         real_scores, _, st1 = disc_forward(d_params, state.disc.stats,
-                                           real.expand(E, *real.shape), cond)
-        fake_scores, _, st2 = disc_forward(d_params, st1, fake_1, cond)
-        disc_loss_e = per_expert(hinge_discriminator_loss, real_scores[..., 0],
-                                 fake_scores[..., 0], masks) * w * active_f
+                                           real.expand(E_l, *real.shape), cond_l)
+        fake_scores, _, st2 = disc_forward(d_params, st1, fake_1, cond_l)
+        disc_loss_e = per_expert(hinge_discriminator_loss, gather_eb(real_scores)[..., 0],
+                                 gather_eb(fake_scores)[..., 0], masks) * w * active_f
         disc_new = masked_expert_update(lrs["disc"], state.disc,
-                                        _grad(disc_loss_e.sum(), d_params), active,
-                                        new_stats=st2)
+                                        summed(_grad(disc_loss_e.sum(), d_params), DATA_AXIS),
+                                        active_l, new_stats=st2)
 
         # ------ generator + aux update against the updated discriminator ------
         g_params, a_params = _leaves(state.gen.params), _leaves(state.aux.params)
-        fake1, gst1 = gen_forward(g_params, state.gen.stats, noise_1, cond, gen_keep_1, bn_masks)
-        fake2, gst2 = gen_forward(g_params, gst1, noise_2, cond, gen_keep_2, bn_masks)
-        s1, l1, dst1 = disc_forward(disc_new.params, disc_new.stats, fake1, cond)
-        s2, l2, dst2 = disc_forward(disc_new.params, dst1, fake2, cond)
+        fake1, gst1 = gen_forward(g_params, state.gen.stats, z1, cond_l, gen_keep_1, bn_masks)
+        fake2, gst2 = gen_forward(g_params, gst1, z2, cond_l, gen_keep_2, bn_masks)
+        s1, l1, dst1 = disc_forward(disc_new.params, disc_new.stats, fake1, cond_l)
+        _, l2, dst2 = disc_forward(disc_new.params, dst1, fake2, cond_l)
+        s1, l1, l2 = gather_eb(s1), gather_eb(l1), gather_eb(l2)
         hinge_e = per_expert(hinge_generator_loss, s1[..., 0], masks)
         div_e = per_expert(
             lambda a, b, m: sdi_gan_regularization(a, b, noise_1, noise_2, std, di_strength,
                                                    m, sdi_quirk), l1, l2, masks)
-        ints = [intensity_regularization(fake1[e], intensity, in_strength, masks[e])
-                for e in range(E)]
-        int_loss_e, sums1, std_int_e, mean_int_e = (torch.stack(t) for t in zip(*ints))
+        sums1 = gather_eb(torch.stack([photon_sums(f) for f in fake1]))
+        ints = [intensity_terms(sums1[e], intensity, in_strength, masks[e]) for e in range(E)]
+        int_loss_e, _, std_int_e, mean_int_e = (torch.stack(t) for t in zip(*ints))
         aux_pred, ast = aux_forward(a_params, state.aux.stats, fake1, aux_keep,
                                     bn_masks)  # [E, B, 2]
         aux_loss_e = per_expert(lambda p, m: log_cosh_loss(positions, p, m),
-                                aux_pred, masks) * aux_strength
+                                gather_eb(aux_pred), masks) * aux_strength
         gen_total_e = (hinge_e + div_e + int_loss_e + aux_loss_e) * w * active_f
-        grads = _grad(gen_total_e.sum(), {**{("g", k): v for k, v in g_params.items()},
-                                           **{("a", k): v for k, v in a_params.items()}})
+        grads = summed(_grad(gen_total_e.sum(), {**{("g", k): v for k, v in g_params.items()},
+                                                 **{("a", k): v for k, v in a_params.items()}}),
+                       DATA_AXIS)
         gen_new = masked_expert_update(lrs["gen"], state.gen,
-                                       {k: grads[("g", k)] for k in g_params}, active,
+                                       {k: grads[("g", k)] for k in g_params}, active_l,
                                        new_stats=gst2)
         aux_new = masked_expert_update(lrs["aux"], state.aux,
-                                       {k: grads[("a", k)] for k in a_params}, active,
+                                       {k: grads[("a", k)] for k in a_params}, active_l,
                                        new_stats=ast)
         # the G step's discriminator forwards advance the power iteration too
-        disc_new = remask_stats(disc_new, dst2, active)
+        disc_new = remask_stats(disc_new, dst2, active_l)
 
         # ------ router update ------
         sums_routed = sums1.detach()[idx, torch.arange(B, device=idx.device)]
@@ -466,7 +556,9 @@ def build_train_step(modules: MoEModules, cfg):
 
     # ------ the switch form: each sample through its routed expert ------
     def dispatch(fns, idx, inputs):
-        return tiled_switch_apply(fns, idx, inputs, tile=tile, remat=switch_remat)
+        rows = int(idx.shape[0])
+        return tiled_switch_apply(fns, idx, inputs, remat=switch_remat,
+                                  tile=tile if mesh is None else math.gcd(rows, tile))
 
     def named(prefix, keep):
         return {f"{prefix}{i}": k for i, k in enumerate(keep)}
@@ -488,6 +580,28 @@ def build_train_step(modules: MoEModules, cfg):
                     p, c16(ch["img"]), of_chunk(ch, "ak", n_keep)).to(ch["img"].dtype)
                 for p in expert_slices(cast(params), E)]
 
+    def every_expert(tree):
+        """Every expert of an expert-sharded tree, all-gathered over the
+        expert axis outside autograd (the dispatch boundary)."""
+        if ep == 1:
+            return tree
+        return {k: all_gather(mesh, EXPERT_AXIS, v.detach()) for k, v in tree.items()}
+
+    def own_rows(x):
+        """This rank's rows of a global ``[B, ...]`` tensor: the rows split
+        over the whole grid, data-major (JAX's ``P((data, expert))``)."""
+        return shard_rows(mesh, WORLD, x)
+
+    def own_rows2(x):
+        """This rank's rows of each half of a ``[2B, ...]`` tensor."""
+        if mesh is None:
+            return x
+        b = x.shape[0] // 2
+        return torch.cat([own_rows(x[:b]), own_rows(x[b:])])
+
+    def gathered(x):
+        return all_gather(mesh, WORLD, x)
+
     def step_switch(state: MoETrainState, batch: Tree, draws, epoch: int
                     ) -> Tuple[MoETrainState, Tree]:
         if state.gen.stats or state.aux.stats:
@@ -495,66 +609,81 @@ def build_train_step(modules: MoEModules, cfg):
                 "train.dispatch=switch requires stats-free generator/aux "
                 "(proton, or neutron with model.norm=group); use dense for "
                 "per-sub-batch BatchNorm semantics")
-        real, cond, std = batch["real"], batch["cond"], batch["std"]
-        intensity, positions = batch["intensity"], batch["positions"]
+        B = global_batch_size(batch, draws)
+        if B % n_world:
+            raise ValueError(
+                f"the switch step on a (data={n_data}, expert={ep}) mesh splits the batch over "
+                f"all {n_world} ranks: train.batch_size={B} must be a multiple of {n_world}")
+        # this rank's rows: its block of its data rank's rows
+        real, cond_s = (shard_rows(mesh, EXPERT_AXIS, batch[k]) for k in ("real", "cond"))
+        cond, std, intensity, positions = data_rows(batch, ("cond", "std", "intensity",
+                                                            "positions"))
         noise_1, noise_2, gumbel = draws["noise_1"], draws["noise_2"], draws["gumbel"]
-        B = real.shape[0]
-        aux_keep = _keep_masks(draws, "aux_keep", modules.aux_reg, (B,), True)
-        gen_keep_1 = _keep_masks(draws, "gen_keep_1", modules.generator, (B,), True)
-        gen_keep_2 = _keep_masks(draws, "gen_keep_2", modules.generator, (2 * B,), True)
+        aux_keep = tuple(own_rows(k) for k in
+                         _keep_masks(draws, "aux_keep", modules.aux_reg, (B,), True))
+        gen_keep_1 = tuple(own_rows(k) for k in
+                           _keep_masks(draws, "gen_keep_1", modules.generator, (B,), True))
+        gen_keep_2 = tuple(own_rows2(k) for k in
+                           _keep_masks(draws, "gen_keep_2", modules.generator, (2 * B,), True))
         n_gk = len(gen_keep_1)
+        z1, z2 = own_rows(noise_1), own_rows(noise_2)
         tau = tau_schedule(epoch, *taus).to(real.device)
         idx, masks, w, active, active_f = route(state, cond, gumbel, tau)
-        idx2, cond2 = torch.cat([idx, idx]), torch.cat([cond, cond])
+        active_l, idx_s = mine(active), own_rows(idx)
+        b_s = idx_s.shape[0]
+        idx2, cond2 = torch.cat([idx_s, idx_s]), torch.cat([cond_s, cond_s])
+        d_stats = every_expert(state.disc.stats)
 
         # ------ discriminator update ------
         with torch.no_grad():
-            fake_1 = dispatch(gen_fns(state.gen.params, n_gk), idx,
-                              {"z": noise_1, "c": cond, **named("gk", gen_keep_1)})
-        d_params = _leaves(state.disc.params)
-        s, _ = dispatch(disc_fns(d_params, state.disc.stats), idx2,
+            fake_1 = dispatch(gen_fns(every_expert(state.gen.params), n_gk), idx_s,
+                              {"z": z1, "c": cond_s, **named("gk", gen_keep_1)})
+        d_params = _leaves(every_expert(state.disc.params))
+        s, _ = dispatch(disc_fns(d_params, d_stats), idx2,
                         {"img": torch.cat([real, fake_1]), "c": cond2})
-        real_sc, fake_sc = s[:B, 0], s[B:, 0]
+        real_sc, fake_sc = gathered(s[:b_s, 0]), gathered(s[b_s:, 0])
         disc_loss_e = per_mask(lambda m: hinge_discriminator_loss(real_sc, fake_sc, m),
                                masks) * w * active_f
         disc_new = masked_expert_update(lrs["disc"], state.disc,
-                                        _grad(disc_loss_e.sum(), d_params), active,
+                                        summed(_grad(disc_loss_e.sum(), d_params), WORLD),
+                                        active_l,
                                         new_stats=advance_sn(state.disc, state.disc.stats,
-                                                             real, cond))
+                                                             real, cond_s))
 
         # ------ generator + aux update against the updated discriminator ------
-        g_params, a_params = _leaves(state.gen.params), _leaves(state.aux.params)
+        g_params = _leaves(every_expert(state.gen.params))
+        a_params = _leaves(every_expert(state.aux.params))
         fakes = dispatch(gen_fns(g_params, n_gk), idx2,
-                         {"z": torch.cat([noise_1, noise_2]), "c": cond2,
-                          **named("gk", gen_keep_2)})
-        fake1 = fakes[:B]
-        s, latents = dispatch(disc_fns(disc_new.params, state.disc.stats), idx2,
+                         {"z": torch.cat([z1, z2]), "c": cond2, **named("gk", gen_keep_2)})
+        fake1 = fakes[:b_s]
+        s, latents = dispatch(disc_fns(every_expert(disc_new.params), d_stats), idx2,
                               {"img": fakes, "c": cond2})
-        s1, l1, l2 = s[:B, 0], latents[:B], latents[B:]
-        aux_pred = dispatch(aux_fns(a_params, len(aux_keep)), idx,
-                            {"img": fake1, **named("ak", aux_keep)})
+        s1, l1, l2 = gathered(s[:b_s, 0]), gathered(latents[:b_s]), gathered(latents[b_s:])
+        aux_pred = gathered(dispatch(aux_fns(a_params, len(aux_keep)), idx_s,
+                                     {"img": fake1, **named("ak", aux_keep)}))
         hinge_e = per_mask(lambda m: hinge_generator_loss(s1, m), masks)
         div_e = per_mask(lambda m: sdi_gan_regularization(
             l1, l2, noise_1, noise_2, std, di_strength, m, sdi_quirk), masks)
-        ints = [intensity_regularization(fake1, intensity, in_strength, masks[e])
-                for e in range(E)]
-        int_loss_e, sums_r, std_int_e, mean_int_e = (torch.stack(t) for t in zip(*ints))
+        sums = gathered(photon_sums(fake1))
+        ints = [intensity_terms(sums, intensity, in_strength, masks[e]) for e in range(E)]
+        int_loss_e, _, std_int_e, mean_int_e = (torch.stack(t) for t in zip(*ints))
         aux_loss_e = per_mask(lambda m: log_cosh_loss(positions, aux_pred, m),
                               masks) * aux_strength
         gen_total_e = (hinge_e + div_e + int_loss_e + aux_loss_e) * w * active_f
-        grads = _grad(gen_total_e.sum(), {**{("g", k): v for k, v in g_params.items()},
-                                           **{("a", k): v for k, v in a_params.items()}})
+        grads = summed(_grad(gen_total_e.sum(), {**{("g", k): v for k, v in g_params.items()},
+                                                 **{("a", k): v for k, v in a_params.items()}}),
+                       WORLD)
         gen_new = masked_expert_update(lrs["gen"], state.gen,
-                                       {k: grads[("g", k)] for k in g_params}, active)
+                                       {k: grads[("g", k)] for k in g_params}, active_l)
         aux_new = masked_expert_update(lrs["aux"], state.aux,
-                                       {k: grads[("a", k)] for k in a_params}, active)
-        disc_new = remask_stats(disc_new, advance_sn(disc_new, disc_new.stats, real, cond),
-                                active)
+                                       {k: grads[("a", k)] for k in a_params}, active_l)
+        disc_new = remask_stats(disc_new, advance_sn(disc_new, disc_new.stats, real, cond_s),
+                                active_l)
 
         # ------ router update (the constant GAN term) ------
         mean_int_det = mean_int_e.detach() * active_f
         router_out = router_step(state, cond, gumbel, tau, idx, epoch, None,
-                                 gen_total_e.detach(), sums_r[0].detach(), mean_int_det)
+                                 gen_total_e.detach(), sums.detach(), mean_int_det)
         return finish(state, gen_new, disc_new, aux_new, router_out, tau, active, w,
                       disc_loss_e, gen_total_e, div_e, int_loss_e, aux_loss_e, std_int_e,
                       mean_int_det)
