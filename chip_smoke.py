@@ -40,10 +40,17 @@ Phases, each printing lines with the elapsed seconds:
 7b. kernels G (fused decode front) and H (whole fused decode) against their
    plain versions at [64, 92160]: the Dense_1 output of the teacher's
    expert 1 (bf16, as the engine holds it) on seeded noise and conditions,
-   with that expert's weights; H also with ``apply_expm1``; then each of
+   with that expert's weights; H also with ``apply_expm1``; each run twice
+   and ``torch.equal``, every launch with each norm stage in clusters of its
+   plan's k with its plan's body (``cluster_launches``); then each of
    the three int8 convs that G and H launch (``fused_conv_int8``: Conv_0's
    parity phases, Conv_1, Conv_2) on that path's own activations, equal to
-   its plain version bit for bit;
+   its plain version bit for bit; then each of the four norm stages
+   (``fused_norm_stage``: 1 LN-quant, 3 GN_0-quant through the resize, 5
+   GN_1-quant, 7 GN_2 + Conv_3) on that path's own input against its plain
+   version at A's and C's bounds (s within rtol 1e-5, |q - q_plain| <= 1,
+   flips under 1%; stage 7 within H's int8 bound), run twice bit-identical,
+   both launches in clusters of the plan's k;
 8. serving the full-width proton teacher's generator
    (artifacts/gate/gate_serving_weights.npz): 16384 showers through
    ``FastSim(precision="int8")`` (the yardstick), then through each kernel
@@ -66,7 +73,11 @@ Phases, each printing lines with the elapsed seconds:
    and H, the ported chains that compute the same functions: kernels A -> B
    (f32 out) -> C -> the resize gather, and the ``int8_pallas`` decode after
    the MLP; each of G's and H's three convs beside its int8 bound and
-   ``torch._int_mm`` likewise;
+   ``torch._int_mm`` likewise; each norm stage of G and H alone, replayed in
+   a CUDA graph at 64 and 256 rows beside its byte floor and its plan's k,
+   GN_0 and GN_1 also at k = 2 (streamed), 4 and 8 (kept), the sweep that
+   chose their plans; G and H replayed in a CUDA graph at 64 and 256 rows,
+   beside the host loop's time;
 10. the fidelity gate's test split (25600 synthetic events, seed 7, numpy),
     and kernel E (expm1 + channel sums) against its plain version (rtol
     1e-5) on its 5120 real showers [5120, 56, 30] in f32 and in bf16 and on
@@ -308,7 +319,10 @@ gates of the run directory, A-D's and H's with phase 23's serves on
 the mesh, and E's, A-D's and H's with phase 24's loop on the mesh and its
 checkpoint's serves), A's and C's ``k_sweep`` and
 ``eager_ms`` (the host loop's time), B's and D's
-``int_mm_ms``, G's and H's ``conv_ms`` (their convs' times), and E's and
+``int_mm_ms``, G's and H's ``cluster_launches`` (the launches with every
+norm stage in clusters of its plan's k; the script fails unless they are
+all of G's and H's launches), ``eager_ms``, ``ms_256_rows``, ``conv_ms``
+(their convs' times) and ``stage_ms`` (their norm stages' times), and E's and
 F's ``body``, ``bulk_launches``, ``graph_ms``, ``old_body_ms`` and
 ``cases`` (every shape and dtype of phase 14; ``ms`` is ``graph_ms``); the
 last line is
@@ -853,15 +867,30 @@ def check_kernels_gh(gp, rng, dev, rows):
     noise, cond = (torch.as_tensor(rng.standard_normal((rows, n), dtype="float32"))
                    .to(dev, torch.bfloat16) for n in (10, 9))
     front, tail = fdk.front_weights(p), fdk.tail_weights(p)
+    g, h = fdk.fused_decode_front, fdk.fused_decode
+    n0 = (g.launches, g.cluster_launches, h.launches, h.cluster_launches)
     with torch.no_grad():
         x = mlp_apply(p, noise, cond)
-        q, s = fdk.fused_decode_front(x, *front)
+        q, s = g(x, *front)
+        q2, s2 = g(x, *front)
         qp, sp = fdk.fused_decode_front_plain(x, *front)
-        out = fdk.fused_decode(x, *front, *tail)
+        out = h(x, *front, *tail)
+        out2 = h(x, *front, *tail)
         ref = fdk.fused_decode_plain(x, *front, *tail)
-        counts = fdk.fused_decode(x, *front, *tail, apply_expm1=True)
+        counts = h(x, *front, *tail, apply_expm1=True)
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    rerun = torch.equal(q, q2) and torch.equal(s, s2) and torch.equal(out, out2)
+    n = [a - b for a, b in zip((g.launches, g.cluster_launches, h.launches, h.cluster_launches),
+                               n0)]
+    plans = dict(zip(fdk.H_STAGES, fdk.stage_plans(fdk.H_STAGES, x)))
+    log("7b kernels G, H", f"G and H run twice: torch.equal {rerun}; G {n[1]} of {n[0]} launches, "
+        f"H {n[3]} of {n[2]} with every norm stage in clusters of its plan's k (stage: k, "
+        f"share kept {', '.join(f'{st}: {pl.k}, {pl.kept}' for st, pl in plans.items())})")
+    if not rerun:
+        fail("G or H run twice differ")
+    if dev.type == "cuda" and n != [2, 2, 3, 3]:
+        fail(f"G or H ran a norm stage off its plan's clusters: launches, cluster launches {n}")
     s_rel = ((s - sp).abs() / sp).max().item()
     diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
     q_max, flips = diff.max().item(), (diff != 0).float().mean().item()
@@ -986,6 +1015,7 @@ def check_conv_stages(x, front, tail, dev):
         q2, s2 = dk.gn_leaky_rowquant_plain(y1, g1s, g1b, fdk.GROUPS)
         inputs = {0: (xq.reshape(rows, fdk.H0, fdk.W0, fdk.C0), sx.reshape(rows), kp0, sk0, b0),
                   1: (q, s, kp1, sk1, b1), 2: (q2, s2.reshape(rows), kp2, sk2, b2)}
+        outs = {}
         for conv, args in inputs.items():
             out = fdk.fused_conv_int8(conv, *args)
             ref = fdk.fused_conv_int8_plain(conv, *args)
@@ -997,7 +1027,67 @@ def check_conv_stages(x, front, tail, dev):
                 f"{list(out.shape)} f32: equal to its plain version {same} (max abs err {e:.3e})")
             if not same:
                 fail(f"the int8 conv {CONV_NAMES[conv]} of G/H differs from its plain version")
-    return inputs
+            outs[conv] = ref
+    return inputs, outs
+
+
+STAGE_NAMES = {1: "LN-quant", 3: "GN_0-quant through the resize", 5: "GN_1-quant",
+               7: "GN_2 + Conv_3"}
+
+
+def check_norm_stages(x, front, tail, conv_out, dev):
+    """Phase 7b, the norm stages: each of G's and H's four
+    (``fused_norm_stage``) on that path's own input (the Dense_1 output, the
+    outputs of Conv_0, Conv_1 and Conv_2 from :func:`check_conv_stages`)
+    against its plain version, at kernels A's and C's bounds (s within rtol
+    1e-5, |q - q_plain| <= 1, flips under 1%; stage 7 within H's int8
+    bound), launched twice bit-identical, both launches in clusters of the
+    plan's k with its body. Returns ``{stage: (x, scale, bias[, k3, b3])}``."""
+    import torch
+
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    fn = fdk.fused_norm_stage
+    ln_s, ln_b, _, _, _, g0s, g0b = front
+    g1s, g1b, g2s, g2b, k3, b3 = tail[3], tail[4], tail[8], tail[9], tail[10], tail[11]
+    stage_in = {1: (x, ln_s, ln_b), 3: (conv_out[0], g0s, g0b), 5: (conv_out[1], g1s, g1b),
+                7: (conv_out[2], g2s, g2b, k3, b3)}
+    for stage, args in stage_in.items():
+        n0, c0 = fn.launches, fn.cluster_launches
+        with torch.no_grad():
+            got, again = fn(stage, *args), fn(stage, *args)
+            ref = fdk.fused_norm_stage_plain(stage, *args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        n, nc = fn.launches - n0, fn.cluster_launches - c0
+        inp = args[0]
+        plan = fdk.stage_plan(stage, inp.shape[0], inp.element_size())
+        ran = (f"{nc} of {n} launches in clusters of the plan's k={plan.k} ({plan.threads} "
+               f"threads, {plan.smem} B shared, share {'kept' if plan.kept else 'streamed'})")
+        if stage == 7:
+            rerun = torch.equal(got, again)
+            err = (got - ref).abs().max().item()
+            lim = 0.05 * ref.abs().max().item() + 0.05  # the int8 bound of H's check
+            ok = got.shape == ref.shape and err < lim and bool(torch.isfinite(got).all())
+            what = f"-> {list(got.shape)} f32: max abs err {err:.4e} (H's int8 bound {lim:.4f})"
+        else:
+            (q, s), (q2, s2), (qp, sp) = got, again, ref
+            rerun = torch.equal(q, q2) and torch.equal(s, s2)
+            s_rel = ((s - sp).abs() / sp).max().item()
+            diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
+            q_max, flips = diff.max().item(), (diff != 0).float().mean().item()
+            ok = (q.shape == qp.shape and s.shape == sp.shape and s_rel <= 1e-5 and q_max <= 1
+                  and flips < 0.01)
+            what = (f"-> q {list(q.shape)}: max s rel err {s_rel:.3e} (rtol 1e-5), max |q - "
+                    f"q_plain| {q_max} (<= 1), flips {flips:.3e} (< 1%)")
+        log("7b norm stages", f"stage {stage} {STAGE_NAMES[stage]} {list(inp.shape)} "
+            f"{str(inp.dtype)[6:]} {what}; rerun bit-identical {rerun}; {ran}")
+        if not (ok and rerun):
+            fail(f"norm stage {stage} ({STAGE_NAMES[stage]}) disagrees with its plain version "
+                 "or with its rerun")
+        if dev.type == "cuda" and (n != 2 or nc != 2):
+            fail(f"norm stage {stage}: {nc} of {n} launches in clusters of the plan's k")
+    return stage_in
 
 
 def seeded_router(rng, n_experts=3, widths=(9, 128, 64, 32)):
@@ -1419,7 +1509,65 @@ def time_conv_stages(conv_in, card):
     return times
 
 
-def time_fused(p, x, front, tail, launches, errs, conv_ms, card):
+STAGE_ROWS = (TIME_ROWS, 256)  # phase 9's rows of the norm stages, G and H
+STAGE_SWEEP = {3: (2, 4, 8), 5: (2, 4, 8)}  # the f32 GroupNorms: k = 2 streams, 4 and 8 keep
+
+
+def stage_bytes(stage, x):
+    """The bytes norm stage ``stage`` must move on input ``x``: the input and
+    its norm's parameters read once, the output (and s) written once."""
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    rows = x.shape[0]
+    n_in = x.numel() * x.element_size()
+    if stage == 1:
+        return n_in + 2 * x.shape[1] * 4 + x.numel() + rows * 4
+    c = x.shape[-1]
+    if stage == 7:
+        return n_in + 2 * c * 4 + 4 * c * 4 + 4 + rows * fdk.HG * fdk.WG * 4
+    out_pixels = fdk.HG * fdk.WG if stage == 3 else x.shape[1] * x.shape[2]
+    return n_in + 2 * c * 4 + rows * out_pixels * c + rows * 4
+
+
+def time_norm_stages(stage_in, card):
+    """Phase 9, the norm stages of G and H: each stage alone
+    (``fused_norm_stage``, :func:`graph_ms`) at ``STAGE_ROWS`` rows (the
+    64-row inputs repeated) beside its byte floor at 3.35 TB/s and its plan's
+    k; the f32 GroupNorm stages also at each k of ``STAGE_SWEEP`` (k = 2
+    streams the share in every pass in one wave, k = 4 and 8 keep it in
+    shared memory over more than one wave), the sweep that chose the plan.
+    Returns ``{rows: {stage: {"ms", "floor_ms", "k", "kept"}}}``."""
+    import torch
+
+    from zdcsim_torch.ops import decode_kernels as dk
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    fn = fdk.fused_norm_stage
+    times = {}
+    for rows in STAGE_ROWS:
+        times[rows] = {}
+        for stage, (x, *params) in stage_in.items():
+            xr = x.repeat(-(-rows // x.shape[0]), *(1,) * (x.ndim - 1))[:rows].contiguous()
+            floor_ms = stage_bytes(stage, xr) / HBM_BYTES_PER_S * 1e3
+            plan = fdk.stage_plan(stage, rows, xr.element_size())
+            for k in sorted(set(STAGE_SWEEP.get(stage, ())) | {plan.k}):
+                p = fdk.stage_plan(stage, rows, xr.element_size(), k)
+                with torch.no_grad():
+                    ms = graph_ms(lambda: fn(stage, xr, *params, k=k), 20)
+                if k == plan.k:
+                    times[rows][stage] = {"ms": ms, "floor_ms": floor_ms, "k": k,
+                                          "kept": p.kept}
+                log("9 norm stages", f"stage {stage} {STAGE_NAMES[stage]} [{rows}, "
+                    f"{', '.join(map(str, xr.shape[1:]))}] {str(xr.dtype)[6:]} k={k}: {ms:.4f} ms, "
+                    f"byte floor {floor_ms:.4f} ms ({100 * floor_ms / ms:.1f}%), "
+                    f"{-(-rows // dk.ONE_WAVE_CLUSTERS[k])} waves of up to "
+                    f"{dk.ONE_WAVE_CLUSTERS[k]} clusters at one block an SM, share "
+                    f"{'kept' if p.kept else 'streamed'}, {p.smem} B shared"
+                    f"{'  <- plan' if k == plan.k else ''} [{card}]")
+    return times
+
+
+def time_fused(p, x, front, tail, launches, errs, conv_ms, card, stage_ms=None):
     """Phase 9, G and H: CUDA-event times at the serving tile beside their
     plain versions and the ported chains that compute the same functions
     (kernels A -> B (f32 out) -> C -> the resize gather; the ``int8_pallas``
@@ -1446,11 +1594,16 @@ def time_fused(p, x, front, tail, launches, errs, conv_ms, card):
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             return decode_apply(p, x, torch.bfloat16, int8=True, int8_backend="pallas", qweights=qw)
 
+    x256 = x.repeat(-(-256 // rows), 1)[:256].contiguous()
     with torch.no_grad():
-        g_ms = time_ms(lambda: fdk.fused_decode_front(x, *front), 20)
+        g_ms = graph_ms(lambda: fdk.fused_decode_front(x, *front), 20)
+        g_eager = time_ms(lambda: fdk.fused_decode_front(x, *front), 20)
+        g_256 = graph_ms(lambda: fdk.fused_decode_front(x256, *front), 10)
         g_plain = time_ms(lambda: fdk.fused_decode_front_plain(x, *front), 3)
         g_chain = time_ms(chain_g, 20)
-        h_ms = time_ms(lambda: fdk.fused_decode(x, *front, *tail), 20)
+        h_ms = graph_ms(lambda: fdk.fused_decode(x, *front, *tail), 20)
+        h_eager = time_ms(lambda: fdk.fused_decode(x, *front, *tail), 20)
+        h_256 = graph_ms(lambda: fdk.fused_decode(x256, *front, *tail), 10)
         h_plain = time_ms(lambda: fdk.fused_decode_plain(x, *front, *tail), 3)
         h_chain = time_ms(chain_h, 20)
 
@@ -1468,25 +1621,32 @@ def time_fused(p, x, front, tail, launches, errs, conv_ms, card):
     g_bytes = nbytes((x,) + front) + rows * 56 * 30 * 256 + rows * 4
     h_bytes = nbytes((x,) + front + tail) + rows * 56 * 30 * 4
     rec = []
-    for name, replaces, ms, plain, chain, n_bytes, i8, f32, n, err, what, convs in (
-        ("fused_decode_front", "zdcsim/ops/pallas_decode_fused.py:586", g_ms, g_plain, g_chain,
-         g_bytes, g_i8, g_f32, launches["int8_fused_front"]["fused_decode_front"], errs[0],
-         "A -> B(f32) -> C -> gather", ("conv0",)),
-        ("fused_decode", "zdcsim/ops/pallas_decode_fused.py:479", h_ms, h_plain, h_chain,
-         h_bytes, h_i8, h_f32, launches["int8_fused"]["fused_decode"], errs[1],
-         "the int8_pallas decode", ("conv0", "conv1", "conv2")),
+    stage_ms = stage_ms or {}
+    for name, path, replaces, ms, eager, ms_256, plain, chain, n_bytes, i8, f32, err, what, \
+            convs, stages in (
+        ("fused_decode_front", "int8_fused_front", "zdcsim/ops/pallas_decode_fused.py:586", g_ms,
+         g_eager, g_256, g_plain, g_chain, g_bytes, g_i8, g_f32, errs[0],
+         "A -> B(f32) -> C -> gather", ("conv0",), fdk.G_STAGES),
+        ("fused_decode", "int8_fused", "zdcsim/ops/pallas_decode_fused.py:479", h_ms, h_eager,
+         h_256, h_plain, h_chain, h_bytes, h_i8, h_f32, errs[1], "the int8_pallas decode",
+         ("conv0", "conv1", "conv2"), fdk.H_STAGES),
     ):
         bound_ms, bound_by = bound(n_bytes, i8, INT8_OPS_PER_S, f32)
+        n = launches[path][name]
+        split = {str(st): stage_ms.get(rows, {}).get(st, {}).get("ms") for st in stages}
         rec.append({"name": name, "route": "cuda", "source": "zdcsim_torch/csrc/fused_decode.cu",
-                    "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None, "chain_ms": chain,
-                    "conv_ms": {c: conv_ms[c] for c in convs}})
-        log("9 kernel times", f"{name} at {rows} rows: {ms:.4f} ms (its convs "
-            f"{sum(conv_ms[c] for c in convs):.4f} ms), plain {plain:.4f} ms, "
-            f"chain ({what}) {chain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{100 * bound_ms / ms:.1f}% of bound, {n} launches per {N_SHOWERS} showers on "
-            f"its path [{card}]")
+                    "replaces": replaces, "launches": n,
+                    "cluster_launches": launches[path].get(f"{name} on clusters", 0),
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None, "eager_ms": eager,
+                    "ms_256_rows": ms_256, "chain_ms": chain,
+                    "conv_ms": {c: conv_ms[c] for c in convs}, "stage_ms": split})
+        log("9 kernel times", f"{name} at {rows} rows: {ms:.4f} ms replayed in a CUDA graph "
+            f"({eager:.4f} ms through the wrapper's host loop; {ms_256:.4f} ms at 256 rows), its "
+            f"convs {sum(conv_ms[c] for c in convs):.4f} ms, its norm stages {split} ms, plain "
+            f"{plain:.4f} ms, chain ({what}) {chain:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound, {n} launches per {N_SHOWERS} "
+            f"showers on its path [{card}]")
     return rec
 
 
@@ -4113,8 +4273,9 @@ def mesh_serves(trees, router, mesh, dev, rehearse, card, seed):
                      f"their plan's clusters: {counts}")
         if not bool(torch.isfinite(out).all()) or tuple(out.shape) != (n, 56, 30):
             fail(f"{precision} on the mesh: showers not finite of shape ({n}, 56, 30)")
-        for k in names:
-            launches[k] = launches.get(k, 0) + counts[k]
+        for k, v in counts.items():  # the launches of the path's kernels, and where they ran
+            if k.split(" on ")[0] in names:
+                launches[k] = launches.get(k, 0) + v
         rec[precision] = {"switch_s": out_s, "switch_meshless_s": ref_s, "bulk_s": bulk["mesh_s"],
                           "bulk_meshless_s": bulk["meshless_s"],
                           "bulk_capture_s": bulk["mesh_capture_s"], "launches": counts,
@@ -4524,7 +4685,8 @@ def run_rehearsal(parts, gp, rp, rng, dev, card, seed) -> int:
         timed("6 D", check_kernel_d, gp, rng_cd, dev, 2, seed)
         timed("7 conv_i8", check_conv_i8, gp, rng_cd, dev, 1)
         gh_in = timed("7b G, H", check_kernels_gh, gp, rng_cd, dev, 1)
-        timed("7b G, H", check_conv_stages, *gh_in[1:4], dev)
+        _, conv_out = timed("7b G, H", check_conv_stages, *gh_in[1:4], dev)
+        timed("7b G, H", check_norm_stages, *gh_in[1:4], conv_out, dev)
         _, router = timed("8 serve", serve, gp, rp, rng, dev, *REHEARSE_SERVE, card, seed)
         cond, real, _, split = timed("10 E", gate_data, dev, True)
         timed("11 F", kernel_f_path, gp, router, dev, REHEARSE_F, card)
@@ -4639,14 +4801,18 @@ def main(argv=None) -> int:
     d_in = timed("6 D", check_kernel_d, gp, rng_cd, dev, D_ROWS, args.seed)
     timed("7 conv_i8", check_conv_i8, gp, rng_cd, dev, 2)
     gh_in = timed("7b G, H", check_kernels_gh, gp, rng_cd, dev, GH_ROWS)
-    conv_in = timed("7b G, H", check_conv_stages, *gh_in[1:4], dev)
+    conv_in, conv_out = timed("7b G, H", check_conv_stages, *gh_in[1:4], dev)
+    stage_in = timed("7b G, H", check_norm_stages, *gh_in[1:4], conv_out, dev)
+    del conv_out
     launches, router = timed("8 serve", serve, gp, rp, rng, dev, N_SHOWERS, SERVE_BATCH,
                              SERVE_TILE, card, args.seed, args.profile)
     rec = timed("9 kernel times", time_kernels, a_in[:3], b_in[:5], c_in[:3], d_in[:6],
                 launches["int8_pallas"], (a_in[3], b_in[5], c_in[3], d_in[6]), card)
     timed("9 kernel times", sweep_clusters, rec, a_in[:3], c_in[:3], card)
     conv_ms = timed("9 kernel times", time_conv_stages, conv_in, card)
-    rec += timed("9 kernel times", time_fused, *gh_in[:4], launches, gh_in[4:], conv_ms, card)
+    stage_ms = timed("9 kernel times", time_norm_stages, stage_in, card)
+    rec += timed("9 kernel times", time_fused, *gh_in[:4], launches, gh_in[4:], conv_ms, card,
+                 stage_ms)
     cond, real, e_err, split = timed("10 E", gate_data, dev, rehearse)
     f_launches, f_bulk, f_err = timed("11 F", kernel_f_path, gp, router, dev, F_SHOWERS, card)
     timed("12 float serves", float_serves, gp, router, dev, FLOAT_SHOWERS, SERVE_BATCH,
@@ -4677,6 +4843,12 @@ def main(argv=None) -> int:
     for r in rec:  # the run directory's gates, the mesh's serves and its loop: main paths too
         r["launches"] += sum(d.get(r["name"], 0) for d in (gate_launches, mesh_launches,
                                                            train_launches))
+        if "cluster_launches" in r:
+            r["cluster_launches"] += sum(d.get(f"{r['name']} on clusters", 0)
+                                         for d in (gate_launches, mesh_launches, train_launches))
+            if r["cluster_launches"] != r["launches"]:
+                fail(f"{r['name']} ran a norm stage off its plan's clusters: "
+                     f"{r['cluster_launches']} of {r['launches']} launches")
     e_rec["bulk_launches"] += sum(d.get("expm1_channel_sums on the bulk ring", 0)
                                   for d in (gate_launches, train_launches))
     e_rec["body"] = "bulk ring" if e_rec["bulk_launches"] == e_rec["launches"] else "direct"

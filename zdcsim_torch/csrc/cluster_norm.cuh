@@ -25,7 +25,7 @@ namespace cg = cooperative_groups;
 
 constexpr int kSmemPerBlock = 232448;              // 227 KB, the most one block may use
 constexpr int kMaxDynSmem = kSmemPerBlock - 1024;  // room for the kernels' static shared memory
-constexpr int kMaxDevices = 16;
+constexpr int kMaxNormDevices = 16;
 constexpr int kMaxCluster = 8;  // the largest portable cluster size
 
 inline bool portable_cluster(int k) { return k == 1 || k == 2 || k == 4 || k == 8; }
@@ -125,15 +125,15 @@ __device__ float cluster_reduce(float v, bool is_max, float* red, float* slot) {
 template <auto kKernel, typename... Args>
 int launch_cluster(int grid, int threads, int smem, int k, cudaStream_t st, int* max_clusters,
                    Args... args) {
-  static std::atomic<bool> smem_allowed[kMaxDevices];
+  static std::atomic<bool> smem_allowed[kMaxNormDevices];
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err) return err;
-  if (dev >= kMaxDevices || !smem_allowed[dev].load(std::memory_order_acquire)) {
+  if (dev >= kMaxNormDevices || !smem_allowed[dev].load(std::memory_order_acquire)) {
     err = (int)cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     kMaxDynSmem);
     if (err) return err;
-    if (dev < kMaxDevices) smem_allowed[dev].store(true, std::memory_order_release);
+    if (dev < kMaxNormDevices) smem_allowed[dev].store(true, std::memory_order_release);
   }
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;

@@ -43,28 +43,55 @@
 // whole sample's statistics before any int8 value exists. So each stage is a
 // launch, with the intermediates in two workspaces the wrapper allocates
 // (one int8, one f32, each reused by the later stages in stream order):
-//  - LN-quant: one block of 1024 threads per sample, four passes over the
-//    row (the first from device memory, the rest from L2);
+//  - the four norm stages (launches 1, 3, 5, 7) run kernels A's and C's
+//    bodies (norm_quant.cuh) on thread-block clusters: k blocks on
+//    neighbouring SMs share a sample, each keeps its share in shared memory
+//    where it fits (else streams it in each pass; Conv_3 takes a kept share
+//    only) and the cluster exchanges
+//    partial sums through distributed shared memory in a fixed order (no
+//    atomics: a rerun is bit-identical). The wrapper passes each stage's
+//    plan (k, threads, dynamic shared memory; fused_decode_kernels.stage_plan)
+//    and this file refuses a plan whose shared memory is not the layout the
+//    body takes at that k; each entry point reports the k and the body each
+//    stage ran. Launch 1 is A's body at [nb, 92160]; launch 5 is C's body at
+//    [nb, 55, 29, 128] f32; launch 3 is C's body whose quantise pass writes
+//    through the nearest 35x19 -> 56x30 resize (writer ResizeGrid: each
+//    source pixel of a block's share is quantised once and stored at the one
+//    or two output rows and columns that read it, so every output pixel is
+//    written once and the resize costs no pass and no arithmetic of its
+//    own); launch 7 is C's statistics followed by Conv_3 (writer Conv3Out:
+//    a warp normalises each input pixel once and forms its four tap sums
+//    over the 64 channels, written over the pixel's kept values; then a
+//    thread adds the tap sums of each output pixel anchored in the share.
+//    The up to W + 1 pixels before the share, in the previous rank's, are
+//    read from device memory, where they lie in L2 from that rank's copy: at
+//    most 30 pixels of ~800, against a second cluster exchange through
+//    distributed shared memory after the tap sums);
 //  - the convs: conv_mma.cuh's implicit GEMM on the int8 tensor cores
 //    (wgmma s8, exact int32 sums, f32 epilogue), one plan each: Conv_0's four
 //    parity phases written through the (2i + pr, 2j + pc) map, Conv_1 and
 //    Conv_2 as one pad-1 phase; the wrappers pack the weights once as
-//    [Cout, taps x Cin]. Kernels B and D run the same core;
-//  - the GroupNorms: one block of 512 threads per sample, per-channel then
-//    per-group sums in a fixed order (no atomics: a rerun is bit-identical);
-//    the quantise pass walks the OUTPUT grid, so the nearest resize costs
-//    nothing beyond reading a source pixel once per output pixel;
-//  - GroupNorm_2 + Conv_3: one block per sample; after the statistics, one
-//    warp per output pixel normalises its 4 x 64 inputs on the fly and sums
-//    them with a fixed shuffle tree.
-// Left for later: a cluster that keeps a sample on chip between the stages
-// (the conv core's own open items are in conv_mma.cuh).
+//    [Cout, taps x Cin]. Kernels B and D run the same core.
+// The f32 samples of GroupNorm_0 (665 KB) and GroupNorm_1 (798 KB) keep a
+// share in 227 KB only at k >= 4, whose 64 clusters at the serving tile take
+// three waves of the 30 the card holds at once. Timed on the card at 64 and
+// 256 rows, GroupNorm_1 runs fastest kept at k = 4, GroupNorm_0 streamed at
+// k = 2 in one wave (fused_decode_kernels.stage_plan; PERF.md, section 6).
+// Left for later: the f32 GroupNorm stages run at 35-40% of their byte
+// floor. A block loads its share, reduces it and quantises it in turn, with
+// no other block on its SM to overlap those phases, and a streamed share is
+// read twice. The conv epilogue that produces each GroupNorm's input could
+// write fixed-order per-tile partial sums and per-channel minima and maxima,
+// leaving the GroupNorm one streaming pass; or a sample could stay on chip
+// between a conv and its norm stage (the conv core's own open items are in
+// conv_mma.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "conv_mma.cuh"
+#include "norm_quant.cuh"
 
 namespace {
 
@@ -75,262 +102,6 @@ constexpr int HG = 56, WG = 30;            // resized and final grid
 constexpr int HV = HG - 1, WV = WG - 1;    // Conv_1 and Conv_2 output, 55 x 29
 constexpr int C2 = 128, C3 = 64;
 constexpr int kGroups = 32;
-
-// ---------------------------------------------------------------------------
-// 1. LayerNorm + LeakyReLU + per-sample int8
-// ---------------------------------------------------------------------------
-
-constexpr int kLnThreads = 1024;
-
-__device__ __forceinline__ float load_f32(const float* p, int i) { return p[i]; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int i) {
-  return __bfloat162float(p[i]);
-}
-
-// Sum (is_max = false) or max over the block; every thread gets the result.
-__device__ float block_reduce(float v, bool is_max, float* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    float u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? fmaxf(v, u) : v + u;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red[] may still be read by a previous reduction
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = (lane < (int)(blockDim.x >> 5)) ? red[lane] : 0.0f;  // 0 is neutral: max is over |z|
-    for (int o = 16; o > 0; o >>= 1) {
-      float u = __shfl_xor_sync(0xffffffffu, v, o);
-      v = is_max ? fmaxf(v, u) : v + u;
-    }
-    if (lane == 0) red[32] = v;
-  }
-  __syncthreads();
-  return red[32];
-}
-
-template <typename T>
-__device__ __forceinline__ float ln_transform(const T* row, const float* scale,
-                                              const float* bias, int i, float mu, float rstd) {
-  float z = __fmul_rn(__fsub_rn(load_f32(row, i), mu), rstd);
-  z = __fadd_rn(__fmul_rn(z, scale[i]), bias[i]);
-  return z >= 0.0f ? z : __fmul_rn(0.1f, z);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kLnThreads)
-    ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                    const float* __restrict__ bias, int8_t* __restrict__ q,
-                    float* __restrict__ s) {
-  constexpr int f = H0 * W0 * C0;
-  __shared__ float red[33];
-  const T* row = x + (size_t)blockIdx.x * f;
-  int8_t* qrow = q + (size_t)blockIdx.x * f;
-
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < f; i += blockDim.x) acc += load_f32(row, i);
-  const float mu = __fdiv_rn(block_reduce(acc, false, red), (float)f);
-
-  acc = 0.0f;
-  for (int i = threadIdx.x; i < f; i += blockDim.x) {
-    const float d = __fsub_rn(load_f32(row, i), mu);
-    acc = fmaf(d, d, acc);
-  }
-  const float var = __fdiv_rn(block_reduce(acc, false, red), (float)f);
-  const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, 1e-6f)));
-
-  float amax = 0.0f;
-  for (int i = threadIdx.x; i < f; i += blockDim.x)
-    amax = fmaxf(amax, fabsf(ln_transform(row, scale, bias, i, mu, rstd)));
-  amax = block_reduce(amax, true, red);
-  const float sc = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
-
-  for (int i = threadIdx.x; i < f; i += blockDim.x) {
-    float r = rintf(__fdiv_rn(ln_transform(row, scale, bias, i, mu, rstd), sc));
-    qrow[i] = (int8_t)fminf(fmaxf(r, -127.0f), 127.0f);
-  }
-  if (threadIdx.x == 0) s[blockIdx.x] = sc;
-}
-
-// ---------------------------------------------------------------------------
-// 3, 5, 7. GroupNorm statistics of one f32 sample, per block
-// ---------------------------------------------------------------------------
-
-constexpr int kGnThreads = 512;
-constexpr int kMaxC = 256;
-
-struct GnShared {
-  float red[kGnThreads * 8];
-  float cs1[kMaxC], cs2[kMaxC];
-  float gmu[kGroups], grs[kGroups];
-  float wmax[kGnThreads / 32];
-};
-
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ float gn_transform(float x, float mu, float rstd, float sc, float bi) {
-  float y = __fmul_rn(__fsub_rn(x, mu), rstd);
-  y = __fadd_rn(__fmul_rn(y, sc), bi);
-  return y >= 0.0f ? y : __fmul_rn(0.1f, y);
-}
-
-// Group mean and 1 / sqrt(var + 1e-6) of the sample xs [hw, c] (c a multiple
-// of 8 with c / 8 dividing 512, kGroups groups of consecutive channels) into
-// sh.gmu, sh.grs. Each thread owns 8 consecutive channels and a fixed stride
-// of pixels; the block sums per channel, then per group, in a fixed order.
-__device__ void gn_stats(const float* xs, int hw, int c, GnShared& sh) {
-  const int ncb = c >> 3, cb = threadIdx.x % ncb;
-  const int p0 = threadIdx.x / ncb, ps = kGnThreads / ncb;
-  float s1[8], s2[8], v[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) s1[i] = s2[i] = 0.0f;
-  for (int p = p0; p < hw; p += ps) {
-    load8(xs + (size_t)p * c + cb * 8, v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s1[i] += v[i];
-      s2[i] = fmaf(v[i], v[i], s2[i]);
-    }
-  }
-  for (int pass = 0; pass < 2; ++pass) {
-    float* dst = pass ? sh.cs2 : sh.cs1;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sh.red[p0 * c + cb * 8 + i] = pass ? s2[i] : s1[i];
-    __syncthreads();
-    for (int ch = threadIdx.x; ch < c; ch += kGnThreads) {
-      float acc = 0.0f;
-      for (int k = 0; k < ps; ++k) acc += sh.red[k * c + ch];
-      dst[ch] = acc;
-    }
-    __syncthreads();
-  }
-  const int cg = c / kGroups;
-  const float n = (float)hw * (float)cg;
-  if (threadIdx.x < kGroups) {
-    const int g = threadIdx.x;
-    float a1 = 0.0f, a2 = 0.0f;
-    for (int k = 0; k < cg; ++k) {
-      a1 += sh.cs1[g * cg + k];
-      a2 += sh.cs2[g * cg + k];
-    }
-    const float mu = __fdiv_rn(a1, n);
-    const float var = fmaxf(__fsub_rn(__fdiv_rn(a2, n), __fmul_rn(mu, mu)), 0.0f);
-    sh.gmu[g] = mu;
-    sh.grs[g] = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, 1e-6f)));
-  }
-  __syncthreads();
-}
-
-// GroupNorm -> leaky -> one per-sample int8 scale over the h x w source grid,
-// quantised values written through the nearest resize to oh x ow (source
-// pixel (floor((2r+1) h / 2oh), floor((2c+1) w / 2ow)); the identity when
-// oh = h and ow = w). x: [nb, h, w, c] f32; q: [nb, oh, ow, c]; s: [nb].
-__global__ void __launch_bounds__(kGnThreads)
-    gn_quant_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                    const float* __restrict__ bias, int8_t* __restrict__ q,
-                    float* __restrict__ s, int h, int w, int c, int oh, int ow) {
-  __shared__ GnShared sh;
-  const int hw = h * w;
-  const float* xs = x + (size_t)blockIdx.x * hw * c;
-  gn_stats(xs, hw, c, sh);
-
-  const int ncb = c >> 3, cb = threadIdx.x % ncb;
-  const int p0 = threadIdx.x / ncb, ps = kGnThreads / ncb;
-  const int cg = c / kGroups;
-  float mu_r[8], rs_r[8], sc_r[8], bi_r[8], v[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int ch = cb * 8 + i;
-    mu_r[i] = sh.gmu[ch / cg];
-    rs_r[i] = sh.grs[ch / cg];
-    sc_r[i] = scale[ch];
-    bi_r[i] = bias[ch];
-  }
-
-  // max |y| over the source grid (every source pixel appears in the resize)
-  float amax = 0.0f;
-  for (int p = p0; p < hw; p += ps) {
-    load8(xs + (size_t)p * c + cb * 8, v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      amax = fmaxf(amax, fabsf(gn_transform(v[i], mu_r[i], rs_r[i], sc_r[i], bi_r[i])));
-  }
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if ((threadIdx.x & 31) == 0) sh.wmax[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    amax = threadIdx.x < kGnThreads / 32 ? sh.wmax[threadIdx.x] : 0.0f;  // |y| >= 0
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    if (threadIdx.x == 0) sh.wmax[0] = amax;
-  }
-  __syncthreads();
-  const float sc = fmaxf(__fdiv_rn(sh.wmax[0], 127.0f), 1e-12f);
-
-  // quantise, walking the output grid: 8 int8 values (one 8-byte store) per load
-  int8_t* qs = q + (size_t)blockIdx.x * oh * ow * c + cb * 8;
-  for (int po = p0; po < oh * ow; po += ps) {
-    const int r = po / ow, col = po % ow;
-    const int src = ((2 * r + 1) * h / (2 * oh)) * w + (2 * col + 1) * w / (2 * ow);
-    load8(xs + (size_t)src * c + cb * 8, v);
-    uint32_t lo = 0, hi = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float rq = rintf(__fdiv_rn(gn_transform(v[i], mu_r[i], rs_r[i], sc_r[i], bi_r[i]), sc));
-      rq = fminf(fmaxf(rq, -127.0f), 127.0f);
-      const uint32_t byte = (uint32_t)(uint8_t)(int8_t)rq;
-      if (i < 4) lo |= byte << (8 * i); else hi |= byte << (8 * (i - 4));
-    }
-    *reinterpret_cast<uint2*>(qs + (size_t)po * c) = make_uint2(lo, hi);
-  }
-  if (threadIdx.x == 0) s[blockIdx.x] = sc;
-}
-
-// GroupNorm_2 -> leaky (f32), then Conv_3 (2x2 pad 1, 64 -> 1) + bias3 ->
-// ReLU [-> expm1]. y: [nb, 55, 29, 64] f32; k3: [2, 2, 64] f32; b3: [1];
-// out: [nb, 56, 30] f32. With 2 channels a group, lane l of a warp owns
-// channels 2l, 2l + 1, which form group l.
-__global__ void __launch_bounds__(kGnThreads)
-    gn_conv3_kernel(const float* __restrict__ y, const float* __restrict__ scale,
-                    const float* __restrict__ bias, const float* __restrict__ k3,
-                    const float* __restrict__ b3, float* __restrict__ out, int apply_expm1) {
-  __shared__ GnShared sh;
-  const float* ys = y + (size_t)blockIdx.x * HV * WV * C3;
-  gn_stats(ys, HV * WV, C3, sh);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ch = 2 * lane;
-  const float mu = sh.gmu[lane], rs = sh.grs[lane];
-  const float sc0 = scale[ch], sc1 = scale[ch + 1], bi0 = bias[ch], bi1 = bias[ch + 1];
-  float k0[4], k1[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    k0[t] = k3[t * C3 + ch];
-    k1[t] = k3[t * C3 + ch + 1];
-  }
-  const float bias3 = b3[0];
-  for (int po = warp; po < HG * WG; po += kGnThreads / 32) {
-    const int r = po / WG, col = po % WG;
-    float acc = 0.0f;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int si = r + (t >> 1) - 1, sj = col + (t & 1) - 1;
-      if (si < 0 || si >= HV || sj < 0 || sj >= WV) continue;  // zero padding
-      const float2 v = *reinterpret_cast<const float2*>(ys + (size_t)(si * WV + sj) * C3 + ch);
-      acc = fmaf(gn_transform(v.x, mu, rs, sc0, bi0), k0[t], acc);
-      acc = fmaf(gn_transform(v.y, mu, rs, sc1, bi1), k1[t], acc);
-    }
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) {
-      float v = fmaxf(__fadd_rn(acc, bias3), 0.0f);
-      out[(size_t)blockIdx.x * HG * WG + po] = apply_expm1 ? expm1f(v) : v;
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The launch sequences
@@ -345,6 +116,55 @@ ConvPlan pad1_plan(int k, int h, int w) {
   return plan;
 }
 
+// The four norm stages, by launch number: 1 LN-quant, 3 GN_0-quant through
+// the resize, 5 GN_1-quant, 7 GN_2 + Conv_3. A plan is {k, threads, dynamic
+// shared memory}; ran receives {cluster size launched, share kept} of each.
+constexpr int kPlanInts = 3, kRanInts = 2;
+
+// The dynamic shared memory that stage's body takes at cluster size k, or -1
+// for a stage or k it does not take.
+int stage_smem(int stage, int k, int threads) {
+  if (!portable_cluster(k)) return -1;
+  int share = 0, kept = 0;
+  switch (stage) {
+    case 1: return ln_layout(H0 * W0 * C0, k, &share, &kept);
+    case 3: return gn_layout(H1 * W1, C1, 4, k, threads, &share, &kept);
+    case 5: return gn_layout(HV * WV, C2, 4, k, threads, &share, &kept);
+    case 7: return gn_layout(HV * WV, C3, 4, k, threads, &share, &kept);
+    default: return -1;
+  }
+}
+
+// One norm stage on nb samples: x the stage's input (launch 1: [nb, 92160]
+// bf16 or f32; 3: [nb, 35, 19, 256] f32; 5: [nb, 55, 29, 128]; 7:
+// [nb, 55, 29, 64]), scale and bias its norm's parameters; out int8 q
+// (launch 3: [nb, 56, 30, 256]; 1 and 5 the input's shape) with s [nb], or
+// for launch 7 f32 [nb, 56, 30] from k3 [2, 2, 64] and b3 [1]. A plan whose
+// shared memory is not the body's layout at its k is refused with
+// cudaErrorInvalidValue, before anything launches.
+int run_stage(int stage, const void* x, int x_is_bf16, const float* scale, const float* bias,
+              void* out, float* s, const float* k3, const float* b3, int apply_expm1, int nb,
+              const int* plan, int* ran, cudaStream_t st) {
+  const int k = plan[0], threads = plan[1];
+  if (plan[2] != stage_smem(stage, k, threads) || (stage != 1 && x_is_bf16))
+    return (int)cudaErrorInvalidValue;
+  switch (stage) {
+    case 1:
+      return ln_leaky_rowquant_run(x, x_is_bf16, scale, bias, out, s, nb, H0 * W0 * C0, k,
+                                   threads, &ran[0], &ran[1], st);
+    case 3:
+      return gn_leaky_rowquant_run(x, 0, scale, bias, ResizeGrid<H1, W1, HG, WG>{(int8_t*)out, s},
+                                   nb, H1 * W1, C1, kGroups, k, threads, &ran[0], &ran[1], st);
+    case 5:
+      return gn_leaky_rowquant_run(x, 0, scale, bias, SameGrid{(int8_t*)out, s}, nb, HV * WV, C2,
+                                   kGroups, k, threads, &ran[0], &ran[1], st);
+    default:
+      return gn_leaky_rowquant_run(x, 0, scale, bias,
+                                   Conv3Out<HV, WV>{k3, b3, (float*)out, apply_expm1}, nb,
+                                   HV * WV, C3, kGroups, k, threads, &ran[0], &ran[1], st);
+  }
+}
+
 struct Front {
   const void* x; int x_is_bf16;
   const float *ln_scale, *ln_bias;
@@ -353,21 +173,17 @@ struct Front {
 
 // Launches 1-3: q [nb, 56, 30, 256] int8 and s [nb]; ws_i8 holds xq
 // [nb, 92160], ws_f32 the Conv_0 output [nb, 35, 19, 256], ws_sx [nb].
+// plans and ran hold stages 1 and 3.
 int run_front(const Front& f, int8_t* ws_i8, float* ws_f32, float* ws_sx, int8_t* q, float* s,
-              int nb, cudaStream_t st) {
-  if (f.x_is_bf16)
-    ln_quant_kernel<__nv_bfloat16><<<nb, kLnThreads, 0, st>>>(
-        (const __nv_bfloat16*)f.x, f.ln_scale, f.ln_bias, ws_i8, ws_sx);
-  else
-    ln_quant_kernel<float><<<nb, kLnThreads, 0, st>>>((const float*)f.x, f.ln_scale,
-                                                      f.ln_bias, ws_i8, ws_sx);
-  int err = (int)cudaGetLastError();
+              int nb, const int* plans, int* ran, cudaStream_t st) {
+  int err = run_stage(1, f.x, f.x_is_bf16, f.ln_scale, f.ln_bias, ws_i8, ws_sx, nullptr, nullptr,
+                      0, nb, plans, ran, st);
   if (err) return err;
   err = launch_conv(ws_i8, ws_sx, f.kp0, f.sk0, f.b0, ws_f32, nb, C0, C1,
                     conv0_plan(H0, W0, C1), 4, st);
   if (err) return err;
-  gn_quant_kernel<<<nb, kGnThreads, 0, st>>>(ws_f32, f.g0s, f.g0b, q, s, H1, W1, C1, HG, WG);
-  return (int)cudaGetLastError();
+  return run_stage(3, ws_f32, 0, f.g0s, f.g0b, q, s, nullptr, nullptr, 0, nb, plans + kPlanInts,
+                   ran + kRanInts, st);
 }
 
 }  // namespace
@@ -377,18 +193,21 @@ int run_front(const Front& f, int8_t* ws_i8, float* ws_f32, float* ws_sx, int8_t
 // K-major (phase p's slab at tap0[p] * 512), and sk0: [4, 256] f32; b0, g0s,
 // g0b: [256] f32. Workspaces: ws_i8 [nb * 92160] int8,
 // ws_f32 [nb * 35 * 19 * 256] f32, ws_s [nb] f32. Writes q [nb, 56, 30, 256]
-// int8 and s [nb] f32. Returns the first CUDA error of its 3 launches.
+// int8 and s [nb] f32. plans: the plans of launches 1 and 3 ({k, threads,
+// shared memory} each); ran: {cluster size, kept} of each, zero where it did
+// not launch. Returns the first CUDA error of its 3 launches.
 extern "C" int zdc_fused_decode_front(const void* x, int x_is_bf16, const void* ln_scale,
                                       const void* ln_bias, const void* kp0, const void* sk0,
                                       const void* b0, const void* g0s, const void* g0b,
                                       void* ws_i8, void* ws_f32, void* ws_s, void* q, void* s,
-                                      int nb, void* stream) {
+                                      int nb, const int* plans, int* ran, void* stream) {
+  for (int i = 0; i < 2 * kRanInts; ++i) ran[i] = 0;
   if (nb <= 0) return (int)cudaSuccess;
   const Front f{x, x_is_bf16, (const float*)ln_scale, (const float*)ln_bias,
                 (const int8_t*)kp0, (const float*)sk0, (const float*)b0, (const float*)g0s,
                 (const float*)g0b};
   return run_front(f, (int8_t*)ws_i8, (float*)ws_f32, (float*)ws_s, (int8_t*)q, (float*)s, nb,
-                   (cudaStream_t)stream);
+                   plans, ran, (cudaStream_t)stream);
 }
 
 // H. The front's arguments as for G, then kp1 [128, 16 * 256] int8 (Conv_1's
@@ -396,8 +215,9 @@ extern "C" int zdc_fused_decode_front(const void* x, int x_is_bf16, const void* 
 // [64, 9 * 128] int8 (Conv_2's [3, 3, 128, 64]), sk2, b2, g2s, g2b [64] f32;
 // k3 [2, 2, 64] f32, b3 [1] f32. Workspaces: ws_i8 [nb * 56 * 30 * 256]
 // int8, ws_f32 [nb * 55 * 29 * 128] f32, ws_s [3 * nb] f32. Writes out
-// [nb, 56, 30] f32 (expm1 of it when apply_expm1). Returns the first CUDA
-// error of its 7 launches.
+// [nb, 56, 30] f32 (expm1 of it when apply_expm1). plans: the plans of
+// launches 1, 3, 5 and 7; ran: {cluster size, kept} of each. Returns the
+// first CUDA error of its 7 launches.
 extern "C" int zdc_fused_decode(const void* x, int x_is_bf16, const void* ln_scale,
                                 const void* ln_bias, const void* kp0, const void* sk0,
                                 const void* b0, const void* g0s, const void* g0b,
@@ -406,7 +226,8 @@ extern "C" int zdc_fused_decode(const void* x, int x_is_bf16, const void* ln_sca
                                 const void* sk2, const void* b2, const void* g2s,
                                 const void* g2b, const void* k3, const void* b3, void* ws_i8,
                                 void* ws_f32, void* ws_s, void* out, int apply_expm1, int nb,
-                                void* stream) {
+                                const int* plans, int* ran, void* stream) {
+  for (int i = 0; i < 4 * kRanInts; ++i) ran[i] = 0;
   if (nb <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   int8_t* wi = (int8_t*)ws_i8;
@@ -418,22 +239,36 @@ extern "C" int zdc_fused_decode(const void* x, int x_is_bf16, const void* ln_sca
   // Each stage reads what the one before wrote and overwrites what no later
   // stage reads: the resized q replaces xq in ws_i8, q2 replaces q, and the
   // f32 conv outputs replace one another in ws_f32.
-  int err = run_front(f, wi, wf, s, wi, s + nb, nb, st);
+  int err = run_front(f, wi, wf, s, wi, s + nb, nb, plans, ran, st);
   if (err) return err;
   err = launch_conv(wi, s + nb, (const int8_t*)kp1, (const float*)sk1, (const float*)b1, wf, nb,
                     C1, C2, pad1_plan(4, HG, WG), 1, st);
   if (err) return err;
-  gn_quant_kernel<<<nb, kGnThreads, 0, st>>>(wf, (const float*)g1s, (const float*)g1b, wi,
-                                             s + 2 * nb, HV, WV, C2, HV, WV);
-  err = (int)cudaGetLastError();
+  err = run_stage(5, wf, 0, (const float*)g1s, (const float*)g1b, wi, s + 2 * nb, nullptr,
+                  nullptr, 0, nb, plans + 2 * kPlanInts, ran + 2 * kRanInts, st);
   if (err) return err;
   err = launch_conv(wi, s + 2 * nb, (const int8_t*)kp2, (const float*)sk2, (const float*)b2, wf,
                     nb, C2, C3, pad1_plan(3, HV, WV), 1, st);
   if (err) return err;
-  gn_conv3_kernel<<<nb, kGnThreads, 0, st>>>(wf, (const float*)g2s, (const float*)g2b,
-                                             (const float*)k3, (const float*)b3, (float*)out,
-                                             apply_expm1);
-  return (int)cudaGetLastError();
+  return run_stage(7, wf, 0, (const float*)g2s, (const float*)g2b, out, nullptr,
+                   (const float*)k3, (const float*)b3, apply_expm1, nb, plans + 3 * kPlanInts,
+                   ran + 3 * kRanInts, st);
+}
+
+// One norm stage as G and H launch it, for tests and timing: stage 1, 3, 5
+// or 7 (the launch number), with run_stage's arguments; plan {k, threads,
+// shared memory}; ran {cluster size, kept}. Returns the launch's CUDA error
+// (cudaErrorInvalidValue for another stage or a plan the body does not take).
+extern "C" int zdc_fused_norm_stage(int stage, const void* x, int x_is_bf16, const void* scale,
+                                    const void* bias, const void* k3, const void* b3, void* out,
+                                    void* s, int apply_expm1, int nb, const int* plan, int* ran,
+                                    void* stream) {
+  ran[0] = ran[1] = 0;
+  if (stage != 1 && stage != 3 && stage != 5 && stage != 7) return (int)cudaErrorInvalidValue;
+  if (nb <= 0) return (int)cudaSuccess;
+  return run_stage(stage, x, x_is_bf16, (const float*)scale, (const float*)bias, out, (float*)s,
+                   (const float*)k3, (const float*)b3, apply_expm1, nb, plan, ran,
+                   (cudaStream_t)stream);
 }
 
 // One conv stage as H launches it, for tests: conv 0 is Conv_0's four parity

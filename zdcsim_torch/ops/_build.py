@@ -30,6 +30,7 @@ SOURCES = (
 HEADERS = (
     "conv_mma.cuh",      # the int8 tensor-core conv core of B, D, G and H
     "cluster_norm.cuh",  # the thread-block-cluster launch and exchange of A and C
+    "norm_quant.cuh",    # the cluster bodies of A and C, which G's and H's norm stages run
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,9 +51,10 @@ SIGNATURES = {
     ),
     "zdc_expm1_channel_sums": (_P, _I, _P, _I, _I, _I, _I, _P, _P),
     "zdc_routed_expm1_channel_sums": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "zdc_fused_decode_front": (_P, _I) + (_P,) * 12 + (_I, _P),
-    "zdc_fused_decode": (_P, _I) + (_P,) * 23 + (_I, _I, _P),
+    "zdc_fused_decode_front": (_P, _I) + (_P,) * 12 + (_I, _P, _P, _P),
+    "zdc_fused_decode": (_P, _I) + (_P,) * 23 + (_I, _I, _P, _P, _P),
     "zdc_fused_conv_int8": (_I,) + (_P,) * 6 + (_I, _P),
+    "zdc_fused_norm_stage": (_I, _P, _I) + (_P,) * 6 + (_I, _I, _P, _P, _P),
 }
 
 _lib = None

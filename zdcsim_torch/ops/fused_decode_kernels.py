@@ -17,6 +17,10 @@ paths, with its plain versions (counterpart of
   phases, Conv_1, Conv_2) as H launches it, so that each can be held bit
   for bit against its plain version on the card; nothing on the serving
   path calls it.
+- :func:`fused_norm_stage` runs one of the four norm stages (launches 1, 3,
+  5 and 7: LN-quant, GN_0-quant through the resize, GN_1-quant, GN_2 +
+  Conv_3) as G and H launch it, so that each can be held against its plain
+  version and timed alone; nothing on the serving path calls it either.
 
 Both are full width only: C0..C3 = 512/256/128/64 are fixed, as in JAX.
 Every int8 activation scale is per sample. The GroupNorms take the IEEE
@@ -27,14 +31,25 @@ and :func:`tail_weights` pack once per expert, and the plain versions read
 the logical layout back through :func:`dk.unpack_k_major`.
 
 Each wrapper launches its CUDA entry point (``zdcsim_torch/csrc/
-fused_decode.cu``: 3 device launches for G, 7 for H, 1 for a conv) for CUDA
-tensors and runs the plain PyTorch version for CPU tensors; it never falls
-back from one to the other. ``<wrapper>.launches`` counts the wrapper's
-calls that launched the kernels (plain runs and CPU calls do not count).
+fused_decode.cu``: 3 device launches for G, 7 for H, 1 for a conv or a norm
+stage) for CUDA tensors and runs the plain PyTorch version for CPU tensors;
+it never falls back from one to the other. ``<wrapper>.launches`` counts the
+wrapper's calls that launched the kernels (plain runs and CPU calls do not
+count).
+
+The norm stages run kernels A's and C's bodies on thread-block clusters
+(``csrc/norm_quant.cuh``): each stage's launch plan is
+:func:`stage_plan`, :func:`dk.norm_quant_plan` at the stage's sample, and
+the wrappers pass every stage's plan to the entry point, which refuses a
+plan its body does not take and reports the cluster size and body each stage
+ran. ``<wrapper>.cluster_launches`` of G, H and :func:`fused_norm_stage`
+counts the calls in which every norm stage ran in clusters of its plan's k
+with its plan's body (the share kept in shared memory, or streamed).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -49,6 +64,7 @@ H0, W0, C0 = 18, 10, 512  # MLP grid
 H1, W1, C1 = 35, 19, 256  # Conv_0 output
 HG, WG = 56, 30  # resized and final grid
 C2, C3 = 128, 64
+HV, WV = HG - 1, WG - 1  # Conv_1 and Conv_2 output
 GROUPS = 32
 _ROW_MAP = np.floor((np.arange(HG) + 0.5) * H1 / HG).astype(np.int64)
 _COL_MAP = np.floor((np.arange(WG) + 0.5) * W1 / WG).astype(np.int64)
@@ -59,6 +75,60 @@ CONVS = {
     1: ((HG, WG, C1), (HG - 1, WG - 1, C2), (4, 4, C1, C2), (C2,)),
     2: ((HG - 1, WG - 1, C2), (HG - 1, WG - 1, C3), (3, 3, C2, C3), (C3,)),
 }
+
+
+# The four norm stages by launch number: the norm (kernel A's "ln" or C's
+# "gn") and its sample as dk.norm_quant_plan takes it, and the shape of one
+# input sample; G runs stages 1 and 3, H all four.
+NORM_STAGES = {
+    1: ("ln", (H0 * W0 * C0,), (H0 * W0 * C0,)),
+    3: ("gn", (H1 * W1, C1), (H1, W1, C1)),
+    5: ("gn", (HV * WV, C2), (HV, WV, C2)),
+    7: ("gn", (HV * WV, C3), (HV, WV, C3)),
+}
+G_STAGES, H_STAGES = (1, 3), (1, 3, 5, 7)
+# GN_0's f32 sample (665 KB) keeps a share in a block only at k >= 4, whose
+# clusters hold 30 samples in one wave. Past that, its quantise pass, which
+# writes 2.5 times the pixels it reads (the resize), ran faster streaming its
+# share at k = 2 than keeping it at k = 4 over several waves: 0.0552-0.0557
+# against 0.0611-0.0616 ms at 64 rows, 0.1717-0.1746 against 0.1930-0.1932 at
+# 256 (H100, chip_smoke.py phase 9; PERF.md). GN_1 measured the other way,
+# and keeps A's and C's plan.
+STREAM_K = {3: 2}
+
+
+def stage_plan(stage: int, b: int, elem_bytes: int = 4, k=None) -> dk.NormQuantPlan:
+    """The launch plan of norm stage ``stage`` on ``b`` samples of
+    ``elem_bytes``-byte elements (stage 1 takes bf16 or f32, the GroupNorm
+    stages f32): kernel A's or C's plan at the stage's sample
+    (:func:`dk.norm_quant_plan`), except that a stage of :data:`STREAM_K`
+    streams at its k where the kept plan takes more than one wave; ``k``
+    sets another cluster size."""
+    kind, sample, _ = NORM_STAGES[stage]
+    plan = dk.norm_quant_plan(kind, b, sample, elem_bytes, k)
+    if k is None and stage in STREAM_K and b > dk.ONE_WAVE_CLUSTERS[plan.k]:
+        return dk.norm_quant_plan(kind, b, sample, elem_bytes, STREAM_K[stage])
+    return plan
+
+
+def stage_plans(stages, x: torch.Tensor) -> list:
+    """The plans of ``stages`` as G or H launches them on the Dense_1 output
+    ``x`` (stage 1 at x's element size, the GroupNorm stages on f32)."""
+    return [stage_plan(st, x.shape[0], x.element_size() if st == 1 else 4) for st in stages]
+
+
+def _plan_ints(plans):
+    """The entry points' ``plans``: ``{k, threads, shared memory}`` a stage."""
+    return (ctypes.c_int * (3 * len(plans)))(*(v for p in plans for v in (p.k, p.threads, p.smem)))
+
+
+def _count_stage_launch(wrapper, plans, ran) -> None:
+    """One launch of ``wrapper``; a cluster launch when every stage ran in
+    clusters of its plan's k with its plan's body (``ran``: the entry
+    point's ``{cluster size, kept}`` a stage)."""
+    wrapper.launches += 1
+    wrapper.cluster_launches += int(all(ran[2 * i] == p.k and bool(ran[2 * i + 1]) == p.kept
+                                        for i, p in enumerate(plans)))
 
 
 def _quant_cout(k: torch.Tensor):
@@ -133,10 +203,9 @@ def fused_decode_front_plain(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_
     gather of the nearest resize. Its arithmetic is the kernel's, op for op;
     the kernel sums the statistics in another order."""
     b = x.shape[0]
-    xq, sx = dk.ln_leaky_rowquant_plain(x, ln_scale, ln_bias)
+    xq, sx = fused_norm_stage_plain(1, x, ln_scale, ln_bias)
     y0 = fused_conv_int8_plain(0, xq.reshape(b, H0, W0, C0), sx, kq0, sk0, b0)
-    q, s = dk.gn_leaky_rowquant_plain(y0, gn0_scale, gn0_bias, GROUPS)
-    return _gather_resize(q), s.reshape(b)
+    return fused_norm_stage_plain(3, y0, gn0_scale, gn0_bias)
 
 
 def fused_decode_front(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
@@ -146,7 +215,8 @@ def fused_decode_front(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
     ln_scale, ln_bias: ``[92160]`` f32; kq0, sk0: ``dk._quant_phases`` of the
     Conv_0 kernel, kq0 packed by :func:`dk.pack_k_major` (``[256, 12800]``); b0,
     gn0_scale, gn0_bias: ``[256]`` f32. Returns ``(q int8 [B, 56, 30, 256],
-    s f32 [B])``: the resized grid and its per-sample dequant scale.
+    s f32 [B])``: the resized grid and its per-sample dequant scale. On the
+    card stages 1 and 3 run on clusters of :func:`stage_plan`'s k.
     """
     name = "fused_decode_front"
     _check_front(name, x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)
@@ -162,19 +232,21 @@ def fused_decode_front(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias):
     ws_i8 = torch.empty((b * H0 * W0 * C0,), dtype=torch.int8, device=dev)
     ws_f32 = torch.empty((b * H1 * W1 * C1,), dtype=torch.float32, device=dev)
     ws_s = torch.empty((b,), dtype=torch.float32, device=dev)
+    plans = stage_plans(G_STAGES, x)
+    plan_ints, ran = _plan_ints(plans), (ctypes.c_int * (2 * len(plans)))()
     lib = _build.library()
     with torch.cuda.device(dev):
         status = lib.zdc_fused_decode_front(
             args[0].data_ptr(), int(x.dtype == torch.bfloat16), *(t.data_ptr() for t in args[1:]),
             ws_i8.data_ptr(), ws_f32.data_ptr(), ws_s.data_ptr(), q.data_ptr(), s.data_ptr(), b,
-            dk._stream(x),
+            ctypes.addressof(plan_ints), ctypes.addressof(ran), dk._stream(x),
         )
     _build.check(status, name)
-    fused_decode_front.launches += 1
+    _count_stage_launch(fused_decode_front, plans, ran)
     return q, s
 
 
-fused_decode_front.launches = 0
+fused_decode_front.launches = fused_decode_front.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -190,14 +262,9 @@ def fused_decode_plain(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
     that no TF32 or cuDNN choice enters it)."""
     q, s = fused_decode_front_plain(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)
     y1 = fused_conv_int8_plain(1, q, s, kq1, sk1, b1)
-    q2, s2 = dk.gn_leaky_rowquant_plain(y1, gn1_scale, gn1_bias, GROUPS)
+    q2, s2 = fused_norm_stage_plain(5, y1, gn1_scale, gn1_bias)
     y2 = fused_conv_int8_plain(2, q2, s2, kq2, sk2, b2)
-    y2 = dk.gn_leaky_plain(y2, gn2_scale, gn2_bias, GROUPS).to(torch.float64)
-    yp = F.pad(y2, (0, 0, 1, 1, 1, 1))
-    k64 = k3.to(torch.float64)
-    acc = sum(yp[:, a:a + HG, c:c + WG] @ k64[a, c] for a in range(2) for c in range(2))
-    out = torch.relu(acc[..., 0].to(torch.float32) + b3)
-    return torch.expm1(out) if apply_expm1 else out
+    return fused_norm_stage_plain(7, y2, gn2_scale, gn2_bias, k3, b3, apply_expm1)
 
 
 def fused_decode(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
@@ -211,7 +278,8 @@ def fused_decode(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
     (``[128, 4096]``, ``[64, 1152]``); b1, gn1_*: ``[128]`` f32; b2, gn2_*:
     ``[64]`` f32; k3: Conv_3 ``[2, 2, 64, 1]`` f32; b3: ``[1]`` f32. Returns
     ``f32 [B, 56, 30]``: ``relu(conv3(...))`` (log-space pixel intensities), or its
-    ``expm1`` (photon counts) with ``apply_expm1``.
+    ``expm1`` (photon counts) with ``apply_expm1``. On the card the four
+    norm stages run on clusters of :func:`stage_plan`'s k.
     """
     name = "fused_decode"
     _check_front(name, x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias)
@@ -230,19 +298,22 @@ def fused_decode(x, ln_scale, ln_bias, kq0, sk0, b0, gn0_scale, gn0_bias,
     ws_i8 = torch.empty((b * HG * WG * C1,), dtype=torch.int8, device=dev)
     ws_f32 = torch.empty((b * (HG - 1) * (WG - 1) * C2,), dtype=torch.float32, device=dev)
     ws_s = torch.empty((3 * b,), dtype=torch.float32, device=dev)
+    plans = stage_plans(H_STAGES, x)
+    plan_ints, ran = _plan_ints(plans), (ctypes.c_int * (2 * len(plans)))()
     lib = _build.library()
     with torch.cuda.device(dev):
         status = lib.zdc_fused_decode(
             args[0].data_ptr(), int(x.dtype == torch.bfloat16), *(t.data_ptr() for t in args[1:]),
             ws_i8.data_ptr(), ws_f32.data_ptr(), ws_s.data_ptr(), out.data_ptr(),
-            int(apply_expm1), b, dk._stream(x),
+            int(apply_expm1), b, ctypes.addressof(plan_ints), ctypes.addressof(ran),
+            dk._stream(x),
         )
     _build.check(status, name)
-    fused_decode.launches += 1
+    _count_stage_launch(fused_decode, plans, ran)
     return out
 
 
-fused_decode.launches = 0
+fused_decode.launches = fused_decode.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +371,95 @@ def fused_conv_int8(conv, xq, sx, kp, sk, bias):
 
 
 fused_conv_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One norm stage of G and H, for tests and timing
+# ---------------------------------------------------------------------------
+
+def fused_norm_stage_plain(stage, x, scale, bias, k3=None, b3=None, apply_expm1=False):
+    """Plain PyTorch version of :func:`fused_norm_stage`, op for op the
+    kernel's arithmetic (its sums run in another order): stage 1 kernel A's
+    plain version, 3 kernel C's then the int8 gather of the nearest resize,
+    5 kernel C's, 7 the GroupNorm and leaky of kernel C's in f32, then Conv_3
+    summed in float64 and rounded to f32 once (no TF32 or cuDNN choice enters
+    it), + b3 -> ReLU [-> expm1]. Returns ``(q, s [B])`` or, for stage 7,
+    ``f32 [B, 56, 30]``."""
+    if stage == 1:
+        q, s = dk.ln_leaky_rowquant_plain(x, scale, bias)
+        return q, s.reshape(-1)
+    if stage in (3, 5):
+        q, s = dk.gn_leaky_rowquant_plain(x, scale, bias, GROUPS)
+        return (_gather_resize(q) if stage == 3 else q), s.reshape(-1)
+    y = dk.gn_leaky_plain(x, scale, bias, GROUPS).to(torch.float64)
+    yp = F.pad(y, (0, 0, 1, 1, 1, 1))
+    k64 = k3.to(torch.float64)
+    acc = sum(yp[:, a:a + HG, c:c + WG] @ k64[a, c] for a in range(2) for c in range(2))
+    out = torch.relu(acc[..., 0].to(torch.float32) + b3)
+    return torch.expm1(out) if apply_expm1 else out
+
+
+def fused_norm_stage(stage, x, scale, bias, k3=None, b3=None, apply_expm1=False, *, k=None):
+    """One norm stage of the fused decode as G and H launch it.
+
+    stage 1 (LN-quant): x ``[B, 92160]`` bf16 or f32, scale and bias
+    ``[92160]`` -> ``(q int8 [B, 92160], s f32 [B])``; stage 3 (GN_0-quant
+    through the resize): x ``[B, 35, 19, 256]`` f32 -> ``(q int8 [B, 56,
+    30, 256], s)``; stage 5 (GN_1-quant): x ``[B, 55, 29, 128]`` f32 ->
+    ``(q int8 [B, 55, 29, 128], s)``; stage 7 (GN_2 + Conv_3): x ``[B, 55,
+    29, 64]`` f32, k3 ``[2, 2, 64, 1]``, b3 ``[1]`` -> ``f32 [B, 56, 30]``
+    (its ``expm1`` with ``apply_expm1``). scale and bias are f32. On the
+    card the stage runs on clusters of :func:`stage_plan`'s k; ``k`` sets
+    another cluster size.
+    """
+    name = "fused_norm_stage"
+    if stage not in NORM_STAGES:
+        raise ValueError(f"{name}: stage must be one of {sorted(NORM_STAGES)}, got {stage!r}")
+    shape = NORM_STAGES[stage][2]
+    dtypes = (torch.bfloat16, torch.float32) if stage == 1 else (torch.float32,)
+    _require(x.ndim == len(shape) + 1 and tuple(x.shape[1:]) == shape and x.dtype in dtypes,
+             name, f"stage {stage} takes x [B, {', '.join(map(str, shape))}] "
+             f"{'bf16/f32' if stage == 1 else 'f32'}, got {tuple(x.shape)} {x.dtype}")
+    dev = x.device
+    dk._require_f32(name, dev, scale=scale, bias=bias)
+    n_par = shape[0] if stage == 1 else shape[-1]
+    _require(tuple(scale.shape) == tuple(bias.shape) == (n_par,), name,
+             f"scale and bias must be [{n_par}]")
+    if stage == 7:
+        _require(k3 is not None and b3 is not None, name, "stage 7 takes k3 and b3")
+        dk._require_f32(name, dev, k3=k3, b3=b3)
+        _require(tuple(k3.shape) == (2, 2, C3, 1) and tuple(b3.shape) == (1,), name,
+                 f"k3 must be [2, 2, {C3}, 1], b3 [1]")
+    if dev.type == "cpu":
+        return fused_norm_stage_plain(stage, x, scale, bias, k3, b3, apply_expm1)
+    dk._require_cuda(x, name)
+    b = x.shape[0]
+    x, scale, bias = x.contiguous(), scale.contiguous(), bias.contiguous()
+    dk._require_aligned(name, 16, x=x)
+    s = torch.empty((b,), dtype=torch.float32, device=dev)
+    if stage == 7:
+        k3, b3 = k3.contiguous(), b3.contiguous()
+        out = torch.empty((b, HG, WG), dtype=torch.float32, device=dev)
+    else:
+        out_shape = (HG, WG, C1) if stage == 3 else shape
+        out = torch.empty((b, *out_shape), dtype=torch.int8, device=dev)
+    plan = stage_plan(stage, b, x.element_size(), k)
+    plan_ints, ran = _plan_ints([plan]), (ctypes.c_int * 2)()
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.zdc_fused_norm_stage(
+            stage, x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+            bias.data_ptr(), k3.data_ptr() if stage == 7 else None,
+            b3.data_ptr() if stage == 7 else None, out.data_ptr(), s.data_ptr(),
+            int(apply_expm1), b, ctypes.addressof(plan_ints), ctypes.addressof(ran),
+            dk._stream(x),
+        )
+    _build.check(status, name)
+    _count_stage_launch(fused_norm_stage, [plan], ran)
+    return out if stage == 7 else (out, s)
+
+
+fused_norm_stage.launches = fused_norm_stage.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------
