@@ -2,7 +2,7 @@
 """Smoke run of the zdcsim_torch port on one CUDA card.
 
     python3 chip_smoke.py                 # on a machine with an NVIDIA H100
-    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-24 on the CPU at small sizes
+    python3 chip_smoke.py --rehearse-cpu  # phases 3-13 and 15-25 on the CPU at small sizes
     python3 chip_smoke.py --rehearse-part mesh  # one part of them: serve, train or mesh
     python3 chip_smoke.py --profile       # adds a profile of each kernel path's serve
 
@@ -296,7 +296,19 @@ Phases, each printing lines with the elapsed seconds:
     returned and served by ``FastSim.from_checkpoint`` on ``int8_pallas``
     and ``int8_fused`` (2048 showers), E's and A-D's and H's launches
     joining the kernels line; a ``{"mesh_train": ...}`` line records the
-    phase.
+    phase;
+25. the public API: (a) every name of ``MODEL_REGISTRY`` built by
+    ``build_model`` at its default specs on the card (parameters counted,
+    every one on the card); (b) the teacher's generator and router loaded
+    into modules from ``build_model``, ``API_ROWS`` (64) conditions routed
+    by that router ``torch.equal`` to the engine's (``FastSim``, ``f32``)
+    and served by each expert through that ``Generator`` (``expm1`` of its
+    output, cuDNN's TF32 off) ``torch.equal`` to the engine's float
+    ``Generator`` path (the decode of ``simulate_grouped``'s buckets); (c)
+    ``ExpertDense`` at ``EXPERT_DENSE`` (E=3, B=512, I=256, O=128) on the
+    card against its CPU result and a per-expert float64 matmul at rtol
+    1e-5 (TF32 off), timed; the phase fails if any of A-H launches; a
+    ``{"api": ...}`` line records it.
 
 ``--profile`` adds a ``torch.profiler`` trace of one serve of 16384 showers
 on each kernel path (printed as a table, not written to disk): device time
@@ -372,9 +384,10 @@ taking full width only; its int8 forms on 8 showers; the host library on
 width 0.125, E=3, batch 4, tile 2, no ``dispatch_remat``, whose
 ``torch.utils.checkpoint`` imports ``torch._dynamo``, which looks for
 pandas; the loop on 12 events, its checkpoint served on ``int8_pallas``
-alone). Phase 21's rehearsal serves the w=0.125 student behind the
+alone), and phase 25 on the CPU at its own sizes with the w=0.125 student
+in the teacher's place. Phase 21's rehearsal serves the w=0.125 student behind the
 attention router. ``--rehearse-part`` runs one part of the rehearsal
-(``REHEARSE_PARTS``: serve = phases 3-16, train = 17-22, mesh = 23-24),
+(``REHEARSE_PARTS``: serve = phases 3-16, train = 17-22, mesh = 23-25),
 each recomputing from ``--seed`` what it needs of another: the train part
 the gate's split (phase 10), the mesh part phase 8's router
 (``phase8_router`` replays the seed's stream); only the serve part loads
@@ -465,7 +478,9 @@ MESH_LOOP = (1.0, 3, 512, 1280)  # phase 24's loop: width, experts, batch, event
 REHEARSE_MESH_LOOP = (0.125, 3, 4, 12)  # 2 steps of 4, an eval of 2 showers
 MESH_LOOP_SERVE = (2048, 2048, 64)  # showers, batch, tile of the checkpoint's serves
 REHEARSE_MESH_LOOP_SERVE = (6, 8, 2)
-REHEARSE_PARTS = {"serve": "3-16", "train": "17-22", "mesh": "23-24"}  # --rehearse-part
+API_ROWS = 64  # phase 25: conditions routed and served through build_model's modules
+EXPERT_DENSE = (3, 512, 256, 128)  # phase 25: ExpertDense's experts, rows, inputs, outputs
+REHEARSE_PARTS = {"serve": "3-16", "train": "17-22", "mesh": "23-25"}  # --rehearse-part
 NEAR_TIE = 1e-5  # a routing difference is allowed only where the top two logits are this close
 # the evaluator's keys (zdcsim/train/evaluate.py:472-481): the CLI's --eval prints them
 EVAL_KEYS = {"ws_mean", "ws_std", "ws_mean_exp", "ws_std_exp", "ws_mean_rel", "ws_real_floor",
@@ -4650,6 +4665,108 @@ def mesh_train_phase(dev, rehearse, card, seed):
     return launches
 
 
+def api_phase(gp, rp, dev, rehearse, card, seed):
+    """Phase 25: the registry's modules built on the device, the teacher
+    (the w=0.125 student in the rehearsal) routed and served through
+    ``build_model``'s router and ``Generator`` against the engine's float
+    path, ``torch.equal``, and ``ExpertDense`` against its CPU result; a
+    ``{"api": ...}`` line records it. None of A-H may launch."""
+    import numpy as np
+    import torch
+
+    from zdcsim_torch.config import load_config
+    from zdcsim_torch.convert import expert, from_jax_params, to_state_dict, tree_to_torch
+    from zdcsim_torch.inference import FastSim
+    from zdcsim_torch.models import MODEL_REGISTRY, build_model
+    from zdcsim_torch.models.layers import ExpertDense
+    from zdcsim_torch.train.step import f32_matmuls
+    from zdcsim_torch.utils.artifact import load_serving_artifact
+
+    phase = "25 api"
+    wrappers = kernel_wrappers()
+    before = read_counts(wrappers)
+    rec = {"params": {}}
+    t = time.perf_counter()
+    for name in MODEL_REGISTRY:
+        m = build_model(name, device=None if dev.type == "cuda" else dev)
+        where = {p.device.type for p in m.parameters()}
+        if where != {dev.type}:
+            fail(f"build_model({name!r}) put parameters on {where}, not {dev.type}")
+        rec["params"][name] = sum(p.numel() for p in m.parameters())
+    rec["build_s"] = time.perf_counter() - t
+    log(phase, f"build_model of the {len(MODEL_REGISTRY)} registry names on {dev.type} in "
+        f"{rec['build_s']:.2f}s: " + ", ".join(f"{k} {v:,d}" for k, v in rec["params"].items()))
+
+    cfg = None
+    if rehearse:
+        gp, _, rp, meta = load_serving_artifact(STUDENT)
+        cfg = load_config([f"model.generator.width={meta['width']}"])
+    which = "the w=0.125 student" if rehearse else "the teacher"
+    eng = FastSim(gp, rp, batch_size=API_ROWS, precision="f32", device=dev, cfg=cfg)
+    gen_tree, router_sd = from_jax_params(gp, rp)
+    m = (cfg or load_config()).model
+    router = build_model(m.router.version, {"n_experts": eng.n_experts}, device=dev).eval()
+    router.load_state_dict(router_sd)
+    gen = build_model("proton.generator", {"noise_dim": eng.noise_dim, "cond_dim": eng.cond_dim,
+                                           "width": float(m.generator.width)}, device=dev).eval()
+    rng = np.random.default_rng([seed, 25])
+    cond = torch.from_numpy(rng.standard_normal((API_ROWS, eng.cond_dim), dtype="float32")).to(dev)
+    noise = torch.from_numpy(rng.standard_normal((API_ROWS, eng.noise_dim),
+                                                 dtype="float32")).to(dev)
+    t = time.perf_counter()
+    with torch.no_grad():
+        gates, logits = router(cond)
+        ref_gates, ref_logits = eng.router(cond)
+        routed = torch.equal(gates, ref_gates) and torch.equal(logits, ref_logits)
+        routed_rows = torch.bincount(logits.argmax(-1), minlength=eng.n_experts).tolist()
+        equal = True
+        for e in range(eng.n_experts):  # every expert on every row
+            gen.load_state_dict(to_state_dict(tree_to_torch(expert(gen_tree, e), device=dev)))
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                ours = torch.expm1(gen(noise, cond)[..., 0])
+            ref = eng._decode_one(e, cond, noise)
+            equal = equal and ours.shape == ref.shape and torch.equal(ours, ref)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rec["serve_s"] = time.perf_counter() - t
+    rec["routed_rows"] = routed_rows
+    log(phase, f"{which}'s router and Generator from build_model on {API_ROWS} rows (routed "
+        f"{routed_rows}): routing torch.equal to the engine's {routed}; each of the "
+        f"{eng.n_experts} experts' showers torch.equal to the engine's float Generator path "
+        f"{equal} [{card}]")
+    if not routed or not equal:
+        fail("build_model's router or Generator disagrees with the engine's float path")
+
+    e, b, i, o = EXPERT_DENSE
+    torch.manual_seed(seed)
+    layer = ExpertDense(e, o, in_features=i)
+    torch.nn.init.normal_(layer.bias)
+    x = torch.randn(e, b, i)
+    with torch.no_grad(), f32_matmuls():
+        cpu = layer(x)
+        layer, xd = layer.to(dev), x.to(dev)
+        out = layer(xd).cpu()
+        ms = time_ms(lambda: layer(xd), 20) if dev.type == "cuda" else None
+    k = layer.kernel.detach().cpu().double()
+    exact = torch.stack([x[j].double() @ k[j] for j in range(e)]) + layer.bias.detach().cpu(
+        ).double()
+    errs = (float((out - cpu).abs().max()), float((out.double() - exact).abs().max()))
+    ok = (torch.allclose(out, cpu, rtol=1e-5, atol=1e-5)
+          and torch.allclose(out.double(), exact, rtol=1e-5, atol=1e-5))
+    rec["expert_dense"] = {"shape": list(EXPERT_DENSE), "max_abs_err_cpu": errs[0],
+                           "max_abs_err_f64": errs[1], "ms": ms}
+    log(phase, f"ExpertDense [{e}, {b}, {i}] x [{e}, {i}, {o}] on {dev.type}: max |err| "
+        f"{errs[0]:.3g} against the CPU, {errs[1]:.3g} against a float64 per-expert matmul "
+        f"(rtol 1e-5) {ok}" + (f", {ms:.4f} ms" if ms is not None else "") + f" [{card}]")
+    if not ok:
+        fail("ExpertDense disagrees with its CPU result or the per-expert matmul")
+    after = read_counts(wrappers)
+    if after != before:
+        fail(f"phase 25 launched kernels of A-H: {before} -> {after}")
+    log(phase, "kernel launches none of A-H")
+    print(json.dumps({"api": rec}), flush=True)
+
+
 def phase8_router(seed, rows_a=8, rows_b=8, n=REHEARSE_SERVE[0]):
     """The router that phase 8 draws from ``--seed`` in the rehearsal,
     without phases 3-8: the draws of phases 3, 4 and 8 from the seed's
@@ -4714,6 +4831,7 @@ def run_rehearsal(parts, gp, rp, rng, dev, card, seed) -> int:
             fail("phase8_router does not replay phase 8's router")
         timed("23 mesh", mesh_phase, gp, router or replayed, dev, True, card, seed)
         timed("24 mesh train", mesh_train_phase, dev, True, card, seed)
+        timed("25 api", api_phase, None, None, dev, True, card, seed)
     log_phase_times()
     print(json.dumps({"rehearsal": True}), flush=True)
     return 0
@@ -4723,7 +4841,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 3-13 and 15-24 on the CPU at small sizes with the "
+                    help="run phases 3-13 and 15-25 on the CPU at small sizes with the "
                          "plain versions")
     ap.add_argument("--rehearse-part", choices=sorted(REHEARSE_PARTS),
                     help="rehearse one part on the CPU, recomputing what it needs from --seed: "
@@ -4836,6 +4954,7 @@ def main(argv=None) -> int:
     n_e22, n_bulk22 = timed("22 real data", real_data, dev, rehearse, card, args.seed)
     mesh_launches = timed("23 mesh", mesh_phase, gp, router, dev, rehearse, card, args.seed)
     train_launches = timed("24 mesh train", mesh_train_phase, dev, rehearse, card, args.seed)
+    timed("25 api", api_phase, gp, rp, dev, rehearse, card, args.seed)
     e_rec = next(r for r in rec if r["name"] == "expm1_channel_sums")
     # the neutron loop's and the fixtures' evals are main paths of E too
     e_rec["launches"] += n_e + n_e22

@@ -912,3 +912,29 @@ def test_spectral_norm_on_cuda_matches_cpu(cuda, kind):
             for k in (ku, ks):
                 torch.testing.assert_close(gpu_stats[k].cpu(), cpu_stats[k], rtol=1e-5,
                                            atol=1e-6)
+
+
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_expert_dense_on_cuda_matches_cpu(cuda, use_bias):
+    """``ExpertDense`` at E = 3, B = 512, I = 256, O = 128 on the card
+    against its CPU result and a per-expert matmul in float64, rtol 1e-5
+    (TF32 off); ``build_model``'s default device is the card."""
+    from zdcsim_torch.models import build_model
+    from zdcsim_torch.models.layers import ExpertDense
+    from zdcsim_torch.train.step import f32_matmuls
+
+    assert next(build_model("router_v1").parameters()).device.type == "cuda"
+    torch.manual_seed(0)
+    layer = ExpertDense(3, 128, use_bias, in_features=256)
+    if use_bias:
+        torch.nn.init.normal_(layer.bias)
+    x = torch.randn(3, 512, 256)
+    with torch.no_grad(), f32_matmuls():
+        ref = layer(x)
+        out = layer.to(cuda)(x.to(cuda)).cpu()
+    k = layer.kernel.detach().cpu().double()
+    per_expert = torch.stack([x[e].double() @ k[e] for e in range(3)])
+    if use_bias:
+        per_expert += layer.bias.detach().cpu().double()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.double(), per_expert, rtol=1e-5, atol=1e-5)

@@ -26,7 +26,10 @@ router's serve, a neutron student distilled and its artifact's round
 trip, phase 18's run directory gated), and phase 23 (the sharded serve on
 a gloo world of one) and phase 24 (the dense and switch train steps on that
 world's mesh against the meshless ones, ``train()`` on it, its checkpoint
-restored and served with no mesh). The rehearsal runs in three parts, each
+restored and served with no mesh) and phase 25 (every ``MODEL_REGISTRY``
+name built by ``build_model``, the student's router and ``Generator`` from it
+against the engine's float path, ``ExpertDense`` against a per-expert
+matmul). The rehearsal runs in three parts, each
 in a subprocess of its own under the guard and ``timeout 120``.
 """
 
@@ -129,15 +132,20 @@ PART_LINES = {
              "the checkpoint of the gathered state restored with no mesh: torch.equal to the "
              "state the run returned True",
              "FastSim.from_checkpoint of the mesh run on int8_pallas with no mesh",
-             '{"mesh_train": ', " 24 mesh train "),
+             '{"mesh_train": ', " 24 mesh train ",
+             "[25 api]", "build_model of the 9 registry names on cpu",
+             "routing torch.equal to the engine's True",
+             "experts' showers torch.equal to the engine's float Generator path True",
+             "ExpertDense [3, 512, 256] x [3, 256, 128] on cpu",
+             "kernel launches none of A-H", '{"api": ', " 25 api "),
 }
 
 
 @pytest.mark.parametrize("part", list(PART_LINES))
 def test_chip_smoke_rehearses_on_cpu_without_forbidden_packages(part):
     """One part of ``chip_smoke.py``'s CPU rehearsal (``--rehearse-part``:
-    serve = phases 3-16, train = 17-22, mesh = 23-24, the last the training
-    on the mesh of a gloo world of one) in a subprocess of its own under the
+    serve = phases 3-16, train = 17-22, mesh = 23-25: the training on the
+    mesh of a gloo world of one, then the public API) in a subprocess of its own under the
     guard, each part recomputing from the seed what it needs of another."""
     code = f"""
 import runpy

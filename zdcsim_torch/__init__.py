@@ -8,3 +8,5 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from zdcsim_torch.device import default_device  # noqa: F401
+
+__version__ = "0.1.0"

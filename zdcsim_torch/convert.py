@@ -10,7 +10,8 @@ Two layouts meet here:
   the Flax names: ``Linear.weight [out, in]``, ``Conv2d.weight`` OIHW, norm
   ``weight``; a BatchNorm's ``batch_stats`` ``mean``/``var`` are its
   ``running_mean``/``running_var`` buffers; a module's own parameter (the
-  attention router's ``expert_queries``) keeps its name and layout.
+  attention router's ``expert_queries``) and a kernel of three axes
+  (``ExpertDense``'s ``[E, I, O]``) keep their names and layouts.
 
 The mapping is by name and is lossless both ways.
 """
@@ -80,7 +81,9 @@ def to_state_dict(tree: Dict[str, Any], stats: Optional[Dict[str, Any]] = None,
     for key, v in _flatten(tree).items():
         path, _, leaf = key.rpartition(_SEP)
         t = torch.as_tensor(v)
-        if leaf == "kernel":
+        if leaf == "kernel" and t.ndim - lead == 3:  # ExpertDense's [E, I, O], kept
+            pass
+        elif leaf == "kernel":
             t = _kernel_to_torch(t, lead)
             leaf = "weight"
         elif leaf == "scale":
@@ -101,7 +104,7 @@ def _flax_leaf(key: str, t: torch.Tensor, lead: int) -> Tuple[str, torch.Tensor,
     is a BatchNorm statistic)``."""
     path, _, leaf = key.rpartition(".")
     stat = leaf in _STAT_LEAVES.values()
-    if leaf in _OWN_PARAMS:
+    if leaf in _OWN_PARAMS or leaf == "kernel":
         pass
     elif leaf == "weight":
         if t.ndim - lead == 1:

@@ -9,7 +9,9 @@ numpy end to end. The reference's three training pickles are read by
 (the stratified subsample, one permutation per condition group for the
 pairing, then the split's permutation), so the split is bit-equal to JAX's.
 :func:`get_dataset` stamps the kept events' photon-sum range on the config
-as ``cfg.photon_sum_min`` / ``cfg.photon_sum_max``, as JAX does.
+as ``cfg.photon_sum_min`` / ``cfg.photon_sum_max``, and
+:func:`transform_data_for_training` the condition names as
+``cfg.data_cond_names``, as JAX does.
 ``train.save_experiment_data`` writes the scales and the split indices into
 the run's directory (``zdcsim_torch.utils.io``, the JAX package's formats),
 and a resume (``train.checkpoint_experiment_dir`` with
@@ -18,6 +20,7 @@ and a resume (``train.checkpoint_experiment_dir`` with
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -29,6 +32,8 @@ from zdcsim_torch.utils.io import (
     DIR_INFO, DIR_MODELS, create_dir, load_train_test_indices, save_scales,
     save_train_test_indices,
 )
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -147,6 +152,8 @@ def get_dataset(cfg, rng: Optional[np.random.Generator] = None) -> PreparedDatas
         ds, sums = _subset(ds, idx), sums[idx]
     cfg.photon_sum_min = float(sums.min())
     cfg.photon_sum_max = float(sums.max())
+    log.info("Dataset: %d events, photon sum in [%.1f, %.1f]",
+             ds.n_events, cfg.photon_sum_min, cfg.photon_sum_max)
     return ds
 
 
@@ -202,6 +209,8 @@ def transform_data_for_training(cfg, ds: PreparedDataset,
     int_train, int_test = sel(intensity)
     pos_train, pos_test = sel(positions)
     exp_train, exp_test = sel(expert_number)
+    cfg.data_cond_names = list(COND_COLUMNS)
+    log.info("Split: %d train / %d test", x_train.shape[0], x_test.shape[0])
     return SplitArrays(
         x_train=x_train, x_test=x_test, x_train_2=x2_train, x_test_2=x2_test,
         y_train=y_train, y_test=y_test, std_train=std_train, std_test=std_test,

@@ -18,7 +18,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-Batch = Dict[str, torch.Tensor]
+BatchDict = Dict[str, torch.Tensor]
 
 
 class DeviceLoader:
@@ -64,7 +64,7 @@ class DeviceLoader:
             return stratified_batch_order(self.stratify_labels, self.batch_size, rng)
         return rng.permutation(self.n)
 
-    def epoch(self, epoch_idx: int = 0) -> Iterator[Batch]:
+    def epoch(self, epoch_idx: int = 0) -> Iterator[BatchDict]:
         """The batches of one epoch."""
         order = torch.as_tensor(self.order(epoch_idx)).to(self.device)
         lo, hi = self.rows

@@ -1,0 +1,3 @@
+"""The fast-simulation serving engine: sample, route, decode, expm1."""
+
+from zdcsim_torch.inference.engine import FastSim  # noqa: F401

@@ -784,9 +784,10 @@ class FastSim:
         rank's piece from ``zdcsim_torch.parallel.shard_state``: its
         expert-stacked leaves are gathered once here (``gather_state``,
         collective), then the weights replicate."""
-        from zdcsim_torch.models import GENERATORS
+        from zdcsim_torch.models import MODEL_REGISTRY
 
-        if modules.generator.__class__ not in GENERATORS.values():
+        if not any(".generator" in name and type(modules.generator) is cls
+                   for name, cls in MODEL_REGISTRY.items()):
             raise ValueError(f"FastSim serves the generators of build_moe, not "
                              f"{modules.names.get('generator', type(modules.generator).__name__)}")
         if "cfg" not in kwargs and not isinstance(modules.generator, Generator):

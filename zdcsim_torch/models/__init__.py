@@ -1,6 +1,6 @@
-"""The generator classes by name, ``build_moe``'s rule for choosing one
-(``zdcsim/models/__init__.py:114-150``), and the expert-stacked MoE of
-training (``MoEModules``, ``build_moe``).
+"""The module registry (``MODEL_REGISTRY``, ``build_model``), ``build_moe``'s
+rule for choosing a generator (``zdcsim/models/__init__.py:114-150``), and the
+expert-stacked MoE of training (``MoEModules``, ``build_moe``).
 
 Expert stacking: where JAX ``nn.vmap``s each module over a leading expert
 axis, the port keeps one expert's module (on the meta device: it holds no
@@ -29,19 +29,41 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
-from zdcsim_torch.models.neutron import (
-    AuxRegNeutron, DiscriminatorNeutron, GeneratorNeutron, GeneratorNeutronV2,
+from zdcsim_torch.device import default_device
+from zdcsim_torch.models.neutron import (  # noqa: F401
+    NEUTRON_SHAPE, AuxRegNeutron, DiscriminatorNeutron, GeneratorNeutron, GeneratorNeutronV2,
 )
-from zdcsim_torch.models.proton import AuxReg, Discriminator, Generator
-from zdcsim_torch.models.router import build_router
+from zdcsim_torch.models.proton import PROTON_SHAPE, AuxReg, Discriminator, Generator  # noqa: F401
+from zdcsim_torch.models.router import (  # noqa: F401
+    ROUTERS, AttentionRouterNetwork, RouterNetwork, build_router,
+)
 
 Tree = Dict[str, torch.Tensor]
 
-GENERATORS: Dict[str, Type[nn.Module]] = {
+# JAX's names (zdcsim/models/__init__.py:33); the routers are model.router.version's
+MODEL_REGISTRY: Dict[str, Type[nn.Module]] = {
     "proton.generator": Generator,
+    "proton.discriminator": Discriminator,
+    "proton.aux_reg": AuxReg,
     "neutron.generator": GeneratorNeutron,
     "neutron.generator_v2": GeneratorNeutronV2,
+    "neutron.discriminator": DiscriminatorNeutron,
+    "neutron.aux_reg": AuxRegNeutron,
+    **ROUTERS,
 }
+
+
+def build_model(name: str, model_specs: Optional[Dict[str, Any]] = None,
+                device: str | torch.device | None = None) -> nn.Module:
+    """The registered module ``name`` built from the keyword specs of its
+    Flax fields (``zdcsim.models.build_model``) on ``device`` (CUDA unless
+    the caller asks for the CPU); an unknown name raises ``ValueError``.
+    Its weights are PyTorch's initial ones: ``zdcsim_torch.convert``
+    carries a Flax tree's over (``load_state_dict(to_state_dict(...))``)."""
+    if name not in MODEL_REGISTRY:
+        raise ValueError(f"Unknown model '{name}'. Available: {sorted(MODEL_REGISTRY)}")
+    with torch.device(default_device(device)):
+        return MODEL_REGISTRY[name](**(model_specs or {}))
 
 
 def generator_spec(architecture: str, version: str = "v1", norm: str = "batch",
@@ -53,13 +75,13 @@ def generator_spec(architecture: str, version: str = "v1", norm: str = "batch",
     ``<architecture>.generator_<version>``; ``norm`` reaches the neutron
     family only. Raises ``ValueError`` for a pair with no generator."""
     key = f"{architecture}.generator" + ("" if version == "v1" else f"_{version}")
-    if key not in GENERATORS:
+    if key not in MODEL_REGISTRY:
         raise ValueError(f"no generator version {version!r} for architecture {architecture!r}. "
-                         f"Available: {sorted(GENERATORS)}")
+                         f"Available: {sorted(MODEL_REGISTRY)}")
     kwargs: Dict[str, Any] = {"width": float(width)}
     if architecture == "neutron":
         kwargs["norm"] = norm
-    return GENERATORS[key], kwargs
+    return MODEL_REGISTRY[key], kwargs
 
 
 def expert_slices(tree: Tree, n_experts: int) -> List[Tree]:
@@ -216,9 +238,10 @@ def build_moe(cfg) -> MoEModules:
     neutron = m.architecture == "neutron"
     with torch.device("meta"):
         modules = (gen_cls(noise_dim=m.noise_dim, cond_dim=m.cond_dim, **kwargs),
-                   (DiscriminatorNeutron if neutron else Discriminator)(
+                   MODEL_REGISTRY[f"{m.architecture}.discriminator"](
                        cond_dim=m.cond_dim, image_shape=shape),
-                   AuxRegNeutron(norm=m.norm) if neutron else AuxReg(),
+                   MODEL_REGISTRY[f"{m.architecture}.aux_reg"](
+                       **({"norm": m.norm} if neutron else {})),
                    build_router(m))
     return MoEModules(*modules, n_experts=int(m.n_experts), noise_dim=int(m.noise_dim),
                       cond_dim=int(m.cond_dim), image_shape=shape,

@@ -103,6 +103,30 @@ def group_norm_groups(channels: int, groups: int = 32) -> int:
     return g
 
 
+class ExpertDense(nn.Module):
+    """All-experts batched linear ``[E, B, I] x [E, I, O] -> [E, B, O]``
+    (``zdcsim/models/layers.py:229``): ``kernel [E, I, O]`` and ``bias [E,
+    1, O]`` in JAX's layout (``zdcsim_torch.convert`` carries a kernel of
+    three axes as it is), one batched product. Flax reads the input width at
+    the first call; here it is ``in_features``. Initialised as Flax's
+    ``lecun_normal(batch_axis=(0,))`` (fan-in ``I``, truncated at two
+    standard deviations) and zero biases, not from Flax's draws."""
+
+    def __init__(self, n_experts: int, features: int, use_bias: bool = True, *,
+                 in_features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(n_experts, in_features, features))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(n_experts, 1, features)) if use_bias else None)
+        std = in_features ** -0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(self.kernel, std=std, a=-2 * std, b=2 * std)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is None:
+            return torch.bmm(x, self.kernel)
+        return torch.baddbmm(self.bias, x, self.kernel)
+
+
 class MLPBlock(nn.Module):
     """Dense + LayerNorm + LeakyReLU(0.1)."""
 

@@ -58,6 +58,15 @@ def _norm_layers(module: nn.Module, norm: str, layers: Sequence[Tuple[int, bool]
     return names
 
 
+def _no_axis_name(bn_axis_name: Optional[str]) -> None:
+    """JAX's ``bn_axis_name`` field names the mesh axis its BatchNorm sums
+    over; the port's modules take that sum per call (``sum_rows``, which the
+    train step on a mesh passes), so only ``None`` is accepted."""
+    if bn_axis_name is not None:
+        raise ValueError(f"bn_axis_name={bn_axis_name!r}: the port's BatchNorm sums over a mesh "
+                         "through the forward's sum_rows, not a named axis")
+
+
 def _nchw(keep: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """A keep mask in JAX's NHWC as the NCHW activation's (a view)."""
     return keep.permute(0, 3, 1, 2) if keep is not None and keep.ndim == 4 else keep
@@ -106,10 +115,11 @@ class GeneratorNeutron(_Normed):
     rate = DROPOUT_RATE
 
     def __init__(self, noise_dim: int = 10, cond_dim: int = 9, norm: str = "batch",
-                 width: float = 1.0):
+                 width: float = 1.0, bn_axis_name: Optional[str] = None):
         super().__init__()
         if norm not in NORMS:
             raise ValueError(f"norm must be one of {NORMS}, got {norm!r}")
+        _no_axis_name(bn_axis_name)
         w = lambda c: generator_width(c, width)  # noqa: E731
         self.c0 = w(128)
         self.Dense_0 = nn.Linear(noise_dim + cond_dim, 256)
@@ -228,10 +238,12 @@ class AuxRegNeutron(_Normed):
     dropout_shapes = ((42, 42, 32), (19, 19, 64), (7, 17, 128), (1, 15, 256))
     _POOLS = ((2, 2), (2, 1), (2, 1), None)
 
-    def __init__(self, output_dim: int = 2, norm: str = "batch"):
+    def __init__(self, output_dim: int = 2, norm: str = "batch",
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         if norm not in NORMS:
             raise ValueError(f"norm must be one of {NORMS}, got {norm!r}")
+        _no_axis_name(bn_axis_name)
         chans = (1, 32, 64, 128, 256)
         for i in range(4):
             self.add_module(f"Conv_{i}", nn.Conv2d(chans[i], chans[i + 1], 3))

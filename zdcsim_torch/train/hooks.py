@@ -109,13 +109,13 @@ class WandBLogger(Callback):
             log.warning("wandb.log_experiments=true but wandb is not installed; disabling")
             self.enabled = False
             return
-        import dataclasses
+        from zdcsim_torch.config import to_dict
 
         self.run = wandb.init(
             project=getattr(cfg.wandb, "project", "zdcsim"),
             entity=getattr(cfg.wandb, "entity", None) or None,
             name=cfg.wandb.run_name or cfg.config.run_name,
-            config=_flatten(dataclasses.asdict(cfg)),
+            config=_flatten(to_dict(cfg)),
         )
 
     def on_epoch_end(self, epoch, metrics, state):

@@ -178,7 +178,8 @@ def _init_params(module: torch.nn.Module, n_experts: Optional[int],
                  generator: Optional[torch.Generator], device) -> Tree:
     """Flax's initialisers on ``module``'s parameter shapes, stacked on a
     leading ``[n_experts]`` axis (``None``: unstacked): kernels
-    ``lecun_normal`` (fan-in: every axis but the output's), biases zeros,
+    ``lecun_normal`` (fan-in: every axis but the output's; an
+    ``ExpertDense`` kernel's, its input axis), biases zeros,
     norm scales ones, the attention router's ``expert_queries``
     ``normal(stddev=0.02)``; zeros throughout for no ``generator``."""
     lead = () if n_experts is None else (n_experts,)
@@ -189,6 +190,8 @@ def _init_params(module: torch.nn.Module, n_experts: Optional[int],
             out[name] = torch.zeros(shape, device=device)
         elif name == "expert_queries":
             out[name] = 0.02 * torch.randn(shape, generator=generator, device=device)
+        elif name.rpartition(".")[2] == "kernel":  # ExpertDense's [E, I, O]: fan-in I
+            out[name] = _lecun_normal(shape, p.shape[1], generator, device)
         elif name.endswith(".weight") and p.ndim >= 2:
             out[name] = _lecun_normal(shape, math.prod(p.shape[1:]), generator, device)
         elif name.endswith(".weight"):

@@ -9,6 +9,9 @@ there. The streams are not JAX's: the tests hand the port JAX's draws.
 
 from __future__ import annotations
 
+import itertools
+from typing import Iterator
+
 import numpy as np
 import torch
 
@@ -21,6 +24,13 @@ def seeded_generator(entropy, device: str | torch.device = "cpu") -> torch.Gener
     of ``np.random.SeedSequence(entropy)``."""
     word = int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(word)
+
+
+def key_iterator(seed: int, device: str | torch.device = "cpu") -> Iterator[torch.Generator]:
+    """An endless stream of fresh generators from a base seed (JAX's
+    ``key_iterator``): the ``i``-th seeded from ``SeedSequence([seed, i])``."""
+    for i in itertools.count():
+        yield seeded_generator([int(seed), i], device)
 
 
 def fold_epoch_batch(seed: int, epoch: int, batch_idx: int,
