@@ -1,0 +1,6 @@
+"""The share of the traced window in which the device ran nothing."""
+
+
+def read(run):
+    t = run.trace
+    return None if t is None else 100.0 * (1.0 - t.busy_s / t.window_s)
