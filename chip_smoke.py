@@ -540,16 +540,9 @@ def card_line(query: str = "name,power.limit") -> str:
 
 def kernel_wrappers():
     """Every kernel wrapper of the port by name; each counts its launches."""
-    from zdcsim_torch.ops import decode_kernels as dk
-    from zdcsim_torch.ops import epilogue_kernels as ek
-    from zdcsim_torch.ops import fused_decode_kernels as fdk
+    from zdcsim_torch.ops import kernel_wrappers as wrappers
 
-    return {
-        **{name: getattr(dk, name) for name in KERNEL_PATHS["int8_pallas"]},
-        "fused_decode_front": fdk.fused_decode_front, "fused_decode": fdk.fused_decode,
-        "expm1_channel_sums": ek.expm1_channel_sums,
-        "routed_expm1_channel_sums": ek.routed_expm1_channel_sums,
-    }
+    return wrappers()
 
 
 SUB_COUNTS = {"mma_launches": "on conv_mma", "cluster_launches": "on clusters",
@@ -559,9 +552,10 @@ SUB_COUNTS = {"mma_launches": "on conv_mma", "cluster_launches": "on clusters",
 def reset_counts(wrappers):
     """Set every launch count to 0 (B's and D's tensor-core counts, A's and
     C's cluster counts and E's and F's bulk-ring counts too)."""
+    from zdcsim_torch.ops import COUNTERS
+
     for w in wrappers.values():
-        w.launches = 0
-        for attr in SUB_COUNTS:
+        for attr in COUNTERS:
             if hasattr(w, attr):
                 setattr(w, attr, 0)
 
@@ -1235,7 +1229,8 @@ def profile_serve(run, what, card, phase="profile"):
         wall_us = (time.perf_counter() - t) * 1e6
     spans, per_kernel = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # a host span's copy on the device timeline (a user annotation) is no work
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         k = per_kernel.setdefault(e.name, [0, 0.0])

@@ -55,6 +55,8 @@ BY_DESIGN = {
                                                   "(no JAX compile cache)",
     "zdcsim.ops.pallas_decode_fused.FUSED_BLOCK_ROWS": "zdcsim_torch.ops.fused_decode_kernels."
                                                        "stage_plan (cluster plans)",
+    "zdcsim.utils.profiling.StepTimer": "zdcsim_torch.train.loop's synchronised epoch time "
+                                        "split, and zdcsim_torch.utils.profiling.span",
 }
 # JAX modules whose twin has another name (the Pallas kernels' ports, the config module)
 MOVED = {

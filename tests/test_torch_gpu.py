@@ -676,8 +676,18 @@ def test_dyn_dispatch_equals_switch_on_the_card(serving_trees, which, precision)
 def test_bulk_graph_replay_equals_the_eager_dyn_loop(serving_trees, which, precision):
     """``simulate_bulk`` replays one CUDA graph per chunk: its output for a
     generator seed equals the eager dyn loop's on the same seed, on the
-    first call (which captures) and on the next; a replay launches no kernel
-    through the wrappers."""
+    first call (which captures) and on the next; the replays count the
+    wrappers' launches and the dispatch's lanes as the eager loop counts
+    them (the capture's counts, carried by the graph)."""
+    from zdcsim_torch.inference.switch_dispatch import tiled_switch_decode
+    from zdcsim_torch.ops import COUNTERS, kernel_wrappers
+    from zdcsim_torch.utils.profiling import read_counts
+
+    owners = [*kernel_wrappers().values(), tiled_switch_decode]
+
+    def counts():
+        return read_counts(owners, (*COUNTERS, "lanes"))
+
     cond = np.random.default_rng(4).standard_normal((300, 9), dtype=np.float32)
     eng = _engine(serving_trees, which, precision, 128)
     eng._build_switch(tile=32, dyn_dispatch=True)
@@ -685,14 +695,19 @@ def test_bulk_graph_replay_equals_the_eager_dyn_loop(serving_trees, which, preci
     def gen():
         return torch.Generator(device="cuda").manual_seed(7)
 
+    c0 = counts()
     eager, ids = eng.simulate_switch(cond, generator=gen(), return_experts=True)
+    c1 = counts()
     first, ids1 = eng.simulate_bulk(cond, generator=gen(), return_experts=True)
-    n0 = dk.ln_leaky_rowquant.launches
+    c2 = counts()
     again = eng.simulate_bulk(cond, generator=gen())
+    c3 = counts()
     torch.cuda.synchronize()
     assert list(eng._graphs) == [(128, 32)]
     assert torch.equal(first, eager) and torch.equal(again, eager) and torch.equal(ids1, ids)
-    assert dk.ln_leaky_rowquant.launches == n0
+    eager_n = {k: c1[k] - c0[k] for k in c0}
+    assert {k: c3[k] - c2[k] for k in c0} == eager_n
+    assert eager_n[(tiled_switch_decode, "lanes")] == 3 * (128 // 32 + 3) * 32
     assert torch.isfinite(eager).all() and eager.shape == (300, 56, 30)
 
 

@@ -228,17 +228,6 @@ def test_async_saver_raises_a_failed_write(tiny, tmp_path):
     saver.close()  # the error was reported: nothing left to raise
 
 
-def test_step_timer_leaves_out_the_warmup():
-    from zdcsim_torch.utils.profiling import StepTimer
-
-    timer = StepTimer(warmup_steps=2)
-    for _ in range(3):
-        timer.tick()
-    assert np.isnan(timer.steps_per_sec)  # one measured step: no interval yet
-    timer.tick()
-    assert timer.steps_per_sec > 0 and timer.samples_per_sec(8) > 0
-
-
 def test_prng_streams():
     from zdcsim_torch.utils.prng import eval_generator, fold_epoch_batch
 

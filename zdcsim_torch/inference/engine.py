@@ -84,6 +84,17 @@ a checkpoint of one (``zdcsim_torch/train/checkpoint.py``): the state holds
 the PyTorch layout, which ``convert.from_state_dict`` takes back to the Flax
 layout the engine is built from, so a trained full-width state serves on
 every precision, the kernel paths included.
+
+Tracing (``zdcsim_torch/utils/profiling.py``): the spans ``serve.bulk`` (one
+call of :meth:`FastSim.simulate_bulk` or :meth:`FastSim.simulate_switch`),
+``serve.chunk`` (each chunk), ``serve.route`` (:meth:`FastSim._route`) and
+``serve.replay`` (the dyn form's graph replay), around the dispatch's own
+``serve.table`` and ``serve.decode``; recorded only under a profiler.
+``FastSim.simulate_switch.showers`` counts the real rows the switch and
+bulk paths return (on a mesh, those of this rank's share of each chunk,
+the rows it decoded). A captured graph carries the counts of the work it
+holds: the kernel launches and the dispatch's lanes counted during its
+capture are taken back and added again at each replay.
 """
 
 from __future__ import annotations
@@ -112,10 +123,12 @@ from zdcsim_torch.models.neutron_fast import (
 from zdcsim_torch.models.proton import Generator
 from zdcsim_torch.models.proton_fast import fast_generator_apply, quantize_weights
 from zdcsim_torch.models.router import build_router, router_version
+from zdcsim_torch.ops import COUNTERS, kernel_wrappers
 from zdcsim_torch.parallel.mesh import (
     DATA_AXIS, batch_sharding, gather_rows, gather_state, place_tree, replicated,
 )
 from zdcsim_torch.utils.artifact import _unflatten
+from zdcsim_torch.utils.profiling import add_counts, read_counts, span, take_counts
 
 # precision -> int8 backend of fast_generator_apply (None: the float decode)
 _BACKENDS = {"f32": None, "bf16": None, "int8": "xla", "int8_pallas_ab": "pallas_ab",
@@ -428,7 +441,8 @@ class FastSim:
 
     @torch.no_grad()
     def _route(self, cond: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(self.router(cond)[1], dim=-1)
+        with span("serve.route"):
+            return torch.argmax(self.router(cond)[1], dim=-1)
 
     @torch.no_grad()
     def _sim_switch(self, cond: torch.Tensor, noise: torch.Tensor):
@@ -450,6 +464,15 @@ class FastSim:
         rows = batch_sharding(self._mesh)
         imgs, idx = sim(rows.place(cond), rows.place(noise))
         return gather_rows(self._mesh, imgs), gather_rows(self._mesh, idx)
+
+    def _count_showers(self, bs: int, m: int) -> None:
+        """Count the ``m`` real rows of a chunk of ``bs``; on a mesh, those
+        among this rank's rows of it."""
+        if self._mesh is not None:
+            rows = bs // self._mesh.shape[DATA_AXIS]
+            i = self._mesh.coords[self._mesh.axis_names.index(DATA_AXIS)]
+            m = min(max(m - i * rows, 0), rows)
+        FastSim.simulate_switch.showers += m
 
     def _check_batch(self, batch: int) -> None:
         n_data = self._mesh.shape[DATA_AXIS]
@@ -492,12 +515,15 @@ class FastSim:
         ``None`` uses the default one). Returns ``[N, H, W]`` float32 images
         (and the ``[N]`` expert ids with ``return_experts``).
         """
-        outs, idxs = [], []
-        for c, z, m in self._chunks(cond, noise, generator, self.batch_size):
-            imgs, idx = self._sharded(self._sim_switch, c, z)
-            outs.append(imgs[:m])
-            idxs.append(idx[:m])
-        images = torch.cat(outs)
+        with span("serve.bulk"):
+            outs, idxs = [], []
+            for c, z, m in self._chunks(cond, noise, generator, self.batch_size):
+                with span("serve.chunk"):
+                    imgs, idx = self._sharded(self._sim_switch, c, z)
+                    outs.append(imgs[:m])
+                    idxs.append(idx[:m])
+                self._count_showers(self.batch_size, m)
+            images = torch.cat(outs)
         return (images, torch.cat(idxs)) if return_experts else images
 
     def _bulk_graph(self):
@@ -506,7 +532,8 @@ class FastSim:
         captured after one eager warm-up on a side stream. On a mesh it
         holds the decode of this rank's rows alone: a collective in the
         capture would break it, so the rows are gathered after each
-        replay."""
+        replay. The counts of the capture are stored with the graph
+        (:func:`~zdcsim_torch.utils.profiling.take_counts`)."""
         key = (self.batch_size, self._tile)
         if key not in self._graphs:
             rows = self.batch_size
@@ -527,13 +554,15 @@ class FastSim:
             gc.collect()
             enabled = gc.isenabled()
             gc.disable()
+            before = read_counts([*kernel_wrappers().values(), tiled_switch_decode],
+                                 (*COUNTERS, "lanes"))
             try:
                 with torch.cuda.graph(graph):
                     imgs, idx = self._sim_switch(cond, noise)
             finally:
                 if enabled:
                     gc.enable()
-            self._graphs[key] = (graph, cond, noise, imgs, idx)
+            self._graphs[key] = (graph, cond, noise, imgs, idx, take_counts(before))
         return self._graphs[key]
 
     def simulate_bulk(self, cond, noise=None, generator: Optional[torch.Generator] = None,
@@ -545,24 +574,30 @@ class FastSim:
         and noise (drawn eagerly from ``generator`` as the eager loop draws
         them) are copied into the graph's inputs, and its outputs out of the
         graph's buffers, so the result equals :meth:`simulate_switch`'s.
-        Otherwise it is :meth:`simulate_switch`'s chunk loop. The kernels'
-        launch counters do not count replays. On a mesh each rank replays
-        the decode of its rows, then the rows are all-gathered."""
+        Otherwise it is :meth:`simulate_switch`'s chunk loop. Each replay
+        adds the counts of its graph's capture to the counters. On a mesh
+        each rank replays the decode of its rows, then the rows are
+        all-gathered."""
         if not (self._dyn and self.device.type == "cuda"):
             return self.simulate_switch(cond, noise, generator, return_experts)
-        graph, g_cond, g_noise, g_imgs, g_idx = self._bulk_graph()
-        rows = None if self._mesh is None else batch_sharding(self._mesh)
-        outs, idxs = [], []
-        for c, z, m in self._chunks(cond, noise, generator, self.batch_size):
-            g_cond.copy_(c if rows is None else rows.place(c))
-            g_noise.copy_(z if rows is None else rows.place(z))
-            graph.replay()
-            imgs, idx = g_imgs, g_idx
-            if rows is not None:  # after the replay, outside the graph
-                imgs, idx = gather_rows(self._mesh, imgs), gather_rows(self._mesh, idx)
-            outs.append(imgs[:m].clone())
-            idxs.append(idx[:m].clone())
-        images = torch.cat(outs)
+        with span("serve.bulk"):
+            graph, g_cond, g_noise, g_imgs, g_idx, counts = self._bulk_graph()
+            rows = None if self._mesh is None else batch_sharding(self._mesh)
+            outs, idxs = [], []
+            for c, z, m in self._chunks(cond, noise, generator, self.batch_size):
+                with span("serve.chunk"):
+                    g_cond.copy_(c if rows is None else rows.place(c))
+                    g_noise.copy_(z if rows is None else rows.place(z))
+                    with span("serve.replay"):
+                        graph.replay()
+                    imgs, idx = g_imgs, g_idx
+                    if rows is not None:  # after the replay, outside the graph
+                        imgs, idx = gather_rows(self._mesh, imgs), gather_rows(self._mesh, idx)
+                    outs.append(imgs[:m].clone())
+                    idxs.append(idx[:m].clone())
+                add_counts(counts)
+                self._count_showers(self.batch_size, m)
+            images = torch.cat(outs)
         return (images, torch.cat(idxs)) if return_experts else images
 
     def throughput_bulk(self, n_showers: int = 65536, warmup: bool = True,
@@ -847,3 +882,6 @@ class FastSim:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+FastSim.simulate_switch.showers = 0

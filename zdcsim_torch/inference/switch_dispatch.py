@@ -31,6 +31,13 @@ is Python, in one of two forms:
 inputs and outputs, differentiable, per-expert closures only, pad lanes
 writing to the dummy row (each real row is written once), and one
 out-of-place scatter of every chunk's outputs.
+
+``tiled_switch_decode.lanes`` counts the lanes decoded, pad lanes
+included: ``T`` for each used chunk of the per-expert form, ``T`` for each
+of the ``K`` chunks of the ``decode_dyn`` form. Its spans
+(``zdcsim_torch.utils.profiling.span``, recorded only under a profiler):
+``serve.table``, the chunk table with its host read, and ``serve.decode``,
+each chunk's decode call (its gathers and its scatter lie outside).
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+
+from zdcsim_torch.utils.profiling import span
 
 
 def _chunk_table(idx: torch.Tensor, e_count: int, tile: int, on_host_counts: bool):
@@ -96,28 +105,30 @@ def tiled_switch_decode(
     give the expert count. Returns ``[B, *out_shape]``.
     """
     b = idx.shape[0]
-    rows, e_k, used, _ = _chunk_table(idx, len(decode_fns), tile, decode_dyn is None)
-    rows = torch.where(used[:, None], rows, torch.full_like(rows, b))
+    with span("serve.table"):
+        rows, e_k, used, _ = _chunk_table(idx, len(decode_fns), tile, decode_dyn is None)
+        rows = torch.where(used[:, None], rows, torch.full_like(rows, b))
+        todo = (range(rows.shape[0]) if decode_dyn is not None
+                else [k for k, u in enumerate(used.tolist()) if u])
+        experts = None if decode_dyn is not None else e_k.tolist()
+    tiled_switch_decode.lanes += tile * len(todo)
 
     out = None
-    if decode_dyn is not None:
-        # every chunk; an unused one decodes row b - 1 into the dummy row b
-        read = torch.clamp(rows, max=b - 1)
-        for k in range(rows.shape[0]):
-            img = decode_dyn(e_k[k], noise[read[k]], cond[read[k]])
-            if out is None:
-                out = img.new_zeros((b + 1, *out_shape))
-            out.index_copy_(0, rows[k], img)
-        return out[:b]
-    for k, (u, e) in enumerate(zip(used.tolist(), e_k.tolist())):
-        if not u:
-            continue
-        r = rows[k]
-        img = decode_fns[e](noise[r], cond[r])
+    # the dyn form decodes every chunk; an unused one decodes row b - 1 into
+    # the dummy row b
+    read = rows if decode_dyn is None else torch.clamp(rows, max=b - 1)
+    for k in todo:
+        z, c = noise[read[k]], cond[read[k]]
+        with span("serve.decode"):
+            img = (decode_fns[experts[k]](z, c) if decode_dyn is None
+                   else decode_dyn(e_k[k], z, c))
         if out is None:
             out = img.new_zeros((b + 1, *out_shape))
-        out.index_copy_(0, r, img)
+        out.index_copy_(0, rows[k], img)
     return out[:b]
+
+
+tiled_switch_decode.lanes = 0
 
 
 Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]

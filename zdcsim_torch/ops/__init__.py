@@ -14,3 +14,25 @@ from zdcsim_torch.ops.losses import (  # noqa: F401
 )
 from zdcsim_torch.ops.routing import gumbel_softmax, straight_through_gates  # noqa: F401
 from zdcsim_torch.ops.ws import wasserstein_1d, wasserstein_per_channel  # noqa: F401
+
+# the counters of the kernel wrappers: every launch, and the launches that
+# ran on the tensor cores (B, D), in clusters of the plan's k (A, C, G, H)
+# or on the bulk ring (E, F)
+COUNTERS = ("launches", "mma_launches", "cluster_launches", "bulk_launches")
+
+
+def kernel_wrappers():
+    """``{name: wrapper}`` of every kernel wrapper that a serving path
+    launches (A-D, G, H, E, F), each with its :data:`COUNTERS`. The stage
+    wrappers ``fused_conv_int8`` and ``fused_norm_stage`` are left out:
+    nothing on a serving path calls them."""
+    from zdcsim_torch.ops import decode_kernels as dk
+    from zdcsim_torch.ops import epilogue_kernels as ek
+    from zdcsim_torch.ops import fused_decode_kernels as fdk
+
+    return {"ln_leaky_rowquant": dk.ln_leaky_rowquant, "up2_conv4_int8": dk.up2_conv4_int8,
+            "gn_leaky_rowquant": dk.gn_leaky_rowquant,
+            "row_resize_conv4_int8": dk.row_resize_conv4_int8,
+            "fused_decode_front": fdk.fused_decode_front, "fused_decode": fdk.fused_decode,
+            "expm1_channel_sums": ek.expm1_channel_sums,
+            "routed_expm1_channel_sums": ek.routed_expm1_channel_sums}

@@ -73,6 +73,13 @@ no TF32; bfloat16 work is unaffected) and :func:`deterministic` (cuDNN's
 deterministic algorithms), each restored after the step: two steps from one
 state on one set of draws are equal bit for bit (``train_step.precision``
 lists the settings).
+
+Tracing (``zdcsim_torch/utils/profiling.py``, recorded only under a
+profiler): the span ``train.step`` around each step, and inside it, for
+the dense and the switch step alike, ``train.route`` (the routing),
+``train.disc`` (the discriminator update, its generator fakes included),
+``train.gen`` (the generator and aux update), ``train.router`` (the router
+update) and ``train.finish`` (the EMA, the new state and the metrics).
 """
 
 from __future__ import annotations
@@ -99,6 +106,7 @@ from zdcsim_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS
 from zdcsim_torch.train.state import (
     Component, MoETrainState, ema_update, gated_update, make_optimizers, masked_expert_update,
 )
+from zdcsim_torch.utils.profiling import span
 
 Tree = Dict[str, torch.Tensor]
 
@@ -493,66 +501,73 @@ def build_train_step(modules: MoEModules, cfg, mesh=None):
         aux_keep, gen_keep_1, gen_keep_2 = (tuple(local_eb(k) for k in keep)
                                             for keep in (aux_keep, gen_keep_1, gen_keep_2))
         z1, z2 = (shard_rows(mesh, DATA_AXIS, z) for z in (noise_1, noise_2))
-        tau = tau_schedule(epoch, *taus).to(real.device)
-        idx, masks, w, active, active_f = route(state, cond, gumbel, tau)
+        with span("train.route"):
+            tau = tau_schedule(epoch, *taus).to(real.device)
+            idx, masks, w, active, active_f = route(state, cond, gumbel, tau)
         active_l = mine(active)
         bn_masks = local_eb(masks) if modules.masked else None  # each expert's routed sub-batch
-        with torch.no_grad():  # [E, B, H, W, 1]; its BatchNorm statistics are dropped
-            fake_1, _ = gen_forward(state.gen.params, state.gen.stats, z1, cond_l, gen_keep_1,
-                                    bn_masks)
 
         # ------ discriminator update ------
-        d_params = _leaves(state.disc.params)
-        real_scores, _, st1 = disc_forward(d_params, state.disc.stats,
-                                           real.expand(E_l, *real.shape), cond_l)
-        fake_scores, _, st2 = disc_forward(d_params, st1, fake_1, cond_l)
-        disc_loss_e = per_expert(hinge_discriminator_loss, gather_eb(real_scores)[..., 0],
-                                 gather_eb(fake_scores)[..., 0], masks) * w * active_f
-        disc_new = masked_expert_update(lrs["disc"], state.disc,
-                                        summed(_grad(disc_loss_e.sum(), d_params), DATA_AXIS),
-                                        active_l, new_stats=st2)
+        with span("train.disc"):
+            with torch.no_grad():  # [E, B, H, W, 1]; its BatchNorm statistics are dropped
+                fake_1, _ = gen_forward(state.gen.params, state.gen.stats, z1, cond_l,
+                                        gen_keep_1, bn_masks)
+            d_params = _leaves(state.disc.params)
+            real_scores, _, st1 = disc_forward(d_params, state.disc.stats,
+                                               real.expand(E_l, *real.shape), cond_l)
+            fake_scores, _, st2 = disc_forward(d_params, st1, fake_1, cond_l)
+            disc_loss_e = per_expert(hinge_discriminator_loss, gather_eb(real_scores)[..., 0],
+                                     gather_eb(fake_scores)[..., 0], masks) * w * active_f
+            disc_new = masked_expert_update(lrs["disc"], state.disc,
+                                            summed(_grad(disc_loss_e.sum(), d_params), DATA_AXIS),
+                                            active_l, new_stats=st2)
 
         # ------ generator + aux update against the updated discriminator ------
-        g_params, a_params = _leaves(state.gen.params), _leaves(state.aux.params)
-        fake1, gst1 = gen_forward(g_params, state.gen.stats, z1, cond_l, gen_keep_1, bn_masks)
-        fake2, gst2 = gen_forward(g_params, gst1, z2, cond_l, gen_keep_2, bn_masks)
-        s1, l1, dst1 = disc_forward(disc_new.params, disc_new.stats, fake1, cond_l)
-        _, l2, dst2 = disc_forward(disc_new.params, dst1, fake2, cond_l)
-        s1, l1, l2 = gather_eb(s1), gather_eb(l1), gather_eb(l2)
-        hinge_e = per_expert(hinge_generator_loss, s1[..., 0], masks)
-        div_e = per_expert(
-            lambda a, b, m: sdi_gan_regularization(a, b, noise_1, noise_2, std, di_strength,
-                                                   m, sdi_quirk), l1, l2, masks)
-        sums1 = gather_eb(torch.stack([photon_sums(f) for f in fake1]))
-        ints = [intensity_terms(sums1[e], intensity, in_strength, masks[e]) for e in range(E)]
-        int_loss_e, _, std_int_e, mean_int_e = (torch.stack(t) for t in zip(*ints))
-        aux_pred, ast = aux_forward(a_params, state.aux.stats, fake1, aux_keep,
-                                    bn_masks)  # [E, B, 2]
-        aux_loss_e = per_expert(lambda p, m: log_cosh_loss(positions, p, m),
-                                gather_eb(aux_pred), masks) * aux_strength
-        gen_total_e = (hinge_e + div_e + int_loss_e + aux_loss_e) * w * active_f
-        grads = summed(_grad(gen_total_e.sum(), {**{("g", k): v for k, v in g_params.items()},
-                                                 **{("a", k): v for k, v in a_params.items()}}),
-                       DATA_AXIS)
-        gen_new = masked_expert_update(lrs["gen"], state.gen,
-                                       {k: grads[("g", k)] for k in g_params}, active_l,
-                                       new_stats=gst2)
-        aux_new = masked_expert_update(lrs["aux"], state.aux,
-                                       {k: grads[("a", k)] for k in a_params}, active_l,
-                                       new_stats=ast)
-        # the G step's discriminator forwards advance the power iteration too
-        disc_new = remask_stats(disc_new, dst2, active_l)
+        with span("train.gen"):
+            g_params, a_params = _leaves(state.gen.params), _leaves(state.aux.params)
+            fake1, gst1 = gen_forward(g_params, state.gen.stats, z1, cond_l, gen_keep_1,
+                                      bn_masks)
+            fake2, gst2 = gen_forward(g_params, gst1, z2, cond_l, gen_keep_2, bn_masks)
+            s1, l1, dst1 = disc_forward(disc_new.params, disc_new.stats, fake1, cond_l)
+            _, l2, dst2 = disc_forward(disc_new.params, dst1, fake2, cond_l)
+            s1, l1, l2 = gather_eb(s1), gather_eb(l1), gather_eb(l2)
+            hinge_e = per_expert(hinge_generator_loss, s1[..., 0], masks)
+            div_e = per_expert(
+                lambda a, b, m: sdi_gan_regularization(a, b, noise_1, noise_2, std, di_strength,
+                                                       m, sdi_quirk), l1, l2, masks)
+            sums1 = gather_eb(torch.stack([photon_sums(f) for f in fake1]))
+            ints = [intensity_terms(sums1[e], intensity, in_strength, masks[e])
+                    for e in range(E)]
+            int_loss_e, _, std_int_e, mean_int_e = (torch.stack(t) for t in zip(*ints))
+            aux_pred, ast = aux_forward(a_params, state.aux.stats, fake1, aux_keep,
+                                        bn_masks)  # [E, B, 2]
+            aux_loss_e = per_expert(lambda p, m: log_cosh_loss(positions, p, m),
+                                    gather_eb(aux_pred), masks) * aux_strength
+            gen_total_e = (hinge_e + div_e + int_loss_e + aux_loss_e) * w * active_f
+            grads = summed(_grad(gen_total_e.sum(),
+                                 {**{("g", k): v for k, v in g_params.items()},
+                                  **{("a", k): v for k, v in a_params.items()}}), DATA_AXIS)
+            gen_new = masked_expert_update(lrs["gen"], state.gen,
+                                           {k: grads[("g", k)] for k in g_params}, active_l,
+                                           new_stats=gst2)
+            aux_new = masked_expert_update(lrs["aux"], state.aux,
+                                           {k: grads[("a", k)] for k in a_params}, active_l,
+                                           new_stats=ast)
+            # the G step's discriminator forwards advance the power iteration too
+            disc_new = remask_stats(disc_new, dst2, active_l)
 
         # ------ router update ------
-        sums_routed = sums1.detach()[idx, torch.arange(B, device=idx.device)]
-        mean_int_det = mean_int_e.detach() * active_f
-        router_out = router_step(
-            state, cond, gumbel, tau, idx, epoch,
-            s1.detach()[..., 0] if differentiable_gan else None, gen_total_e.detach(),
-            sums_routed, mean_int_det)
-        return finish(state, gen_new, disc_new, aux_new, router_out, tau, active, w,
-                      disc_loss_e, gen_total_e, div_e, int_loss_e, aux_loss_e, std_int_e,
-                      mean_int_det)
+        with span("train.router"):
+            sums_routed = sums1.detach()[idx, torch.arange(B, device=idx.device)]
+            mean_int_det = mean_int_e.detach() * active_f
+            router_out = router_step(
+                state, cond, gumbel, tau, idx, epoch,
+                s1.detach()[..., 0] if differentiable_gan else None, gen_total_e.detach(),
+                sums_routed, mean_int_det)
+        with span("train.finish"):
+            return finish(state, gen_new, disc_new, aux_new, router_out, tau, active, w,
+                          disc_loss_e, gen_total_e, div_e, int_loss_e, aux_loss_e, std_int_e,
+                          mean_int_det)
 
     # ------ the switch form: each sample through its routed expert ------
     def dispatch(fns, idx, inputs):
@@ -627,71 +642,76 @@ def build_train_step(modules: MoEModules, cfg, mesh=None):
                            _keep_masks(draws, "gen_keep_2", modules.generator, (2 * B,), True))
         n_gk = len(gen_keep_1)
         z1, z2 = own_rows(noise_1), own_rows(noise_2)
-        tau = tau_schedule(epoch, *taus).to(real.device)
-        idx, masks, w, active, active_f = route(state, cond, gumbel, tau)
+        with span("train.route"):
+            tau = tau_schedule(epoch, *taus).to(real.device)
+            idx, masks, w, active, active_f = route(state, cond, gumbel, tau)
         active_l, idx_s = mine(active), own_rows(idx)
         b_s = idx_s.shape[0]
         idx2, cond2 = torch.cat([idx_s, idx_s]), torch.cat([cond_s, cond_s])
         d_stats = every_expert(state.disc.stats)
 
         # ------ discriminator update ------
-        with torch.no_grad():
-            fake_1 = dispatch(gen_fns(every_expert(state.gen.params), n_gk), idx_s,
-                              {"z": z1, "c": cond_s, **named("gk", gen_keep_1)})
-        d_params = _leaves(every_expert(state.disc.params))
-        s, _ = dispatch(disc_fns(d_params, d_stats), idx2,
-                        {"img": torch.cat([real, fake_1]), "c": cond2})
-        real_sc, fake_sc = gathered(s[:b_s, 0]), gathered(s[b_s:, 0])
-        disc_loss_e = per_mask(lambda m: hinge_discriminator_loss(real_sc, fake_sc, m),
-                               masks) * w * active_f
-        disc_new = masked_expert_update(lrs["disc"], state.disc,
-                                        summed(_grad(disc_loss_e.sum(), d_params), WORLD),
-                                        active_l,
-                                        new_stats=advance_sn(state.disc, state.disc.stats,
-                                                             real, cond_s))
+        with span("train.disc"):
+            with torch.no_grad():
+                fake_1 = dispatch(gen_fns(every_expert(state.gen.params), n_gk), idx_s,
+                                  {"z": z1, "c": cond_s, **named("gk", gen_keep_1)})
+            d_params = _leaves(every_expert(state.disc.params))
+            s, _ = dispatch(disc_fns(d_params, d_stats), idx2,
+                            {"img": torch.cat([real, fake_1]), "c": cond2})
+            real_sc, fake_sc = gathered(s[:b_s, 0]), gathered(s[b_s:, 0])
+            disc_loss_e = per_mask(lambda m: hinge_discriminator_loss(real_sc, fake_sc, m),
+                                   masks) * w * active_f
+            disc_new = masked_expert_update(lrs["disc"], state.disc,
+                                            summed(_grad(disc_loss_e.sum(), d_params), WORLD),
+                                            active_l,
+                                            new_stats=advance_sn(state.disc, state.disc.stats,
+                                                                 real, cond_s))
 
         # ------ generator + aux update against the updated discriminator ------
-        g_params = _leaves(every_expert(state.gen.params))
-        a_params = _leaves(every_expert(state.aux.params))
-        fakes = dispatch(gen_fns(g_params, n_gk), idx2,
-                         {"z": torch.cat([z1, z2]), "c": cond2, **named("gk", gen_keep_2)})
-        fake1 = fakes[:b_s]
-        s, latents = dispatch(disc_fns(every_expert(disc_new.params), d_stats), idx2,
-                              {"img": fakes, "c": cond2})
-        s1, l1, l2 = gathered(s[:b_s, 0]), gathered(latents[:b_s]), gathered(latents[b_s:])
-        aux_pred = gathered(dispatch(aux_fns(a_params, len(aux_keep)), idx_s,
-                                     {"img": fake1, **named("ak", aux_keep)}))
-        hinge_e = per_mask(lambda m: hinge_generator_loss(s1, m), masks)
-        div_e = per_mask(lambda m: sdi_gan_regularization(
-            l1, l2, noise_1, noise_2, std, di_strength, m, sdi_quirk), masks)
-        sums = gathered(photon_sums(fake1))
-        ints = [intensity_terms(sums, intensity, in_strength, masks[e]) for e in range(E)]
-        int_loss_e, _, std_int_e, mean_int_e = (torch.stack(t) for t in zip(*ints))
-        aux_loss_e = per_mask(lambda m: log_cosh_loss(positions, aux_pred, m),
-                              masks) * aux_strength
-        gen_total_e = (hinge_e + div_e + int_loss_e + aux_loss_e) * w * active_f
-        grads = summed(_grad(gen_total_e.sum(), {**{("g", k): v for k, v in g_params.items()},
-                                                 **{("a", k): v for k, v in a_params.items()}}),
-                       WORLD)
-        gen_new = masked_expert_update(lrs["gen"], state.gen,
-                                       {k: grads[("g", k)] for k in g_params}, active_l)
-        aux_new = masked_expert_update(lrs["aux"], state.aux,
-                                       {k: grads[("a", k)] for k in a_params}, active_l)
-        disc_new = remask_stats(disc_new, advance_sn(disc_new, disc_new.stats, real, cond_s),
-                                active_l)
+        with span("train.gen"):
+            g_params = _leaves(every_expert(state.gen.params))
+            a_params = _leaves(every_expert(state.aux.params))
+            fakes = dispatch(gen_fns(g_params, n_gk), idx2,
+                             {"z": torch.cat([z1, z2]), "c": cond2, **named("gk", gen_keep_2)})
+            fake1 = fakes[:b_s]
+            s, latents = dispatch(disc_fns(every_expert(disc_new.params), d_stats), idx2,
+                                  {"img": fakes, "c": cond2})
+            s1, l1, l2 = gathered(s[:b_s, 0]), gathered(latents[:b_s]), gathered(latents[b_s:])
+            aux_pred = gathered(dispatch(aux_fns(a_params, len(aux_keep)), idx_s,
+                                         {"img": fake1, **named("ak", aux_keep)}))
+            hinge_e = per_mask(lambda m: hinge_generator_loss(s1, m), masks)
+            div_e = per_mask(lambda m: sdi_gan_regularization(
+                l1, l2, noise_1, noise_2, std, di_strength, m, sdi_quirk), masks)
+            sums = gathered(photon_sums(fake1))
+            ints = [intensity_terms(sums, intensity, in_strength, masks[e]) for e in range(E)]
+            int_loss_e, _, std_int_e, mean_int_e = (torch.stack(t) for t in zip(*ints))
+            aux_loss_e = per_mask(lambda m: log_cosh_loss(positions, aux_pred, m),
+                                  masks) * aux_strength
+            gen_total_e = (hinge_e + div_e + int_loss_e + aux_loss_e) * w * active_f
+            grads = summed(_grad(gen_total_e.sum(),
+                                 {**{("g", k): v for k, v in g_params.items()},
+                                  **{("a", k): v for k, v in a_params.items()}}), WORLD)
+            gen_new = masked_expert_update(lrs["gen"], state.gen,
+                                           {k: grads[("g", k)] for k in g_params}, active_l)
+            aux_new = masked_expert_update(lrs["aux"], state.aux,
+                                           {k: grads[("a", k)] for k in a_params}, active_l)
+            disc_new = remask_stats(disc_new,
+                                    advance_sn(disc_new, disc_new.stats, real, cond_s), active_l)
 
         # ------ router update (the constant GAN term) ------
-        mean_int_det = mean_int_e.detach() * active_f
-        router_out = router_step(state, cond, gumbel, tau, idx, epoch, None,
-                                 gen_total_e.detach(), sums.detach(), mean_int_det)
-        return finish(state, gen_new, disc_new, aux_new, router_out, tau, active, w,
-                      disc_loss_e, gen_total_e, div_e, int_loss_e, aux_loss_e, std_int_e,
-                      mean_int_det)
+        with span("train.router"):
+            mean_int_det = mean_int_e.detach() * active_f
+            router_out = router_step(state, cond, gumbel, tau, idx, epoch, None,
+                                     gen_total_e.detach(), sums.detach(), mean_int_det)
+        with span("train.finish"):
+            return finish(state, gen_new, disc_new, aux_new, router_out, tau, active, w,
+                          disc_loss_e, gen_total_e, div_e, int_loss_e, aux_loss_e, std_int_e,
+                          mean_int_det)
 
     body = step_switch if switch else step
 
     def train_step(state: MoETrainState, batch: Tree, draws, epoch: int):
-        with f32_matmuls(), deterministic():
+        with span("train.step"), f32_matmuls(), deterministic():
             return body(state, batch, draws, epoch)
 
     train_step.switch = switch
